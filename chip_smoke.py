@@ -5,15 +5,18 @@
 
 Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from the sources in this checkout (one nvcc per
-     source, all at once) into build/kernels/;
+  2. build every CUDA kernel from the sources in this checkout with nvcc
+     into build/kernels/;
   3. each kernel against its plain PyTorch version on the card;
   4. story generation at full width, configs final.yml (v1) and cascade.yml,
      through the serving entry point `Infer` with random weights from --seed:
      shapes, finite values in [-1, 1], the kernels' launch counts, the same
-     frames through the plain DFN, and a `generate_story` PNG walk;
-  5. timings on the card: each kernel beside its bound, its plain version
-     and one PyTorch library call, and the slice's frames/s.
+     frames through the plain DFN, float32 inside the entry point while
+     TF32 is allowed globally, and a `generate_story` PNG walk;
+  5. timings on the card: the slice's frames/s and its device busy time
+     from a torch.profiler trace; each kernel's device time from a trace,
+     and at the main path's batch in one CUDA graph, beside its bound, its
+     plain version and one PyTorch library call.
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -85,27 +88,78 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn) -> float:
-    """Mean device milliseconds per call. A spin kernel queued first keeps the
-    card busy while the host enqueues the timed calls, so their host overhead
-    is hidden and the events span device work only. (CUDA-graph capture is no
-    way round it: a grouped cuDNN conv1d hangs in capture at B >= 360.)"""
-    import torch
+HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMalloc", "cudaFree", "cudaMemcpy")  # runtime calls that stall the host
 
-    reps = _reps(fn)
+
+def trace(fn, reps: int):
+    """(device events, host runtime events) of `reps` calls of `fn` under
+    torch.profiler. Device events are the card's kernels, copies and sets,
+    with their CUDA durations; host gaps between them are not in them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    check(bool(dev), "torch.profiler recorded no device activity")
+    host = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cuda")]
+    return dev, host
+
+
+def by_name(events, reps: int) -> dict[str, float]:
+    """Microseconds per call by event name, largest first."""
+    sums: dict[str, float] = {}
+    for e in events:
+        sums[e.name] = sums.get(e.name, 0.0) + e.time_range.elapsed_us() / reps
+    return dict(sorted(sums.items(), key=lambda kv: -kv[1]))
+
+
+def device_ms(fn, label: str) -> float:
+    """Mean device milliseconds per call from a torch.profiler trace: the
+    summed durations of the card's work, so host overhead and host waits
+    between launches are excluded. Prints what the card ran per call and the
+    host runtime calls that wait or allocate."""
+    reps = _reps(fn, most=50)
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    enqueue_s = time.perf_counter() - t
-    torch.cuda.synchronize()
+    dev, host = trace(fn, reps)
+    names = by_name(dev, reps)
+    waits = {k: sum(1 for e in host if e.name == k) / reps for k in HOST_WAITS}
+    span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / reps
+    print(f"  {label}: per call {len(dev) / reps:.1f} device ops in a span of {span:.2f} us "
+          + ", ".join(f"{k[:60]} {v:.2f} us" for k, v in list(names.items())[:3])
+          + "; host waits/allocs per call "
+          + (", ".join(f"{k} {v:g}" for k, v in waits.items() if v) or "none"))
+    return sum(names.values()) / 1e3
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean milliseconds per call of `reps` calls captured in one CUDA graph
+    and replayed: no host work between launches and no profiler. Used at
+    B=90 only: a grouped cuDNN conv1d hung in capture at B >= 360."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int((2 * enqueue_s + 0.01) * 2e9))  # cycles at <= 2 GHz
+    torch.cuda.synchronize()
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -130,6 +184,7 @@ def random_generator_state(cfg, stories, seed: int):
     is far from the identity and the activations keep a useful range."""
     import torch
 
+    from cpcsv_tpu_torch.device import float32_math
     from cpcsv_tpu_torch.evaluation.drivers import _batch_motion_content
     from cpcsv_tpu_torch.models.factory import generator_from_config
 
@@ -161,7 +216,7 @@ def random_generator_state(cfg, stories, seed: int):
     hooks = [m.register_forward_pre_hook(calibrate) for m in net.modules()
              if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     motion, content = _batch_motion_content(cfg, stories)
-    with torch.no_grad():
+    with torch.no_grad(), float32_math():
         net.sample_videos(torch.from_numpy(motion).cuda(), torch.from_numpy(content).cuda(),
                           generator=gc)
     for h in hooks:
@@ -186,15 +241,18 @@ def main() -> int:
 
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
+    from cpcsv_tpu_torch.device import float32_math
     from cpcsv_tpu_torch.evaluation.drivers import Infer
     from cpcsv_tpu_torch.models import generator as generator_module
     from cpcsv_tpu_torch.ops.cuda import build
     from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
     from cpcsv_tpu_torch.ops.dynamic_filter import dynamic_filter_conv1d_plain
 
-    # float32 throughout, stated: cuDNN would otherwise run the convs in TF32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # TF32 allowed globally, as cuDNN allows it by default, and for matmuls
+    # too: the entry point must hold its float32 itself (phase 4 checks it),
+    # and the kernel comparisons and timings open the same float32 scope
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
 
     # ---------------------------------------------------------------- 1. card
     phase("1. card")
@@ -206,19 +264,18 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
-    print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+    print(f"global cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     # --------------------------------------------------------------- 2. build
     phase("2. build")
     t0 = time.perf_counter()
-    logs = build.build_all(["dfn"])
+    log = build.build("dfn")
     build.load("dfn")
     print(f"build: {time.perf_counter() - t0:.2f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  nvcc {name}: {line.strip()}")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"  nvcc dfn: {line.strip()}")
 
     # ---------------------------------------------------- 3. kernel vs plain
     phase("3. kernel vs plain")
@@ -234,8 +291,8 @@ def main() -> int:
                 img = torch.randn(B, C, L, generator=gen, device="cuda").to(dtype)
                 filt = torch.randn(B, 1, C, K, generator=gen, device="cuda").to(dtype)
                 out = dfn_cuda.dfn_forward(img, filt, pad)
-                torch.cuda.synchronize()
-                ref = dynamic_filter_conv1d_plain(img.float(), filt.float(), pad)
+                with float32_math():
+                    ref = dynamic_filter_conv1d_plain(img.float(), filt.float(), pad)
                 check(out.dtype == dtype and out.shape == ref.shape,
                       f"dfn {dtype} B={B} K={K}: {out.dtype} {tuple(out.shape)}")
                 err = (out.float() - ref).abs()
@@ -260,7 +317,9 @@ def main() -> int:
             }
             state = random_generator_state(cfg, batches[STORY_SIZES[-1]], args.seed)
             infer = Infer(cfg, state, device="cuda", output_dir=tmp, seed=args.seed)
-            rng_states, videos = {}, {}
+            rng_states, videos, inside = {}, {}, set()
+            hook = infer.net_g.upsample1.register_forward_pre_hook(lambda *_: inside.add(
+                (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
 
             dfn_cuda.launches = 0  # the main path: entry points only
             for n, batch in batches.items():
@@ -270,9 +329,15 @@ def main() -> int:
                 story_batches(SyntheticStoryDataset(STORY_SIZES[0], seed=args.seed),
                               STORY_SIZES[0]))
             count = dfn_cuda.launches
+            hook.remove()
             calls = len(batches) + 1
             check(count == calls,
                   f"{name}: dfn kernel launched {count} times in {calls} generator calls")
+            check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32
+                  and torch.backends.cuda.matmul.allow_tf32,
+                  f"{name}: TF32 flags (cudnn, matmul) inside the generator {inside}")
+            print(f"{name}: TF32 flags (cudnn, matmul) inside the generator {sorted(inside)}, "
+                  f"global after {torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32}")
             launches += count
             expected_launches += calls
 
@@ -312,6 +377,14 @@ def main() -> int:
                 print(f"{name}: {n} stories, sample_videos_np {med * 1e3:.2f} ms median of 5 "
                       f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
                       f"{slice_fps[(name, n)]:.1f} frames/s [{card}]")
+                # where the time goes: the card's work per call from a trace,
+                # against the untraced median call
+                dev, _ = trace(lambda: infer.sample_videos_np(batch), 3)
+                names = by_name(dev, 3)
+                busy = sum(names.values()) / 1e3
+                print(f"  trace: device busy {busy:.3f} ms per call in {len(dev) / 3:.0f} ops, "
+                      f"idle share {1 - busy / (med * 1e3):.3f}; top: "
+                      + "; ".join(f"{k[:70]} {v:.1f} us" for k, v in list(names.items())[:6]))
             print(f"{name}: peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
             del infer, state
@@ -320,31 +393,36 @@ def main() -> int:
 
     # ------------------------------------------------- 5a. kernel timings
     phase("5. kernel timings")
-    rows = {}
     for B in (90, 1440):
         K, pad = TAPS[0]
         img = torch.randn(B, C, L, generator=gen, device="cuda")
         filt = torch.randn(B, 1, C, K, generator=gen, device="cuda")
-        lib = F.conv1d(img.reshape(1, B * C, L), filt.reshape(B, C, K), padding=pad, groups=B)
-        check(torch.allclose(lib.reshape(B, 1, -1), dfn_cuda.dfn_forward(img, filt, pad),
-                             rtol=1e-5, atol=1e-5), "grouped conv1d disagrees with the kernel")
         fns = {
             "kernel": lambda: dfn_cuda.dfn_forward(img, filt, pad),
             "plain": lambda: dynamic_filter_conv1d_plain(img, filt, pad),
             "library": lambda: F.conv1d(img.reshape(1, B * C, L), filt.reshape(B, C, K),
                                         padding=pad, groups=B),
         }
-        dev = {k: device_ms(f) for k, f in fns.items()}
-        call = {k: event_ms(f) for k, f in fns.items()}
+        with float32_math():  # the plain einsum and the library conv in float32
+            check(torch.allclose(fns["library"]().reshape(B, 1, -1), fns["kernel"](),
+                                 rtol=1e-5, atol=1e-5), "grouped conv1d disagrees with the kernel")
+            dev = {k: device_ms(f, f"{k} B={B}") for k, f in fns.items()}
+            call = {k: event_ms(f) for k, f in fns.items()}
+            if B == 90:
+                graphed = {k: graph_ms(f) for k, f in fns.items()}
+                print(f"dfn B={B} f32 [{card}]: us/call in one CUDA graph "
+                      + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in graphed.items()))
         bound, bound_by = dfn_bound(B, C, L, K, pad, 4)
-        rows[B] = (dev, bound, bound_by)
-        print(f"dfn B={B} f32 [{card}]: device us/launch kernel {dev['kernel'] * 1e3:.2f}, "
+        print(f"dfn B={B} f32 [{card}]: traced device us/call kernel {dev['kernel'] * 1e3:.2f}, "
               f"plain {dev['plain'] * 1e3:.2f}, grouped conv1d {dev['library'] * 1e3:.2f}; "
               f"per call back to back kernel {call['kernel'] * 1e3:.2f}, plain "
               f"{call['plain'] * 1e3:.2f}, grouped conv1d {call['library'] * 1e3:.2f}; "
               f"bound {bound * 1e3:.3f} us ({bound_by})")
 
-    dev, bound, bound_by = rows[90]  # the main path's shape: 18 stories x 5 frames
+    # The main path's shape, 18 stories x 5 frames, timed in one CUDA graph:
+    # the trace gives the library's 90 per-group cuDNN kernels about four
+    # times the graph's time, so the graph is the figure the line reports.
+    bound, bound_by = dfn_bound(90, C, L, *TAPS[0], 4)
     kernels = [{
         "name": "dfn_forward",
         "route": "cuda",
@@ -352,11 +430,11 @@ def main() -> int:
         "replaces": dfn_cuda.REPLACES,
         "launches": launches,
         "max_abs_err": max_err[torch.float32],
-        "ms": dev["kernel"],
-        "plain_ms": dev["plain"],
+        "ms": graphed["kernel"],
+        "plain_ms": graphed["plain"],
         "bound_ms": bound,
         "bound_by": bound_by,
-        "library_ms": dev["library"],
+        "library_ms": graphed["library"],
     }]
     phase("done")
     print(json.dumps({"kernels": kernels}))

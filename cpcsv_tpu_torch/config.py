@@ -7,9 +7,8 @@ Merge semantics (reference `miscc/config.py:68-99`):
   * type mismatches raise ``ValueError`` (ints are accepted for floats)
 
 The port keeps its own copy so that it imports nothing of `cpcsv_tpu`. Keys
-that only steer the JAX package's TPU lowering (MESH_SHAPE, USE_PALLAS,
-REMAT, SCAN_STEPS, BN_BACKEND, ADAM_MU_DTYPE) are parsed for schema parity
-and have no effect on the port's eval-mode generator.
+it does not honour yet are parsed for schema parity and must keep their
+defaults: `models.factory.generator_from_config` refuses other values.
 """
 
 from __future__ import annotations

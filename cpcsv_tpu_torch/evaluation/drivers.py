@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from cpcsv_tpu_torch.config import Config
-from cpcsv_tpu_torch.device import resolve_device
+from cpcsv_tpu_torch.device import float32_math, resolve_device
 from cpcsv_tpu_torch.models.factory import generator_from_config
 from cpcsv_tpu_torch.utils.image import save_png
 
@@ -58,14 +58,16 @@ class Infer:
     @torch.no_grad()
     def sample_videos_np(self, batch, seg: bool = False):
         """Story batch -> (video (B, T, 64, 64, 3), mask (B*T, 64, 64, 1) or
-        None), numpy float32."""
+        None), numpy float32, computed in float32 whatever the global TF32
+        flags say."""
         motion, content = _batch_motion_content(self.cfg, batch)
-        out = self.net_g.sample_videos(
-            torch.from_numpy(motion).to(self.device),
-            torch.from_numpy(content).to(self.device),
-            seg=seg,
-            generator=self.generator,
-        )
+        with float32_math():
+            out = self.net_g.sample_videos(
+                torch.from_numpy(motion).to(self.device),
+                torch.from_numpy(content).to(self.device),
+                seg=seg,
+                generator=self.generator,
+            )
         mask = out.seg.cpu().numpy() if out.seg is not None else None
         return out.image.cpu().numpy(), mask
 

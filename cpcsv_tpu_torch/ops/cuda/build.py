@@ -3,8 +3,7 @@
 Each source `cpcsv_tpu_torch/csrc/<name>.cu` exposes a plain C interface and
 becomes `build/kernels/lib<name>-<hash>.so` at the root of the checkout, the
 hash being that of the source, so an edited source is rebuilt and a built one
-is reused. Builds happen at first CUDA use, never at import; `build_all`
-starts one `nvcc` per source and waits for all of them.
+is reused. Builds happen at first CUDA use, never at import.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
@@ -43,46 +42,30 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def _command(name: str, out: Path) -> list[str]:
-    return [
-        _nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu"),
-    ]
-
-
-def build_all(names: list[str]) -> dict[str, str]:
-    """Compile every source not built yet, one `nvcc` each, all at once.
-    Returns each compiler's output (register and shared-memory use)."""
+def build(name: str) -> str:
+    """Compile `csrc/<name>.cu` unless it is built already. Returns nvcc's
+    output (register and shared-memory use), empty when nothing was built."""
+    out = library_path(name)
+    if out.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (
-            subprocess.Popen(
-                _command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            ),
-            tmp,
-            out,
-        )
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{logs[name]}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return logs
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA kernel build of {name} failed (nvcc exited "
+                           f"{proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     with _lock:
         if name not in _loaded:
-            build_all([name])
+            build(name)
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]

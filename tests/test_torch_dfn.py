@@ -66,7 +66,7 @@ def test_cpu_call_never_builds(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU tensor must not build the CUDA kernel")
 
-    monkeypatch.setattr(build, "build_all", refuse)
+    monkeypatch.setattr(build, "build", refuse)
     monkeypatch.setattr(build, "load", refuse)
     before = dfn_cuda.launches
     image, filters = (torch.from_numpy(a) for a in _inputs(2, 21, seed=4))

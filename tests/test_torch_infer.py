@@ -53,6 +53,32 @@ def test_generate_story_writes_both_trees(cascade_setup, tmp_path):
     assert gen == os.path.join(str(tmp_path), "Evaluation", "cascade_model", "walk", "generate")
 
 
+def test_sample_videos_np_holds_float32(cascade_setup, monkeypatch):
+    """TF32 allowed globally (cuDNN's default) is off inside the entry point
+    and allowed again after it."""
+    cfg, state = cascade_setup
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    infer = Infer(cfg, state, device="cpu")
+    inside = []
+    infer.net_g.upsample1.register_forward_pre_hook(lambda *_: inside.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    infer.sample_videos_np(next(story_batches(SyntheticStoryDataset(1), 1)))
+    assert inside == [(False, False)]
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.mark.parametrize("key,value", [
+    ("MESH_SHAPE", "data:4"), ("USE_PALLAS", True), ("REMAT", True), ("SCAN_STEPS", 1),
+    ("BN_BACKEND", "pallas"), ("ADAM_MU_DTYPE", "bfloat16"), ("USE_INFONCE", True),
+    ("INFONCE_TEMPERATURE", 0.5),
+])
+def test_generator_refuses_keys_it_does_not_honour(key, value):
+    cfg = config_from_file("final.yml").with_updates(GAN=TINY, **{key: value})
+    with pytest.raises(NotImplementedError, match=key):
+        generator_from_config(cfg)
+
+
 def test_infer_without_a_card_raises(cascade_setup, monkeypatch):
     cfg, state = cascade_setup
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
