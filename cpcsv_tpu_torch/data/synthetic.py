@@ -1,6 +1,7 @@
 """Deterministic synthetic stories with the Pororo batch schema (counterpart
-of `cpcsv_tpu/data/synthetic.py`: the same items from the same seed), and a
-plain batching iterator for them."""
+of `cpcsv_tpu/data/synthetic.py`: the same items from the same seed), a
+plain batching iterator for them, and the train step's synthetic batches
+(`synthetic_batches`, counterpart of `cpcsv_tpu/utils/benchutil.py:100-123`)."""
 
 from __future__ import annotations
 
@@ -54,3 +55,25 @@ def story_batches(dataset, batch_size: int) -> Iterator[dict]:
             else [it[key] for it in items]
             for key in items[0]
         }
+
+
+def synthetic_batches(cfg, b_st: int, b_im: int, seed: int = 0) -> tuple[dict, dict]:
+    """(st_batch, im_batch) numpy float32 dicts in the train step's schema,
+    the same values as the JAX package's from the same seed (without the
+    order-consistency fields: the port does not train that branch yet)."""
+    T = cfg.VIDEO_LEN
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def labels(*shape):
+        return (rng.random(shape) < 0.3).astype(np.float32)
+
+    st_batch = {"images": normal(b_st, T, 64, 64, 3), "description": normal(b_st, T, 356),
+                "labels": labels(b_st, T, 9)}
+    im_batch = {"images": normal(b_im, 64, 64, 3), "description": normal(b_im, 356),
+                "labels": labels(b_im, 9), "content": normal(b_im, T, 356)}
+    if cfg.SEGMENT_LEARNING:
+        im_batch["images_seg"] = normal(b_im, 64, 64, 1)
+    return st_batch, im_batch

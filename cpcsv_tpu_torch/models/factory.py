@@ -1,9 +1,14 @@
-"""Generator construction from a Config (counterpart of the generator part of
+"""Model construction from a Config (counterpart of
 `cpcsv_tpu/models/factory.py`; reference `trainer.py:82-97`)."""
 
 from __future__ import annotations
 
 from cpcsv_tpu_torch.config import Config
+from cpcsv_tpu_torch.models.discriminators import (
+    ImageDiscriminator,
+    SegDiscriminator,
+    StoryDiscriminator,
+)
 from cpcsv_tpu_torch.models.generator import StoryGenerator
 
 # Keys of the JAX package that the port parses but does not honour: its TPU
@@ -42,3 +47,26 @@ def generator_from_config(cfg: Config) -> StoryGenerator:
         torch_repeat_quirk=cfg.TORCH_REPEAT_QUIRK,
         fused_upsample=cfg.FUSED_UPSAMPLE,
     )
+
+
+# Training settings the port's train step does not cover yet, with the slice
+# that brings each.
+NOT_TRAINED_YET = {
+    "CASCADE_MODEL": (True, "the cascade training terms (train_autoencoder, latent and "
+                            "reconstruct MSE) come with the next training slice"),
+    "USE_SEQ_CONSISTENCY": (True, "the VideoEncoder order-consistency branch comes with a "
+                                  "later training slice"),
+    "SEGMENT_LEARNING": (False, "the training slice ports the segment-learning generator "
+                                "(final.yml); the plain one comes with a later slice"),
+}
+
+
+def build_models(cfg: Config):
+    """(G, D_im, D_st, D_se) for training, on the CPU, in float32."""
+    for key, (refused, why) in NOT_TRAINED_YET.items():
+        if getattr(cfg, key) == refused:
+            raise NotImplementedError(f"{key}={refused!r}: {why}")
+    net_g = generator_from_config(cfg)
+    kw = dict(ndf=cfg.GAN.DF_DIM, nef=cfg.GAN.CONDITION_DIM, text_dim=cfg.TEXT.DIMENSION,
+              label_num=cfg.LABEL_NUM)
+    return net_g, ImageDiscriminator(**kw), StoryDiscriminator(**kw), SegDiscriminator(**kw)

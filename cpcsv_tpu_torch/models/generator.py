@@ -1,4 +1,4 @@
-"""StoryGenerator of the PyTorch port, eval mode (serving).
+"""StoryGenerator of the PyTorch port.
 
 Counterpart of `cpcsv_tpu/models/generator.py`, both variants behind the
 `cascade` flag (reference `model.py:214-483`, `cascade_model.py:221-540`):
@@ -19,8 +19,10 @@ None the three are drawn from `generator` in the JAX package's order: CA eps
 (B, 124), then the motion GRU's h0 noise (B, 365), then the per-step noise
 (B, T, 100).
 
-Train mode (batch-statistics BN, the DFN backward) belongs to the training
-slice; BatchNorm raises unless the module is in eval mode.
+The module's mode picks the BatchNorm statistics: eval mode serves with the
+running ones; train mode normalises with the batch's and updates each BN's
+running statistics in call order, and on the card the DFN's gradient comes
+from its backward kernel (`ops/dynamic_filter.py`).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Building blocks of the generator, NCHW, eval mode.
+"""Building blocks of the generator and the discriminators, NCHW.
 
 Counterpart of `cpcsv_tpu/ops/blocks.py`. Module names and parameter shapes
 follow the reference torch layout (`model.py:16-34`, `cascade_model.py:36-41`),
@@ -9,9 +9,12 @@ so a reference `netG_epoch_E.pth`, or a JAX checkpoint converted with
   DownBlock  = Sequential(Conv2d(3, s2, bias), BN2d, ReLU) -> "<name>.0.*", "<name>.1.*"
   DenseBN    = Sequential(Linear, BN1d[, act])             -> "<name>.0.*", "<name>.1.*"
 
-BatchNorm here is eval mode only: it normalises with the running statistics
-exactly as flax's `_normalize` does (`cpcsv_tpu/ops/blocks.py:61-71, 87-102`).
-Train-mode BN, with its two reduction kernels, belongs to the training slice.
+BatchNorm follows the module's mode. In eval mode it normalises with the
+running statistics exactly as flax's `_normalize` does
+(`cpcsv_tpu/ops/blocks.py:61-71, 87-102`). In train mode it normalises with
+the batch statistics from the `bn_stats` kernel, differentiates through the
+`bn_grad_reduce` kernel (`ops/batchnorm.py`), and updates the running
+statistics in call order, as flax threads `batch_stats` through one apply.
 """
 
 from __future__ import annotations
@@ -20,26 +23,31 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cpcsv_tpu_torch.ops.batchnorm import batch_norm_train, update_running_stats
 from cpcsv_tpu_torch.ops.fused_upsample import upsample2x_conv3x3
 
 BN_EPS = 1e-5
 
 
-class _EvalBatchNorm:
+class _BatchNorm:
     """Mixin for torch's BatchNorm classes: same parameters and buffers
     (weight, bias, running_mean, running_var, num_batches_tracked), forward
-    in eval mode only, in float32:
+    in float32, in either mode:
 
         y = (x - mean) * (rsqrt(var + eps) * scale) + bias     (flax order)
+
+    with the batch statistics in train mode (then the running statistics are
+    updated, and num_batches_tracked counts up as in torch; it is inert at
+    momentum 0.1), the running ones in eval mode.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm (batch statistics, the bn_stats / "
-                "bn_grad_reduce kernels) comes with the training slice of the "
-                "port; call .eval() on the model"
-            )
+            y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps)
+            update_running_stats(self.running_mean, self.running_var, mean, var,
+                                 x.numel() // x.shape[1])
+            self.num_batches_tracked.add_(1)
+            return y
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mean = self.running_mean.float().view(shape)
         mul = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
@@ -47,12 +55,12 @@ class _EvalBatchNorm:
         return y.to(x.dtype)
 
 
-class BatchNorm1d(_EvalBatchNorm, nn.BatchNorm1d):
+class BatchNorm1d(_BatchNorm, nn.BatchNorm1d):
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS)
 
 
-class BatchNorm2d(_EvalBatchNorm, nn.BatchNorm2d):
+class BatchNorm2d(_BatchNorm, nn.BatchNorm2d):
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS)
 
@@ -60,6 +68,12 @@ class BatchNorm2d(_EvalBatchNorm, nn.BatchNorm2d):
 def Conv3x3(in_channels: int, out_channels: int) -> nn.Conv2d:
     """3x3 conv, stride 1, padding 1, no bias (reference `conv3x3`)."""
     return nn.Conv2d(in_channels, out_channels, 3, 1, 1, bias=False)
+
+
+def Conv4x4s2(in_channels: int, out_channels: int) -> nn.Conv2d:
+    """4x4 conv, stride 2, padding 1, no bias: halves H and W (the
+    discriminators' first layer, reference `model.py:498`)."""
+    return nn.Conv2d(in_channels, out_channels, 4, 2, 1, bias=False)
 
 
 class UpBlock(nn.Sequential):

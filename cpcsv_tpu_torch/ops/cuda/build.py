@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernels with `nvcc` and loads them with `ctypes`.
 
-Each source `cpcsv_tpu_torch/csrc/<name>.cu` exposes a plain C interface and
-becomes `build/kernels/lib<name>-<hash>.so` at the root of the checkout, the
-hash being that of the source, so an edited source is rebuilt and a built one
-is reused. Builds happen at first CUDA use, never at import.
+Each source `cpcsv_tpu_torch/csrc/<name>.cu` (SOURCES: `dfn`, `bn`) exposes a
+plain C interface and becomes `build/kernels/lib<name>-<hash>.so` at the root
+of the checkout, the hash being that of the source, so an edited source is
+rebuilt and a built one is reused. Builds happen at first CUDA use, never at
+import, one nvcc process per source.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
@@ -22,6 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "arch=compute_90a,code=sm_90a"
+SOURCES = ("dfn", "bn")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

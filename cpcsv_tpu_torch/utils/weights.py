@@ -1,15 +1,17 @@
-"""JAX generator variables -> the port's `state_dict`.
+"""JAX variables -> the port's `state_dict`s.
 
-Counterpart of the generator part of `cpcsv_tpu/utils/export_torch.py`
-(`export_generator_variables`). The port's module names are the reference
-torch layout's, so the result, like a reference `netG_epoch_E.pth`, loads
-with ``load_state_dict(strict=True)``:
+Counterpart of `cpcsv_tpu/utils/export_torch.py` (`export_generator_variables`,
+`export_discriminator_variables`). The port's module names are the reference
+torch layout's, so the result, like a reference `netG_epoch_E.pth` or
+`netD_*.pth`, loads with ``load_state_dict(strict=True)``:
 
   * dense kernels (I, O) -> Linear weight (O, I)
   * conv kernels (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw)
   * GRU stacks keep the [r|z|n] gate order, transposed
   * BN scale / bias / mean / var -> weight / bias / running_mean /
     running_var, plus num_batches_tracked = 0 (inert at momentum 0.1)
+  * a spectral-normed conv's kernel -> weight_orig, its u -> weight_u, and
+    weight_v = normalize(W_matᵀ u), the v of torch's next power iteration
 """
 
 from __future__ import annotations
@@ -88,3 +90,55 @@ def generator_state_dict_from_jax(
                 out[f"{name}.0.bias"] = _tensor(params[name]["conv"]["bias"])
                 _bn(out, params[name]["bn"], stats[name]["bn"], f"{name}.1")
     return out
+
+
+def _sn_conv(out, params, spectral, prefix):
+    w = _unconv(params["kernel"])
+    u = _tensor(spectral["u"])
+    w_mat = w.reshape(w.shape[0], -1).double()
+    v = w_mat.t() @ u.double()
+    out[f"{prefix}.weight_orig"] = w
+    out[f"{prefix}.weight_u"] = u
+    out[f"{prefix}.weight_v"] = (v / max(float(v.norm()), 1e-12)).float()
+    if "bias" in params:
+        out[f"{prefix}.bias"] = _tensor(params["bias"])
+
+
+def discriminator_state_dict_from_jax(variables: dict, kind: str) -> dict[str, torch.Tensor]:
+    """{Image,Seg,Story}Discriminator {'params', 'batch_stats', 'spectral'}
+    (numpy leaves) -> state_dict of the port's discriminator of `kind`
+    ("image" | "seg" | "story"). No VideoEncoder: the port has none yet."""
+    if kind not in ("image", "seg", "story"):
+        raise ValueError(f"kind must be image|seg|story, got {kind!r}")
+    params, stats, spectral = variables["params"], variables["batch_stats"], variables["spectral"]
+    out: dict[str, torch.Tensor] = {}
+    enc, enc_st, enc_sn = params["encode_img"], stats["encode_img"], spectral["encode_img"]
+    if kind == "story":
+        _sn_conv(out, enc["c0"], enc_sn["c0"], "encode_img.0")
+    else:
+        out["encode_img.0.weight"] = _unconv(enc["c0"]["conv"]["kernel"])
+    for i, idx in enumerate((2, 5, 8)):
+        _sn_conv(out, enc[f"c{i + 1}"], enc_sn[f"c{i + 1}"], f"encode_img.{idx}")
+        _bn(out, enc[f"bn{i + 1}"], enc_st[f"bn{i + 1}"], f"encode_img.{idx + 1}")
+    head, head_sn = params["get_cond_logits"], spectral["get_cond_logits"]
+    _sn_conv(out, head["conv"], head_sn["conv"], "get_cond_logits.outlogits.0")
+    _bn(out, head["bn"], stats["get_cond_logits"]["bn"], "get_cond_logits.outlogits.1")
+    _sn_conv(out, head["out"], head_sn["out"], "get_cond_logits.outlogits.3")
+    if kind != "story":
+        out["cate_classify.weight"] = _unconv(params["cate_classify"]["conv"]["kernel"])
+    return out
+
+
+def load_jax_train_state(state, jax_state) -> None:
+    """Loads a JAX `TrainState` (its NetStates' params, batch_stats and
+    spectral, numpy leaves) into the port's `train.state.TrainState`, strictly.
+    The Adam moments are not carried over: the optimizers keep theirs."""
+    state.gen.load_state_dict(generator_state_dict_from_jax(
+        {"params": jax_state.gen.params, "batch_stats": jax_state.gen.batch_stats},
+        use_segment=True, cascade=False), strict=True)
+    for name, kind in (("d_im", "image"), ("d_st", "story"), ("d_se", "seg")):
+        net = getattr(jax_state, name)
+        variables = {"params": net.params, "batch_stats": net.batch_stats,
+                     "spectral": net.spectral}
+        getattr(state, name).load_state_dict(
+            discriminator_state_dict_from_jax(variables, kind), strict=True)

@@ -2,9 +2,11 @@
 
 On the CPU, its plain version is held against the JAX package's einsum path
 and its Pallas kernel in interpret mode, at the model's shape (C=3, L=124,
-K=21, pad 10) and at K=7, for odd batches. The CUDA kernel is held against
-the plain version in the `cuda`-marked test, which skips without a card;
-JAX is reached through a fixture, so that test runs where JAX is absent:
+K=21, pad 10) and at K=7, for odd batches, and the plain backward against
+`jax.grad` of the einsum path. The CUDA kernels, forward and backward, are
+held against the plain versions in the `cuda`-marked tests, which skip
+without a card; JAX is reached through a fixture, so those tests run where
+JAX is absent:
 
     python -m pytest tests/test_torch_dfn.py -m cuda
 """
@@ -62,21 +64,40 @@ def test_plain_takes_any_filter_count(jax_dfn):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("B,K,pad", SHAPES)
+def test_plain_backward_matches_jax_grad(jax_dfn, B, K, pad):
+    import jax
+    import jax.numpy as jnp
+
+    image, filters = _inputs(B, K, seed=B * 10 + K)
+    dout = np.random.default_rng(B + K).standard_normal((B, 1, L + 2 * pad - K + 1)).astype(
+        np.float32)
+    ours = dynamic_filter.dynamic_filter_conv1d_backward_plain(
+        *(torch.from_numpy(a) for a in (image, filters, dout)), pad)
+    _, vjp = jax.vjp(lambda i, f: jax_dfn[0](i, f, pad), jnp.asarray(image), jnp.asarray(filters))
+    for a, r in zip(ours, vjp(jnp.asarray(dout))):
+        # float32 sums of up to 124 products in other orders
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5, atol=1e-4)
+
+
 def test_cpu_call_never_builds(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU tensor must not build the CUDA kernel")
 
     monkeypatch.setattr(build, "build", refuse)
     monkeypatch.setattr(build, "load", refuse)
-    before = dfn_cuda.launches
-    image, filters = (torch.from_numpy(a) for a in _inputs(2, 21, seed=4))
-    assert dynamic_filter.dynamic_filter_conv1d(image, filters, 10).shape == (2, 1, L)
-    # the kernel's wrapper itself refuses CPU tensors and tracked gradients
-    # before it would build anything
+    before = dict(dfn_cuda.launches)
+    image, filters = (torch.from_numpy(a).requires_grad_() for a in _inputs(2, 21, seed=4))
+    out = dynamic_filter.dynamic_filter_conv1d(image, filters, 10)
+    assert out.shape == (2, 1, L)
+    out.sum().backward()  # the CPU gradient is autograd of the plain version
+    assert image.grad.shape == image.shape and filters.grad.shape == filters.shape
+    # the kernels' wrappers themselves refuse CPU tensors before they would
+    # build anything
     with pytest.raises(ValueError, match="CUDA"):
-        dfn_cuda.dfn_forward(image, filters, 10)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        dfn_cuda.dfn_forward(image.requires_grad_(), filters, 10)
+        dfn_cuda.dfn_forward(image.detach(), filters.detach(), 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        dfn_cuda.dfn_backward(image.detach(), filters.detach(), out.detach(), 10)
     assert dfn_cuda.launches == before
 
 
@@ -87,11 +108,29 @@ def test_cuda_kernel_matches_plain(dtype):
         pytest.skip("needs a CUDA device")
     for B, K, pad in SHAPES + [(90, 21, 10), (1440, 21, 10)]:
         image, filters = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(B, K, seed=B))
-        before = dfn_cuda.launches
+        before = dfn_cuda.launches["dfn_forward"]
         out = dynamic_filter.dynamic_filter_conv1d(image, filters, pad)
         torch.cuda.synchronize()
-        assert dfn_cuda.launches == before + 1 and out.dtype == dtype
+        assert dfn_cuda.launches["dfn_forward"] == before + 1 and out.dtype == dtype
         ref = dynamic_filter.dynamic_filter_conv1d_plain(image.float(), filters.float(), pad)
         # f32: the sum order differs; bf16: one rounding of the output
         tol = 1e-5 if dtype == torch.float32 else 1e-2
         torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for B, K, pad in SHAPES + [(90, 21, 10), (1440, 21, 10)]:
+        image, filters = (torch.from_numpy(a).cuda().requires_grad_()
+                          for a in _inputs(B, K, seed=B + 1))
+        dout = torch.randn(B, 1, L + 2 * pad - K + 1, device="cuda")
+        before = dfn_cuda.launches["dfn_backward"]
+        dynamic_filter.dynamic_filter_conv1d(image, filters, pad).backward(dout)
+        torch.cuda.synchronize()
+        assert dfn_cuda.launches["dfn_backward"] == before + 1
+        ref = dynamic_filter.dynamic_filter_conv1d_backward_plain(image, filters, dout, pad)
+        for got, want in zip((image.grad, filters.grad), ref):
+            # float32, sums of up to 124 products in another order
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)

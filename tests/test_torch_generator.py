@@ -221,6 +221,18 @@ def test_blocks_match_flax(kind):
     if kind != "dense":
         y = y.transpose(0, 2, 3, 1)
     np.testing.assert_allclose(y, ref, rtol=1e-4, atol=1e-4)
+
+    # train mode: batch statistics, and the running statistics updated
     port.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port(xt)
+    with jax.default_matmul_precision("highest"):
+        ref, mut = flax_mod.apply(variables, jnp.asarray(x), True, mutable=["batch_stats"])
+    with torch.no_grad():
+        y = port(xt).numpy()
+    if kind != "dense":
+        y = y.transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(y, np.asarray(ref), rtol=1e-4, atol=1e-4)
+    bn = port[i_bn]
+    np.testing.assert_allclose(bn.running_mean.numpy(), mut["batch_stats"]["bn"]["mean"],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(bn.running_var.numpy(), mut["batch_stats"]["bn"]["var"],
+                               rtol=1e-4, atol=1e-5)
