@@ -21,14 +21,18 @@ Phases, each of which exits non-zero on failure:
      `create_train_state` through `make_train_steps`: 2 warm-up and 5 timed
      D+G steps with finite metrics, every parameter, BN running statistic
      and SN u moved, each kernel's launches equal to the per-step count
-     derived from the code times the steps, float32 inside the steps; ms per
-     step, steps/s, device busy time and idle share from a trace, peak memory;
+     derived from the code times the steps, the BN calls of one step counted
+     by shape, float32 inside the steps; ms per step, steps/s, device busy
+     time and idle share from a trace, peak memory;
   7. from one saved state and the same noise, one D+G step with the kernels
      against one with their plain versions swapped in: losses, gradients and
      BN running statistics;
   8. the BN kernels against their plain versions at every (N, C, S) the
-     step gave them, and at an odd N;
-  9. the new kernels' times at the step's largest shape and a small one.
+     step gave them, at N=7 and at edge shapes, each aligned and unaligned;
+  9. the BN kernels and their library calls at every shape of the step, one
+     CUDA graph each with L2-cold inputs, beside their bounds, summed over a
+     step by launches; the plain versions and a trace at the largest shape;
+     the DFN backward's times.
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -37,6 +41,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import json
@@ -57,6 +62,12 @@ BACKWARD_BATCHES = (1, 7, 90, 1440)
 TAPS = ((21, 10), (7, 3))  # (K, pad)
 LR_D, LR_G = 4e-4, 1e-4  # final.yml's DISCRIMINATOR_LR, GENERATOR_LR
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
+GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
+# (N, C, S) beside the step's BN shapes: one row, one channel, S not a
+# multiple of 4, short odd maps, and the dense heads' widths (S = 1)
+EDGE_BN_SHAPES = ((1, 64, 4096), (90, 1, 1024), (7, 37, 5), (3, 5, 18), (2, 3, 2),
+                  (90, 32768, 1), (18, 16384, 1), (90, 9, 1), (1, 1, 1))
 
 
 T0 = time.perf_counter()
@@ -157,9 +168,11 @@ def device_ms(fn, label: str) -> float:
 
 
 def graph_ms(fn, reps: int = 20) -> float:
-    """Mean milliseconds per call of `reps` calls captured in one CUDA graph
-    and replayed: no host work between launches and no profiler. Used at
-    B=90 only: a grouped cuDNN conv1d hung in capture at B >= 360."""
+    """Mean milliseconds per call of `reps` calls captured in one CUDA graph,
+    the median of GRAPH_REPLAYS replays (one replay now and then runs several
+    times slower): no host work between launches and no profiler. The DFN
+    is timed so at B=90 only: a grouped cuDNN conv1d hung in capture at
+    B >= 360."""
     import torch
 
     side = torch.cuda.Stream()
@@ -175,11 +188,84 @@ def graph_ms(fn, reps: int = 20) -> float:
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[GRAPH_REPLAYS // 2] / reps
+
+
+# one BN kernel at one (N, C, S) of the step: launches a step, and ms per
+# call of the kernel and its library call in one CUDA graph, beside the bound
+BnTime = collections.namedtuple("BnTime", "shape calls kernel_ms library_ms bound_ms")
+
+
+def cold_graph_ms(fn, inputs: list) -> float:
+    """Mean milliseconds per call of fn(*inputs[i % len(inputs)]), i = 0, 1,
+    ..., in one CUDA graph (`graph_ms`), at least 20 calls and a whole
+    number of rounds. The caller passes enough copies that together they
+    exceed COLD_BYTES, so every call reads inputs that left the L2 since
+    their last use, as a step's BN input that a large conv wrote long ago."""
+    i = [0]
+
+    def call():
+        args = inputs[i[0] % len(inputs)]
+        i[0] += 1
+        return fn(*args)
+
+    return graph_ms(call, len(inputs) * -(-20 // len(inputs)))
+
+
+def cold_copies(gen, N: int, C: int, S: int, count: int, offset: int = 0) -> list:
+    """`count` distinct float32 (N, C, S) tensors from one allocation, each
+    starting 256-byte aligned plus `offset` elements."""
+    import torch
+
+    numel = N * C * S
+    row = -(-(numel + offset) // 64) * 64
+    buf = torch.randn(count, row, generator=gen, device="cuda")
+    return [buf[k, offset:offset + numel].view(N, C, S) for k in range(count)]
+
+
+def bn_cold_inputs(gen, name: str, N: int, C: int, S: int) -> list:
+    """Argument tuples of BN kernel `name` at (N, C, S) for `cold_graph_ms`:
+    at least 2 distinct copies, together more than COLD_BYTES; the copies of
+    bn_grad_reduce share one mean and invstd ([C], a few KB)."""
+    import torch
+
+    tensors = 1 if name == "bn_stats" else 2
+    copies = max(2, -(-COLD_BYTES // (4 * N * C * S * tensors)))
+    views = cold_copies(gen, N, C, S, copies * tensors)
+    if name == "bn_stats":
+        return [(v,) for v in views]
+    mean = views[0].mean(dim=(0, 2))
+    inv = torch.rsqrt(views[0].var(dim=(0, 2), correction=0) + 1e-5)
+    return [(views[2 * k], views[2 * k + 1], mean, inv) for k in range(copies)]
+
+
+@contextlib.contextmanager
+def counting_bn_calls():
+    """While open, the BN wrappers count their calls by shape, passing each
+    on: yields {kernel: {(N, C, S): calls}}."""
+    from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
+
+    calls = {"bn_stats": {}, "bn_grad_reduce": {}}
+
+    def counting(name: str):
+        wrapped = getattr(bn_cuda, name)
+
+        def call(x, *rest):
+            shape = tuple(x.shape)
+            calls[name][shape] = calls[name].get(shape, 0) + 1
+            return wrapped(x, *rest)
+
+        return mock.patch.object(bn_cuda, name, call)
+
+    with counting("bn_stats"), counting("bn_grad_reduce"):
+        yield calls
 
 
 def dfn_bound(B: int, C: int, L: int, K: int, pad: int, itemsize: int):
@@ -557,10 +643,7 @@ def main() -> int:
                       for n, net in nets.items()))
     before = {n: {k: v.detach().clone() for k, v in net.state_dict().items()}
               for n, net in nets.items()}
-    bn_shapes, inside = set(), set()
-    record = [m.register_forward_pre_hook(lambda mod, inp: bn_shapes.add(
-        (inp[0].shape[0], inp[0].shape[1], inp[0][0, 0].numel())))
-        for net in nets.values() for m in bn_modules(net)]
+    inside = set()
     flags = [mod.register_forward_pre_hook(lambda *_: inside.add(
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
         for mod in (state.gen.upsample1, state.d_st.get_cond_logits)]
@@ -570,17 +653,26 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     reset_counts()  # the main path: the entry points only
     for i in range(steps):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        _, dm = d_step(state, rng, st_batch, im_batch, LR_D)
-        _, gm = g_step(state, rng, st_batch, im_batch, LR_G)
-        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            if i == 0:  # a warm-up step; the shapes are the same every step
+                bn_calls = stack.enter_context(counting_bn_calls())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, dm = d_step(state, rng, st_batch, im_batch, LR_D)
+            _, gm = g_step(state, rng, st_batch, im_batch, LR_G)
+            torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         metrics.append({**dm, **gm})
-        if i == 0:  # the shapes are the same every step
-            for h in record:
-                h.remove()
     train_counts = read_counts()
+    # (N, C, S) -> launches in one step, by kernel
+    step_calls = {name: dict(sorted(calls.items())) for name, calls in bn_calls.items()}
+    bn_shapes = set(step_calls["bn_stats"]) | set(step_calls["bn_grad_reduce"])
+    for name, calls in step_calls.items():
+        check(sum(calls.values()) == expected[name],
+              f"{name}: {sum(calls.values())} calls counted by shape in one step, "
+              f"expected {expected[name]}")
+        print(f"{name} calls in one step by (N, C, S), {len(calls)} shapes: "
+              + ", ".join(f"{sh} x{n}" for sh, n in calls.items()))
     peak = torch.cuda.max_memory_allocated()
     for h in flags:
         h.remove()
@@ -623,6 +715,17 @@ def main() -> int:
     busy = sum(names.values()) / 1e3
     ours = {k: v for k, v in names.items()
             if any(f in k for f in ("reduce_maps", "reduce_rows", "finish(", "dfn_"))}
+    bn_kernels = {}  # BN device kernels in the 2 traced steps, by name
+    for e in dev_events:
+        if any(f in e.name for f in ("reduce_maps", "reduce_rows", "finish(")):
+            bn_kernels[e.name] = bn_kernels.get(e.name, 0) + 1
+    bn_calls_per_step = expected["bn_stats"] + expected["bn_grad_reduce"]
+    check(sum(bn_kernels.values()) == 2 * bn_calls_per_step
+          and not any("finish(" in k for k in bn_kernels),
+          f"2 traced steps ran the BN device kernels {bn_kernels}: expected one per call, "
+          f"{bn_calls_per_step} a step, and no finish")
+    print(f"  BN device kernels a step: {sum(bn_kernels.values()) / 2:g}, one per call ("
+          + "; ".join(f"{k[:60]} x{v / 2:g}" for k, v in bn_kernels.items()) + ")")
     print(f"trace of 2 steps: device busy {busy:.3f} ms a step in {len(dev_events) / 2:.0f} ops, "
           f"idle share {1 - busy / (med * 1e3):.3f}; top: "
           + "; ".join(f"{k[:70]} {v:.1f} us" for k, v in list(names.items())[:8]))
@@ -712,11 +815,18 @@ def main() -> int:
 
     # ------------------------- 8. BN kernels vs plain at the step's shapes
     phase("8. BN kernels vs plain")
-    shapes = sorted(bn_shapes) + sorted({(7, c, sp) for _, c, sp in bn_shapes})
+    shapes = (sorted(bn_shapes) + sorted({(7, c, sp) for _, c, sp in bn_shapes})
+              + list(EDGE_BN_SHAPES))
     bn_err = {"bn_stats": 0.0, "bn_grad_reduce": 0.0}
-    for N, Cb, S in shapes:
-        x = torch.randn(N, Cb, S, generator=gen, device="cuda") + 0.5
-        dy = torch.randn(N, Cb, S, generator=gen, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = set()  # (kernel, vec, cluster, channels a block) the shapes ran
+    # every shape twice: 16-byte aligned, and shifted by one float so that
+    # no row starts on a 16-byte boundary
+    for (N, Cb, S), offset in ((sh, off) for sh in shapes for off in (0, 1)):
+        x, dy = cold_copies(gen, N, Cb, S, 2, offset)
+        x += 0.5
+        p = bn_cuda.plan(N, Cb, S, sms, x.data_ptr() % 16 == 0)
+        plans.add(("reduce_rows" if S == 1 else "reduce_maps", p.vec, p.cluster, p.channels))
         mean = x.mean(dim=(0, 2))
         inv = torch.rsqrt(x.var(dim=(0, 2), correction=0) + 1e-5)
         xhat = (x - mean[:, None]) * inv[:, None]
@@ -733,59 +843,104 @@ def main() -> int:
                 # float32 sums in other orders: within 1e-5 of the sum of
                 # the terms' magnitudes
                 err = (a - r).abs()
-                check(torch.equal(a, b), f"{name} {(N, Cb, S)}: two launches differ")
+                where = f"{name} {(N, Cb, S)} offset {offset}"
+                check(torch.equal(a, b), f"{where}: two launches differ")
                 check(bool((err <= 1e-5 * mag + 1e-6).all()),
-                      f"{name} {(N, Cb, S)}: kernel vs plain error {err.max().item()}")
+                      f"{where}: kernel vs plain error {err.max().item()}")
                 bn_err[name] = max(bn_err[name], err.max().item())
-    print(f"BN kernels vs plain on the card at {len(shapes)} shapes (N, C, S), the step's "
-          f"{sorted(bn_shapes)} and N=7: max abs error bn_stats {bn_err['bn_stats']:.3e}, "
-          f"bn_grad_reduce {bn_err['bn_grad_reduce']:.3e} (tol 1e-5 of the terms' magnitude "
-          "+ 1e-6); two launches give the same bits")
+    print(f"BN kernels vs plain on the card at {len(shapes)} shapes (N, C, S), each aligned "
+          f"and one float off: the step's {sorted(bn_shapes)}, N=7, and {EDGE_BN_SHAPES}: "
+          f"max abs error bn_stats {bn_err['bn_stats']:.3e}, bn_grad_reduce "
+          f"{bn_err['bn_grad_reduce']:.3e} (tol 1e-5 of the terms' magnitude + 1e-6); two "
+          f"launches give the same bits; plans (kernel, vec, cluster, channels a block) on "
+          f"{sms} SMs: {sorted(plans)}")
 
     # ------------------------------------------------ 9. new kernels' times
-    phase("9. kernel timings: BN reductions and the DFN backward")
-    largest = max(bn_shapes, key=lambda sh: sh[0] * sh[1] * sh[2])
-    smallest = min(bn_shapes, key=lambda sh: sh[0] * sh[1] * sh[2])
-    for N, Cb, S in (largest, smallest):
-        x = torch.randn(N, Cb, S, generator=gen, device="cuda")
-        dy = torch.randn(N, Cb, S, generator=gen, device="cuda")
-        mean = x.mean(dim=(0, 2))
-        inv = torch.rsqrt(x.var(dim=(0, 2), correction=0) + 1e-5)
-        ones = torch.ones(Cb, device="cuda")
-        fns = {
-            "bn_stats": {
-                "kernel": lambda: bn_cuda.bn_stats(x),
-                "plain": lambda: bn_cuda.bn_stats_plain(x),
-                "library": lambda: torch.var_mean(x, dim=(0, 2), correction=0),
-            },
-            "bn_grad_reduce": {
-                "kernel": lambda: bn_cuda.bn_grad_reduce(x, dy, mean, inv),
-                "plain": lambda: bn_cuda.bn_grad_reduce_plain(x, dy, mean, inv),
-                "library": lambda: torch.ops.aten.native_batch_norm_backward(
-                    dy, x, ones, None, None, mean, inv, True, 1e-5, [False, True, True]),
-            },
-        }
-        lib = fns["bn_grad_reduce"]["library"]()
-        got = bn_cuda.bn_grad_reduce(x, dy, mean, inv)
-        check(torch.allclose(lib[2], got[0], rtol=1e-4, atol=1e-2)
-              and torch.allclose(lib[1], got[1], rtol=1e-4, atol=1e-2),
-              "native_batch_norm_backward disagrees with bn_grad_reduce")
-        for name, f in fns.items():
-            graphed = {k: graph_ms(fn) for k, fn in f.items()}
-            traced = {k: device_ms(fn, f"{name} {k} {(N, Cb, S)}") for k, fn in f.items()}
+    phase("9. kernel timings: the BN reductions at every shape of the step, the DFN backward")
+
+    def bn_library(name: str):
+        """One PyTorch call computing the same sums: var_mean (for the
+        statistics), native_batch_norm_backward without dx (for the sums)."""
+        if name == "bn_stats":
+            return lambda x: torch.var_mean(x, dim=(0, 2), correction=0)
+        return lambda x, dy, mean, inv: torch.ops.aten.native_batch_norm_backward(
+            dy, x, torch.ones_like(mean), None, None, mean, inv, True, 1e-5,
+            [False, True, True])
+
+    # Each kernel and its library call at every (N, C, S) the step gave it,
+    # one CUDA graph per shape, cycling through input copies that together
+    # exceed the L2 (COLD_BYTES), so no call finds its input there.
+    print(f"BN per shape [{card}], us per call in one CUDA graph, inputs L2-cold (cycled "
+          f"through copies of >= {COLD_BYTES / 1e6:.1f} MB); share = bound / kernel")
+    per_shape = {"bn_stats": [], "bn_grad_reduce": []}
+    for name, calls in step_calls.items():
+        for (N, Cb, S), n_calls in calls.items():
+            inputs = bn_cold_inputs(gen, name, N, Cb, S)
+            kernel_ms = cold_graph_ms(getattr(bn_cuda, name), inputs)
+            library_ms = cold_graph_ms(bn_library(name), inputs)
             bound, bound_by = bn_bound(name, N, Cb, S)
-            print(f"{name} (N, C, S)={(N, Cb, S)} f32 [{card}]: us/call in one CUDA graph "
-                  + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in graphed.items())
-                  + "; traced " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in traced.items())
-                  + f"; bound {bound * 1e3:.3f} us ({bound_by})")
-            if (N, Cb, S) == largest:
-                kernels[name] = {
-                    "name": name, "route": "cuda", "source": bn_cuda.SOURCE,
-                    "replaces": bn_cuda.REPLACES[name], "launches": train_counts[name],
-                    "max_abs_err": bn_err[name], "ms": graphed["kernel"],
-                    "plain_ms": graphed["plain"], "bound_ms": bound, "bound_by": bound_by,
-                    "library_ms": graphed["library"],
-                }
+            per_shape[name].append(BnTime((N, Cb, S), n_calls, kernel_ms, library_ms, bound))
+            print(f"  {name} N={N} C={Cb} S={S}: {n_calls} a step, kernel {kernel_ms * 1e3:.2f}, "
+                  f"library {library_ms * 1e3:.2f}, bound {bound * 1e3:.3f} ({bound_by}), "
+                  f"share {bound / kernel_ms:.3f}; {len(inputs)} copies")
+            check(bound <= kernel_ms, f"{name} {(N, Cb, S)}: {kernel_ms * 1e3:.2f} us is under "
+                  f"its bound {bound * 1e3:.3f} us: the inputs were not L2-cold")
+            del inputs
+    step_bn = {}  # name -> (kernel, library, bound) ms, summed over a step's launches
+    for name, rows in per_shape.items():
+        step_bn[name] = tuple(sum(r.calls * getattr(r, k) for r in rows)
+                              for k in ("kernel_ms", "library_ms", "bound_ms"))
+        kernel_ms, library_ms, bound = step_bn[name]
+        print(f"{name} per step [{card}]: {sum(r.calls for r in rows)} launches at {len(rows)} "
+              f"shapes; sum of launches x kernel {kernel_ms * 1e3:.2f} us, x library "
+              f"{library_ms * 1e3:.2f} us, x bound {bound * 1e3:.2f} us; share of the per-step "
+              f"bound {bound / kernel_ms:.3f}")
+    kernel_ms, _, bound = (sum(v) for v in zip(*step_bn.values()))
+    print(f"BN kernels per step [{card}]: {kernel_ms * 1e3:.2f} us against a bound of "
+          f"{bound * 1e3:.2f} us, share {bound / kernel_ms:.3f}")
+
+    # the largest shape: the plain versions in a graph, and a trace of all
+    # three (188.7 MB of input, more than the L2 holds, so no copies)
+    N, Cb, S = largest = max(bn_shapes, key=lambda sh: sh[0] * sh[1] * sh[2])
+    x, dy = cold_copies(gen, N, Cb, S, 2)
+    mean = x.mean(dim=(0, 2))
+    inv = torch.rsqrt(x.var(dim=(0, 2), correction=0) + 1e-5)
+    fns = {
+        "bn_stats": {
+            "kernel": lambda: bn_cuda.bn_stats(x),
+            "plain": lambda: bn_cuda.bn_stats_plain(x),
+            "library": lambda: bn_library("bn_stats")(x),
+        },
+        "bn_grad_reduce": {
+            "kernel": lambda: bn_cuda.bn_grad_reduce(x, dy, mean, inv),
+            "plain": lambda: bn_cuda.bn_grad_reduce_plain(x, dy, mean, inv),
+            "library": lambda: bn_library("bn_grad_reduce")(x, dy, mean, inv),
+        },
+    }
+    lib = fns["bn_grad_reduce"]["library"]()
+    got = bn_cuda.bn_grad_reduce(x, dy, mean, inv)
+    check(torch.allclose(lib[2], got[0], rtol=1e-4, atol=1e-2)
+          and torch.allclose(lib[1], got[1], rtol=1e-4, atol=1e-2),
+          "native_batch_norm_backward disagrees with bn_grad_reduce")
+    for name, f in fns.items():
+        plain_ms = graph_ms(f["plain"])
+        traced = {k: device_ms(fn, f"{name} {k} {largest}") for k, fn in f.items()}
+        _, _, kernel_ms, library_ms, bound = next(
+            r for r in per_shape[name] if r.shape == largest)
+        bound_by = bn_bound(name, N, Cb, S)[1]
+        print(f"{name} (N, C, S)={largest} f32 [{card}]: us/call in one CUDA graph kernel "
+              f"{kernel_ms * 1e3:.2f}, plain {plain_ms * 1e3:.2f}, library "
+              f"{library_ms * 1e3:.2f}; traced "
+              + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in traced.items())
+              + f"; bound {bound * 1e3:.3f} us ({bound_by})")
+        kernels[name] = {
+            "name": name, "route": "cuda", "source": bn_cuda.SOURCE,
+            "replaces": bn_cuda.REPLACES[name], "launches": train_counts[name],
+            "max_abs_err": bn_err[name], "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
+            "step_ms": step_bn[name][0], "step_bound_ms": step_bn[name][2],
+        }
+    del x, dy, fns
     K, pad = TAPS[0]
     for B in (90, 7):  # the step's batch, and a small one
         img = torch.randn(B, C, L, generator=gen, device="cuda")

@@ -13,192 +13,346 @@
 // multiply-adds, far below the card's operations-per-byte line. The largest
 // shape of a final.yml training step is the generator's upsample4 output,
 // (90, 128, 64*64) float32 = 188.7 MB: bn_stats reads it once, 56 us at
-// 3.35 TB/s; bn_grad_reduce reads x and dy, 377.5 MB, 113 us.
+// 3.35 TB/s; bn_grad_reduce reads x and dy, 377.5 MB, 113 us. The step's
+// other shapes are a few MB, where one launch is most of the time.
 //
 // Design. The TPU kernels stream (block, C) tiles of an (M, C) view through
-// one core, carrying the sums across sequential grid steps, with the rows
-// zero-padded to the block size. Here blocks run in parallel and in no
-// order, so nothing is carried between them and no row is padded:
-//   * S > 1: block (c, p) reduces channel c over the rows n of chunk p; its
-//     threads walk the rows' S contiguous elements, several rows at once
-//     when S is short. When a channel is split into P > 1 chunks, the
-//     blocks write per-chunk partials and a second kernel sums each
-//     channel's P partials in chunk order. No float atomics: two runs give
-//     the same bits.
-//   * S = 1: x is (N, C) row-major; a block of 32 x 8 threads takes 32
-//     neighbouring channels (coalesced loads) and splits the rows in 8.
+// one core and carry the sums across sequential grid steps. Here one launch
+// does all the work, and what each block does is planned on the host from
+// the shape and the SM count (ops/cuda/bn.py:plan), which passes the plan
+// in as plain ints; `launch` refuses a plan that does not fit the shape.
+//   * Streaming: loads are 16 bytes (float4) wherever the row length (S,
+//     or C when S = 1) is a multiple of 4 and the inputs are 16-byte
+//     aligned, else one float; read-only (__ldg). A reduce_maps thread
+//     starts 8 loads (bn_stats; bn_grad_reduce 4 of x and 4 of dy) before
+//     it adds, into two accumulator pairs that it combines in a fixed
+//     order, so enough bytes are in flight to stream at the card's rate.
+//   * S > 1 (reduce_maps): a channel's N*S/vec loads are one flat range;
+//     thread t of the channel takes loads t, t + T, t + 2T, ... (T the
+//     channel's threads), stepping its row and column without a division.
+//     The plan gives the card about two 256-thread blocks an SM: short maps
+//     a warp or a few a channel and several channels a block, long maps a
+//     block a channel, and where C is too small for that (C = 64 at 64x64,
+//     C = 128 at 64x64 and 32x32) a thread block cluster of 4 or 2 blocks a
+//     channel. In a cluster each block puts its partial in its own shared
+//     memory; after cluster.sync() rank 0 reads them in rank order through
+//     distributed shared memory and writes the channel's sums; a second
+//     cluster.sync() keeps every block alive until then. No partial buffer,
+//     no second kernel, no atomics. Measured on an H100 (sweep_bn.py),
+//     more and smaller blocks, or larger clusters, cost more in launch and
+//     reduction than they add in bytes in flight.
+//   * S = 1 (reduce_rows): x is (N, C) row-major; a block takes 32
+//     neighbouring channels, as 8 float4s over 32 row groups (3 rows of
+//     N = 90 a thread) or 32 floats over 8 row groups.
 // Within a block the sums are combined in a fixed order (warp shuffles,
-// then shared memory). The wrapper (ops/cuda/bn.py) checks shapes and
-// dtypes, picks P and allocates the outputs and the partials; the kernels
-// launch on the caller's stream, do not synchronise and allocate nothing.
+// then shared memory), so two launches on one input give the same bits.
+// The kernels launch on the caller's stream, do not synchronise and
+// allocate nothing.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowChannels = 32;  // reduce_rows: channels a block
+constexpr int kRowUnroll = 4;     // reduce_rows: rows a thread loads per input before it adds
+constexpr int kMaxCluster = 8;
 
+// reduce_maps: loads a thread starts per input before it adds, 8 in all
 template <bool GRAD>
-__device__ __forceinline__ void accumulate(const float* __restrict__ x, const float* __restrict__ dy,
-                                           long long i, float mean, float inv, float& a, float& b) {
-    const float v = x[i];
+constexpr int kUnroll = GRAD ? 4 : 8;
+
+template <int VEC>
+using vec_t = std::conditional_t<VEC == 4, float4, float>;
+
+__device__ __forceinline__ float4 load(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float lane(float v, int) { return v; }
+__device__ __forceinline__ float lane(const float4& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// (a, b) += one element's terms; g is dy (GRAD) and unused otherwise
+template <bool GRAD>
+__device__ __forceinline__ void add(float v, float g, float m, float iv, float& a, float& b) {
     if constexpr (GRAD) {
-        const float g = dy[i];
         a += g;
-        b = fmaf(g, (v - mean) * inv, b);
+        b = fmaf(g, (v - m) * iv, b);
     } else {
         a += v;
         b = fmaf(v, v, b);
     }
 }
 
-// Sum of (a, b) over the block, in a fixed order; the result is in thread 0.
-__device__ __forceinline__ void block_sum(float& a, float& b) {
-    __shared__ float sa[32], sb[32];
-    for (int off = 16; off > 0; off >>= 1) {
-        a += __shfl_down_sync(0xffffffffu, a, off);
-        b += __shfl_down_sync(0xffffffffu, b, off);
-    }
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (lane == 0) {
-        sa[warp] = a;
-        sb[warp] = b;
-    }
-    __syncthreads();
-    if (warp == 0) {
-        const int warps = blockDim.x >> 5;
-        a = lane < warps ? sa[lane] : 0.0f;
-        b = lane < warps ? sb[lane] : 0.0f;
-        for (int off = 16; off > 0; off >>= 1) {
-            a += __shfl_down_sync(0xffffffffu, a, off);
-            b += __shfl_down_sync(0xffffffffu, b, off);
-        }
-    }
-}
-
-// S > 1. Grid (C, P); block (c, p) writes out_a/out_b[c * P + p].
-template <bool GRAD>
-__global__ void reduce_maps(const float* __restrict__ x, const float* __restrict__ dy,
-                            const float* __restrict__ mean, const float* __restrict__ inv,
-                            float* __restrict__ out_a, float* __restrict__ out_b, int N, int C,
-                            int S, int P) {
-    const int c = blockIdx.x, p = blockIdx.y;
-    const int n0 = (int)((long long)N * p / P), n1 = (int)((long long)N * (p + 1) / P);
-    const int along = S < (int)blockDim.x ? S : (int)blockDim.x;  // threads along a row
-    const int rows = blockDim.x / along;                             // rows in flight
-    const int tr = threadIdx.x / along, tc = threadIdx.x - tr * along;
-    float m = 0.0f, iv = 0.0f;
-    if constexpr (GRAD) {
-        m = mean[c];
-        iv = inv[c];
-    }
-    float a = 0.0f, b = 0.0f;
-    if (tr < rows) {
-        for (int n = n0 + tr; n < n1; n += rows) {
-            const long long base = ((long long)n * C + c) * S;
-            for (int s = tc; s < S; s += along) accumulate<GRAD>(x, dy, base + s, m, iv, a, b);
-        }
-    }
-    block_sum(a, b);
-    if (threadIdx.x == 0) {
-        out_a[(long long)c * P + p] = a;
-        out_b[(long long)c * P + p] = b;
-    }
-}
-
-// Second pass for P > 1: each thread sums one channel's P partials in order.
-__global__ void finish(const float* __restrict__ part_a, const float* __restrict__ part_b,
-                       float* __restrict__ out_a, float* __restrict__ out_b, int C, int P) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= C) return;
-    float a = 0.0f, b = 0.0f;
-    for (int p = 0; p < P; ++p) {
-        a += part_a[(long long)c * P + p];
-        b += part_b[(long long)c * P + p];
-    }
-    out_a[c] = a;
-    out_b[c] = b;
-}
-
-// S = 1. Grid ceil(C / 32), block (32, 8).
-template <bool GRAD>
-__global__ void reduce_rows(const float* __restrict__ x, const float* __restrict__ dy,
-                            const float* __restrict__ mean, const float* __restrict__ inv,
-                            float* __restrict__ out_a, float* __restrict__ out_b, int N, int C) {
-    __shared__ float sa[8][33], sb[8][33];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int c = blockIdx.x * 32 + tx;
-    float a = 0.0f, b = 0.0f;
+// S > 1. Block = kThreads threads, `cpb` channels of kThreads / cpb threads
+// each; `cluster` consecutive blocks (one cluster) share one channel, and
+// then cpb == 1. Block g * cluster + r holds channels g * cpb ...
+template <bool GRAD, int VEC>
+__global__ void __launch_bounds__(kThreads)
+reduce_maps(const float* __restrict__ x, const float* __restrict__ dy,
+            const float* __restrict__ mean, const float* __restrict__ inv,
+            float* __restrict__ out_a, float* __restrict__ out_b, int N, int C, int S, int cpb,
+            int cluster) {
+    using V = vec_t<VEC>;
+    constexpr int U = kUnroll<GRAD>;
+    const int tpc = kThreads / cpb;  // threads a channel has in this block
+    const int group = blockIdx.x / cluster, rank = blockIdx.x - group * cluster;
+    const int lc = threadIdx.x / tpc, lt = threadIdx.x - lc * tpc;
+    const int c = group * cpb + lc;
+    float a0 = 0.0f, b0 = 0.0f, a1 = 0.0f, b1 = 0.0f;
     if (c < C) {
         float m = 0.0f, iv = 0.0f;
         if constexpr (GRAD) {
             m = mean[c];
             iv = inv[c];
         }
-        for (int n = ty; n < N; n += 8) accumulate<GRAD>(x, dy, (long long)n * C + c, m, iv, a, b);
+        const long long sv = S / VEC;            // loads a row
+        const long long row = (long long)C * sv;  // from row n to row n + 1
+        const long long items = (long long)N * sv;
+        const long long stride = (long long)cluster * tpc;
+        const V* xv = reinterpret_cast<const V*>(x) + (long long)c * sv;
+        const V* dv = GRAD ? reinterpret_cast<const V*>(dy) + (long long)c * sv : nullptr;
+        const long long j = (long long)rank * tpc + lt;  // this thread's first load
+        const long long dn = stride / sv, ds = stride - dn * sv;
+        long long s = j % sv;
+        long long off = (j / sv) * row + s;
+        // batches of U loads, the last one short: a batch's loads are all
+        // started before its adds wait on them
+        for (long long left = j < items ? (items - j + stride - 1) / stride : 0; left > 0;
+             left -= U) {
+            const int here = left < U ? (int)left : U;
+            V v[U], g[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                if (u < here) {
+                    v[u] = load(xv + off);
+                    if constexpr (GRAD) g[u] = load(dv + off);
+                    off += dn * row + ds;
+                    s += ds;
+                    if (s >= sv) {
+                        s -= sv;
+                        off += row - sv;
+                    }
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                if (u < here) {
+#pragma unroll
+                    for (int k = 0; k < VEC; ++k) {
+                        const float gk = GRAD ? lane(g[u], k) : 0.0f;
+                        if (u & 1)
+                            add<GRAD>(lane(v[u], k), gk, m, iv, a1, b1);
+                        else
+                            add<GRAD>(lane(v[u], k), gk, m, iv, a0, b0);
+                    }
+                }
+            }
+        }
     }
-    sa[ty][tx] = a;
-    sb[ty][tx] = b;
+    float a = a0 + a1, b = b0 + b1;
+    // a channel's threads are whole warps (tpc >= 32): sum each warp, then
+    // the first thread of each channel sums its warps in order
+    for (int o = 16; o > 0; o >>= 1) {
+        a += __shfl_down_sync(0xffffffffu, a, o);
+        b += __shfl_down_sync(0xffffffffu, b, o);
+    }
+    __shared__ float sa[kWarps], sb[kWarps];
+    __shared__ float part[2];
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+        sa[warp] = a;
+        sb[warp] = b;
+    }
     __syncthreads();
-    if (ty == 0 && c < C) {
+    if (lt == 0) {
+        const int wpc = tpc >> 5;
         a = 0.0f;
         b = 0.0f;
-        for (int y = 0; y < 8; ++y) {
-            a += sa[y][tx];
-            b += sb[y][tx];
+        for (int w = lc * wpc; w < (lc + 1) * wpc; ++w) {
+            a += sa[w];
+            b += sb[w];
         }
-        out_a[c] = a;
-        out_b[c] = b;
+        if (cluster == 1) {
+            if (c < C) {
+                out_a[c] = a;
+                out_b[c] = b;
+            }
+        } else {
+            part[0] = a;
+            part[1] = b;
+        }
+    }
+    if (cluster > 1) {  // the same for every block of the launch
+        cg::cluster_group cl = cg::this_cluster();
+        cl.sync();  // every block's part is in its shared memory
+        if (cl.block_rank() == 0 && threadIdx.x == 0 && c < C) {
+            a = 0.0f;
+            b = 0.0f;
+            for (int r = 0; r < cluster; ++r) {
+                const float* p = cl.map_shared_rank(part, r);
+                a += p[0];
+                b += p[1];
+            }
+            out_a[c] = a;
+            out_b[c] = b;
+        }
+        cl.sync();  // no block leaves while rank 0 reads its shared memory
     }
 }
 
+// S = 1. Grid ceil(C / kRowChannels), 1-D blocks of kThreads seen as
+// (Q, R): Q = kRowChannels / VEC lanes along the channels and R row
+// groups. Thread (tx, ty) loads channels VEC * q ... VEC * q + VEC - 1,
+// q = blockIdx.x * Q + tx, from rows ty, ty + R, ...; float4 loads (Q = 8,
+// R = 32) leave a thread 3 rows of N = 90, one batch. At most 64 registers
+// a thread, so that an SM holds 4 blocks: the 1,024 blocks of the widest
+// dense head (C = 32,768) then run in 2 waves, not 3.
+template <bool GRAD, int VEC>
+__global__ void __launch_bounds__(kThreads, 4)
+reduce_rows(const float* __restrict__ x, const float* __restrict__ dy,
+            const float* __restrict__ mean, const float* __restrict__ inv,
+            float* __restrict__ out_a, float* __restrict__ out_b, int N, int C) {
+    using V = vec_t<VEC>;
+    constexpr int Q = kRowChannels / VEC, R = kThreads / Q;
+    __shared__ float sa[R][kRowChannels + 1], sb[R][kRowChannels + 1];
+    const int tx = threadIdx.x % Q, ty = threadIdx.x / Q;
+    const int cv = C / VEC;
+    const int q = blockIdx.x * Q + tx;
+    float a[VEC], b[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) a[k] = b[k] = 0.0f;
+    if (q < cv) {
+        float m[VEC], iv[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+            m[k] = GRAD ? mean[q * VEC + k] : 0.0f;
+            iv[k] = GRAD ? inv[q * VEC + k] : 0.0f;
+        }
+        const V* xv = reinterpret_cast<const V*>(x) + q;
+        const V* dv = GRAD ? reinterpret_cast<const V*>(dy) + q : nullptr;
+        // batches of kRowUnroll rows, the last one short, as in reduce_maps
+        for (int n = ty; n < N; n += kRowUnroll * R) {
+            V v[kRowUnroll], g[kRowUnroll];
+#pragma unroll
+            for (int u = 0; u < kRowUnroll; ++u) {
+                if (n + u * R < N) {
+                    const long long off = (long long)(n + u * R) * cv;
+                    v[u] = load(xv + off);
+                    if constexpr (GRAD) g[u] = load(dv + off);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < kRowUnroll; ++u) {
+                if (n + u * R < N) {
+#pragma unroll
+                    for (int k = 0; k < VEC; ++k)
+                        add<GRAD>(lane(v[u], k), GRAD ? lane(g[u], k) : 0.0f, m[k], iv[k],
+                                  a[k], b[k]);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+        sa[ty][tx * VEC + k] = a[k];
+        sb[ty][tx * VEC + k] = b[k];
+    }
+    __syncthreads();
+    // thread t < kRowChannels sums channel t's R row groups in order
+    const int c = blockIdx.x * kRowChannels + threadIdx.x;
+    if (threadIdx.x < kRowChannels && c < C) {
+        float sum_a = 0.0f, sum_b = 0.0f;
+        for (int y = 0; y < R; ++y) {
+            sum_a += sa[y][threadIdx.x];
+            sum_b += sb[y][threadIdx.x];
+        }
+        out_a[c] = sum_a;
+        out_b[c] = sum_b;
+    }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+template <bool GRAD, int VEC>
+cudaError_t launch_maps(const float* x, const float* dy, const float* mean, const float* inv,
+                        float* out_a, float* out_b, int N, int C, int S, int grid, int cluster,
+                        int cpb, cudaStream_t stream) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(grid);
+    config.blockDim = dim3(kThreads);
+    config.dynamicSmemBytes = 0;
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = cluster > 1 ? 1 : 0;
+    return cudaLaunchKernelEx(&config, reduce_maps<GRAD, VEC>, x, dy, mean, inv, out_a, out_b, N,
+                              C, S, cpb, cluster);
+}
+
+// The plan's ints, checked against the shape: vec 4 or 1 floats a load;
+// grid blocks; cluster blocks a channel (maps); channels a block.
 template <bool GRAD>
 cudaError_t launch(const float* x, const float* dy, const float* mean, const float* inv,
-                   float* out_a, float* out_b, float* partial, int N, int C, int S, int P,
-                   cudaStream_t stream) {
-    if (N < 1 || C < 1 || S < 1 || P < 1 || P > N || (S == 1 && P != 1) ||
-        (P > 1 && partial == nullptr))
+                   float* out_a, float* out_b, int N, int C, int S, int vec, int grid,
+                   int cluster, int channels, cudaStream_t stream) {
+    if (N < 1 || C < 1 || S < 1 || (vec != 1 && vec != 4)) return cudaErrorInvalidValue;
+    if (vec == 4 && !(aligned16(x) && (!GRAD || aligned16(dy)) && (S == 1 ? C : S) % 4 == 0))
         return cudaErrorInvalidValue;
     if (S == 1) {
-        reduce_rows<GRAD><<<(C + 31) / 32, dim3(32, 8), 0, stream>>>(x, dy, mean, inv, out_a,
-                                                                     out_b, N, C);
+        if (cluster != 1 || channels != kRowChannels || grid != (C + channels - 1) / channels)
+            return cudaErrorInvalidValue;
+        if (vec == 4)
+            reduce_rows<GRAD, 4><<<grid, kThreads, 0, stream>>>(x, dy, mean, inv, out_a, out_b, N,
+                                                                C);
+        else
+            reduce_rows<GRAD, 1><<<grid, kThreads, 0, stream>>>(x, dy, mean, inv, out_a, out_b, N,
+                                                                C);
         return cudaGetLastError();
     }
-    if (P == 1) {
-        reduce_maps<GRAD><<<dim3(C, 1), kThreads, 0, stream>>>(x, dy, mean, inv, out_a, out_b, N,
-                                                               C, S, 1);
-        return cudaGetLastError();
-    }
-    float* part_a = partial;
-    float* part_b = partial + (long long)C * P;
-    reduce_maps<GRAD><<<dim3(C, P), kThreads, 0, stream>>>(x, dy, mean, inv, part_a, part_b, N, C,
-                                                           S, P);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    finish<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(part_a, part_b, out_a, out_b,
-                                                                   C, P);
-    return cudaGetLastError();
+    const bool cpb_ok = channels == 1 || channels == 2 || channels == 4 || channels == 8;
+    if (!cpb_ok || cluster < 1 || cluster > kMaxCluster || (cluster > 1 && channels != 1) ||
+        (long long)grid != (long long)((C + channels - 1) / channels) * cluster)
+        return cudaErrorInvalidValue;
+    const cudaError_t err = vec == 4
+        ? launch_maps<GRAD, 4>(x, dy, mean, inv, out_a, out_b, N, C, S, grid, cluster, channels,
+                               stream)
+        : launch_maps<GRAD, 1>(x, dy, mean, inv, out_a, out_b, N, C, S, grid, cluster, channels,
+                               stream);
+    const cudaError_t last = cudaGetLastError();  // read, so that it does not linger
+    return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
 
-// x (N, C, S) float32 -> sum[C], sumsq[C]. `partial` holds 2 * C * P floats
-// when P > 1 (else it may be null). Returns the cudaError_t of the launches.
-extern "C" int bn_stats(const void* x, void* sum, void* sumsq, void* partial, int N, int C,
-                        int S, int P, void* stream) {
+// x (N, C, S) float32 -> sum[C], sumsq[C], one launch of the plan
+// (vec, grid, cluster, channels) from ops/cuda/bn.py:plan. Returns the
+// cudaError_t of the launch.
+extern "C" int bn_stats(const void* x, void* sum, void* sumsq, int N, int C, int S, int vec,
+                        int grid, int cluster, int channels, void* stream) {
     return (int)launch<false>(static_cast<const float*>(x), nullptr, nullptr, nullptr,
-                              static_cast<float*>(sum), static_cast<float*>(sumsq),
-                              static_cast<float*>(partial), N, C, S, P,
-                              static_cast<cudaStream_t>(stream));
+                              static_cast<float*>(sum), static_cast<float*>(sumsq), N, C, S, vec,
+                              grid, cluster, channels, static_cast<cudaStream_t>(stream));
 }
 
 // x, dy (N, C, S) float32, mean and invstd [C] -> sum_dy[C], sum_dy_xhat[C].
 extern "C" int bn_grad_reduce(const void* x, const void* dy, const void* mean, const void* invstd,
-                              void* sum_dy, void* sum_dy_xhat, void* partial, int N, int C, int S,
-                              int P, void* stream) {
+                              void* sum_dy, void* sum_dy_xhat, int N, int C, int S, int vec,
+                              int grid, int cluster, int channels, void* stream) {
     return (int)launch<true>(static_cast<const float*>(x), static_cast<const float*>(dy),
                              static_cast<const float*>(mean), static_cast<const float*>(invstd),
-                             static_cast<float*>(sum_dy), static_cast<float*>(sum_dy_xhat),
-                             static_cast<float*>(partial), N, C, S, P,
-                             static_cast<cudaStream_t>(stream));
+                             static_cast<float*>(sum_dy), static_cast<float*>(sum_dy_xhat), N, C,
+                             S, vec, grid, cluster, channels, static_cast<cudaStream_t>(stream));
 }

@@ -4,15 +4,19 @@ plain PyTorch versions.
 `bn_stats` replaces `cpcsv_tpu/ops/pallas/bn.py:bn_stats` and
 `bn_grad_reduce` replaces `bn_grad_reduce` there. Both take the port's NCHW
 activations as an (N, C, S) view (S = H*W; S = 1 for BatchNorm1d) and return
-per-channel float32 sums. The library is built at the first call
-(`build.py`), never at import. `launches` counts each kernel's launches. The
-plain versions serve CPU tensors; on the card they are only the yardstick
-the kernels are held against.
+per-channel float32 sums, in one launch per call whose grid, cluster and
+load width `plan` chooses from the shape, the SM count and the inputs'
+alignment. The library is built at the first call (`build.py`), never at
+import. `launches` counts each kernel's launches. The plain versions serve
+CPU tensors; on the card they are only the yardstick the kernels are held
+against.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -23,29 +27,68 @@ REPLACES = {
     "bn_stats": "cpcsv_tpu/ops/pallas/bn.py:66",  # body _stats_kernel at :52
     "bn_grad_reduce": "cpcsv_tpu/ops/pallas/bn.py:106",  # body _grad_kernel at :91
 }
-ROWS_PER_BLOCK_ELEMENTS = 8192  # elements of one channel a block reduces, at least
+# csrc/bn.cu's constants: a block's threads (kThreads), reduce_rows'
+# channels a block (kRowChannels), the fewest loads a reduce_maps thread
+# starts at once (kUnroll<true>; bn_stats starts 8), the portable cluster size
+THREADS, ROW_CHANNELS, UNROLL, MAX_CLUSTER = 256, 32, 4, 8
+# reduce_maps' blocks an SM should get: measured on an H100, more and
+# smaller blocks, or clusters where C alone gives every SM a block, cost
+# more in launch and reduction than they add in bytes in flight
+BLOCKS_PER_SM = 2
+GRID_MAX = 2**31 - 1  # blocks a 1-D grid may have
 
 launches = {"bn_stats": 0, "bn_grad_reduce": 0}
+_sm_counts: dict[int, int] = {}
+
+
+class Plan(NamedTuple):
+    """What one launch of `csrc/bn.cu` does, as the kernel gets it: reduce_rows
+    if S == 1, else reduce_maps; the kernel refuses a plan that does not fit
+    the shape."""
+
+    vec: int  # floats a load: 4 (16 bytes) or 1
+    grid: int  # blocks, 1-D
+    cluster: int  # blocks of one thread block cluster that share a channel (maps), else 1
+    channels: int  # channels a block reduces (with cluster > 1: a cluster)
+
+
+def plan(N: int, C: int, S: int, sms: int, aligned: bool) -> Plan:
+    """The launch for an (N, C, S) float32 reduction on a card of `sms` SMs,
+    `aligned` when every input starts on a 16-byte boundary.
+
+    S = 1: reduce_rows, ROW_CHANNELS channels a block, as float4s over 32
+    row groups or floats over 8. S > 1: reduce_maps, about BLOCKS_PER_SM
+    blocks an SM: a channel gets BLOCKS_PER_SM·sms·THREADS / C threads, but
+    no more than leaves each thread UNROLL loads. Up to a block that rounds
+    to a power of two, from a warp (and 8 channels a block) to a block;
+    beyond, to a cluster of up to MAX_CLUSTER blocks."""
+    if min(N, C, S, sms) < 1:
+        raise ValueError(f"plan: (N, C, S) = {(N, C, S)} on {sms} SMs")
+    if S == 1:
+        vec = 4 if aligned and C % 4 == 0 else 1
+        return Plan(vec, -(-C // ROW_CHANNELS), 1, ROW_CHANNELS)
+    vec = 4 if aligned and S % 4 == 0 else 1
+    items = N * (S // vec)  # loads a channel needs
+    want = min(-(-sms * BLOCKS_PER_SM * THREADS // C), -(-items // UNROLL))  # threads a channel
+    if want > THREADS:
+        tpc, cluster = THREADS, min(MAX_CLUSTER, int(want / THREADS + 0.5))
+    else:
+        tpc, cluster = max(32, 1 << int(math.log2(want) + 0.5)), 1
+    channels = THREADS // tpc
+    grid = -(-C // channels) * cluster
+    if grid > GRID_MAX:
+        raise ValueError(f"plan: (N, C, S) = {(N, C, S)} needs {grid} blocks")
+    return Plan(vec, grid, cluster, channels)
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("bn")
     if lib.bn_stats.argtypes is None:  # pointers and the stream as c_void_p, not 32-bit ints
-        lib.bn_stats.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.bn_stats.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.bn_stats.restype = ctypes.c_int
-        lib.bn_grad_reduce.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.bn_grad_reduce.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         lib.bn_grad_reduce.restype = ctypes.c_int
     return lib
-
-
-def chunks(N: int, S: int) -> int:
-    """P, the blocks each channel's N rows are split over: one block per
-    ~8,192 elements of a channel, so that the largest maps of the step,
-    (90, 128, 64*64), fill the card with 5,760 blocks, while the short ones
-    keep one block, and no second pass, per channel. S = 1 takes P = 1."""
-    if S == 1:
-        return 1
-    return max(1, min(N, N * S // ROWS_PER_BLOCK_ELEMENTS))
 
 
 def _check(name: str, *tensors: torch.Tensor) -> tuple[int, int, int]:
@@ -65,27 +108,20 @@ def _check(name: str, *tensors: torch.Tensor) -> tuple[int, int, int]:
     return N, C, S
 
 
-def _outputs(x: torch.Tensor, C: int, P: int):
-    out = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    partial = torch.empty((2, C, P), dtype=torch.float32, device=x.device) if P > 1 else None
-    return out, partial
+def _plan(*inputs: torch.Tensor) -> Plan:
+    """The launch for these (N, C, S) inputs on their card, whose SM count
+    is read once."""
+    index = inputs[0].device.index
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return plan(*inputs[0].shape, _sm_counts[index],
+                all(t.data_ptr() % 16 == 0 for t in inputs))
 
 
 def bn_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x (N, C, S) float32 on the card -> (sum x, sum x²), float32 [C]."""
-    N, C, S = _check("bn_stats", x)
-    P = chunks(N, S)
-    out, partial = _outputs(x, C, P)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bn_stats(x.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                           partial.data_ptr() if partial is not None else None,
-                           N, C, S, P, stream)
-    if err != 0:
-        raise RuntimeError(f"bn_stats launch failed with CUDA error {err}")
-    launches["bn_stats"] += 1
-    return out[0], out[1]
+    _check("bn_stats", x)
+    return launch("bn_stats", _plan(x), x)
 
 
 def bn_grad_reduce(
@@ -97,18 +133,24 @@ def bn_grad_reduce(
     if dy.shape != x.shape or mean.shape != (C,) or invstd.shape != (C,):
         raise ValueError(f"bn_grad_reduce: x {tuple(x.shape)}, dy {tuple(dy.shape)}, mean "
                          f"{tuple(mean.shape)}, invstd {tuple(invstd.shape)} disagree")
-    P = chunks(N, S)
-    out, partial = _outputs(x, C, P)
+    return launch("bn_grad_reduce", _plan(x, dy), x, dy, mean, invstd)
+
+
+def launch(name: str, p: Plan, *inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel `name` under plan `p` on inputs that `bn_stats`
+    or `bn_grad_reduce` would take, on the current stream; counts it."""
+    x = inputs[0]
+    N, C, S = x.shape
+    out = torch.empty((2, C), dtype=torch.float32, device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.bn_grad_reduce(x.data_ptr(), dy.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
-                                 out[0].data_ptr(), out[1].data_ptr(),
-                                 partial.data_ptr() if partial is not None else None,
-                                 N, C, S, P, stream)
+        err = getattr(lib, name)(*(t.data_ptr() for t in inputs), out[0].data_ptr(),
+                                 out[1].data_ptr(), N, C, S, p.vec, p.grid, p.cluster,
+                                 p.channels, stream)
     if err != 0:
-        raise RuntimeError(f"bn_grad_reduce launch failed with CUDA error {err}")
-    launches["bn_grad_reduce"] += 1
+        raise RuntimeError(f"{name} launch failed with CUDA error {err} ({p})")
+    launches[name] += 1
     return out[0], out[1]
 
 

@@ -156,12 +156,120 @@ def test_train_bn_matches_flax_arm(jax_bn, dim):
         np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(stats["var"]), **tol)
 
 
-def test_chunks():
-    assert bn_cuda.chunks(90, 1) == 1  # dense heads: one pass
-    assert bn_cuda.chunks(90, 16) == 1 and bn_cuda.chunks(90, 64) == 1
-    assert bn_cuda.chunks(90, 4096) == 45  # the largest maps: two rows a block
-    assert bn_cuda.chunks(7, 4096) == 3
-    assert bn_cuda.chunks(1, 1 << 20) == 1  # never more chunks than rows
+def _walk_maps(p, N, C, S):
+    """Replays reduce_maps' index arithmetic (csrc/bn.cu) under plan p:
+    checks that every channel gets each thread slot 0 ... cluster·tpc − 1
+    of its block or cluster once, and returns the reads of each (n, s) by
+    those slots' loads, [N, S], stepping (off, s) as the kernel does (the
+    same for every channel)."""
+    tpc = bn_cuda.THREADS // p.channels
+    block, t = np.divmod(np.arange(p.grid * bn_cuda.THREADS), bn_cuda.THREADS)
+    group, rank = block // p.cluster, block % p.cluster
+    c = group * p.channels + t // tpc
+    j = rank * tpc + t % tpc
+    inside = c < C
+    slots = np.bincount(c[inside] * p.cluster * tpc + j[inside],
+                        minlength=C * p.cluster * tpc)
+    assert (slots == 1).all()
+
+    sv = S // p.vec
+    row, items, stride = C * sv, N * sv, p.cluster * tpc
+    j = np.arange(stride)
+    dn, ds = divmod(stride, sv)
+    s = j % sv
+    off = (j // sv) * row + s
+    left = np.where(j < items, (items - j + stride - 1) // stride, 0)
+    assert left.max() == -(-items // stride)  # the loads of the slowest thread
+    reads = np.zeros((N, S), dtype=np.int64)
+    for u in range(left.max()):
+        live = u < left
+        n, col = np.divmod(off[live], row)
+        assert (col < sv).all() and (n < N).all()
+        for k in range(p.vec):
+            np.add.at(reads, (n, col * p.vec + k), 1)
+        off = off + dn * row + ds
+        s = s + ds
+        wrap = s >= sv
+        s = np.where(wrap, s - sv, s)
+        off = np.where(wrap, off + row - sv, off)
+    return reads
+
+
+def _walk_rows(p, N, C):
+    """Replays reduce_rows' index arithmetic: reads of each (n, c), [N, C],
+    and the channels whose sums the blocks' first threads write."""
+    Q = bn_cuda.ROW_CHANNELS // p.vec
+    R = bn_cuda.THREADS // Q
+    block, t = np.divmod(np.arange(p.grid * bn_cuda.THREADS), bn_cuda.THREADS)
+    q, ty = block * Q + t % Q, t // Q
+    live = q < C // p.vec
+    flat = []
+    for k in range(-(-N // R)):
+        n = ty + k * R
+        m = live & (n < N)
+        flat += [n[m] * C + q[m] * p.vec + lane for lane in range(p.vec)]
+    reads = np.bincount(np.concatenate(flat), minlength=N * C).reshape(N, C)
+    written = block * bn_cuda.ROW_CHANNELS + t
+    return reads, written[(t < bn_cuda.ROW_CHANNELS) & (written < C)]
+
+
+# final.yml's D+G step at IM_BATCH 90 / ST_BATCH 18: every (N, C, S) it gives
+# the BN kernels (chip_smoke.py phase 6 counts them)
+STEP_SHAPES = [
+    (17, 992, 16), (18, 124, 1), (18, 365, 1), (18, 992, 16), (89, 992, 16), (90, 63, 1),
+    (90, 64, 4096), (90, 124, 1), (90, 128, 1024), (90, 128, 4096), (90, 248, 256),
+    (90, 256, 256), (90, 256, 1024), (90, 365, 1), (90, 372, 1), (90, 496, 64), (90, 512, 64),
+    (90, 512, 256), (90, 992, 16), (90, 1024, 64), (90, 16384, 1), (90, 32768, 1)]
+# the same widths at N=7, and edge shapes: one row, one channel, S not a
+# multiple of 4, odd short maps, the dense heads at S = 1
+PLAN_SHAPES = (STEP_SHAPES + sorted({(7, c, s) for _, c, s in STEP_SHAPES})
+               + [(1, 64, 4096), (90, 1, 1024), (7, 37, 5), (3, 5, 18), (2, 3, 2),
+                  (18, 16384, 1), (90, 9, 1), (1, 1, 1)])
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_plan_covers_every_element_once(shape, aligned):
+    N, C, S = shape
+    p = bn_cuda.plan(N, C, S, H100_SMS, aligned)
+    assert 1 <= p.grid <= bn_cuda.GRID_MAX and p.grid % p.cluster == 0
+    assert 1 <= p.cluster <= bn_cuda.MAX_CLUSTER
+    assert p.vec in (1, 4)
+    if p.vec == 4:  # 16-byte loads only where every load is 16-byte aligned
+        assert aligned and (C if S == 1 else S) % 4 == 0
+    if S == 1:
+        assert p.cluster == 1 and p.channels == bn_cuda.ROW_CHANNELS
+        assert p.grid == -(-C // p.channels)
+        reads, written = _walk_rows(p, N, C)
+        assert (reads == 1).all() and (written == np.arange(C)).all()
+        return
+    assert p.channels in (1, 2, 4, 8)
+    assert p.cluster == 1 or p.channels == 1  # a cluster reduces one channel
+    assert p.grid == -(-C // p.channels) * p.cluster
+    # about BLOCKS_PER_SM blocks an SM (twice that at most, from rounding),
+    # unless C alone needs more, at 8 channels a block
+    assert p.grid <= max(2 * bn_cuda.BLOCKS_PER_SM * H100_SMS, -(-C // 8))
+    assert (_walk_maps(p, N, C, S) == 1).all()
+
+
+def test_plan_follows_the_card_and_the_alignment():
+    # the largest maps of the step: a cluster of 2 blocks a channel, float4
+    assert bn_cuda.plan(90, 128, 4096, H100_SMS, True) == bn_cuda.Plan(4, 256, 2, 1)
+    # C = 64: a cluster of 4; C = 256, a block a channel
+    assert bn_cuda.plan(90, 64, 4096, H100_SMS, True).cluster == 4
+    assert bn_cuda.plan(90, 256, 1024, H100_SMS, True) == bn_cuda.Plan(4, 256, 1, 1)
+    # short maps: two warps a channel, four channels a block
+    assert bn_cuda.plan(90, 992, 16, H100_SMS, True) == bn_cuda.Plan(4, 248, 1, 4)
+    # twice the SMs, twice the blocks; unaligned, scalar loads
+    assert bn_cuda.plan(90, 128, 4096, 2 * H100_SMS, True).cluster == 4
+    assert bn_cuda.plan(90, 128, 4096, H100_SMS, False).vec == 1
+    # the dense heads: 32 channels a block, as float4s over 32 row groups or
+    # as floats over 8
+    assert bn_cuda.plan(90, 32768, 1, H100_SMS, True) == bn_cuda.Plan(4, 1024, 1, 32)
+    assert bn_cuda.plan(90, 9, 1, H100_SMS, True) == bn_cuda.Plan(1, 1, 1, 32)
+    with pytest.raises(ValueError):
+        bn_cuda.plan(0, 4, 4, H100_SMS, True)
 
 
 def test_cpu_call_never_builds(monkeypatch):
@@ -185,15 +293,25 @@ def test_cpu_call_never_builds(monkeypatch):
 def test_cuda_kernels_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    # the step's shapes at full width (final.yml), and odd ones
+    # the step's shapes at full width (final.yml), and odd ones; each 16-byte
+    # aligned and one float off, so every plan variant runs: rows with float4
+    # and floats, maps with a warp to a block a channel and with clusters,
+    # float4 and floats (S % 4 != 0 or unaligned)
     shapes = [(90, 32768, 1), (18, 992, 16), (89, 992, 16), (90, 248, 256), (90, 1024, 64),
-              (90, 128, 4096), (7, 128, 4096), (7, 37, 5), (1, 5, 1)]
-    for N, C, S in shapes:
+              (90, 512, 64), (90, 128, 4096), (7, 128, 4096), (1, 64, 4096), (90, 1, 1024),
+              (40, 992, 16), (7, 37, 5), (3, 5, 18), (90, 9, 1), (1, 5, 1)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variants = set()
+    for (N, C, S), offset in ((sh, off) for sh in shapes for off in (0, 1)):
         gen = torch.Generator(device="cuda").manual_seed(N * C + S)
-        x = torch.randn(N, C, S, generator=gen, device="cuda") + 0.5
-        dy = torch.randn(N, C, S, generator=gen, device="cuda")
+        buf = torch.randn(2, N * C * S + 4, generator=gen, device="cuda")
+        x, dy = (row[offset:offset + N * C * S].view(N, C, S) for row in buf)
+        x += 0.5
         mean = torch.randn(C, generator=gen, device="cuda")
         inv = torch.rand(C, generator=gen, device="cuda") + 0.5
+        p = bn_cuda.plan(N, C, S, sms, offset == 0)
+        assert (x.data_ptr() % 16 == 0) == (offset == 0)
+        variants.add(("rows" if S == 1 else "maps", p.vec, p.cluster > 1, p.channels))
         before = dict(bn_cuda.launches)
         got = bn_cuda.bn_stats(x) + bn_cuda.bn_grad_reduce(x, dy, mean, inv)
         again = bn_cuda.bn_stats(x) + bn_cuda.bn_grad_reduce(x, dy, mean, inv)
@@ -206,3 +324,7 @@ def test_cuda_kernels_match_plain():
             assert torch.equal(a, b), "two launches on the same input differ"
             # float32 sums of up to 368,640 terms against a float64 reference
             torch.testing.assert_close(a.double(), r, rtol=1e-4, atol=1e-3)
+    assert {v[:3] for v in variants} >= {("rows", 4, False), ("rows", 1, False),
+                                         ("maps", 4, False), ("maps", 4, True),
+                                         ("maps", 1, False), ("maps", 1, True)}
+    assert {v[3] for v in variants if v[0] == "maps"} == {1, 2, 4, 8}
