@@ -6,24 +6,30 @@
 Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from the sources in this checkout with nvcc
-     into build/kernels/ (one nvcc per source), with its register lines;
+     into build/kernels/ (one nvcc per source, all started together), with
+     their register lines;
   3. the DFN kernels, forward and backward, against their plain PyTorch
-     versions on the card;
+     versions on the card: every instantiation, B in KERNEL_BATCHES, rows
+     aligned and one element off, the backward on a row-strided dout, two
+     launches giving the same bits;
   4. story generation at full width, configs final.yml (v1) and cascade.yml,
      through the serving entry point `Infer` with random weights from --seed:
      shapes, finite values in [-1, 1], the kernels' launch counts, the same
      frames through the plain DFN, float32 inside the entry point while
      TF32 is allowed globally, and a `generate_story` PNG walk;
   5. serving timings: frames/s and device busy time from a torch.profiler
-     trace; the DFN forward kernel's device time from a trace and in one
-     CUDA graph, beside its bound, its plain version and a library call;
+     trace; the card's launch floor (an empty kernel in one CUDA graph); the
+     DFN forward kernel at B = 90, 360 and 1440 in one CUDA graph and from a
+     trace, over the floor, beside its bound, its plain version and a
+     library call;
   6. training at full width, final.yml at IM_BATCH 90 / ST_BATCH 18, from
      `create_train_state` through `make_train_steps`: 2 warm-up and 5 timed
      D+G steps with finite metrics, every parameter, BN running statistic
      and SN u moved, each kernel's launches equal to the per-step count
      derived from the code times the steps, the BN calls of one step counted
-     by shape, float32 inside the steps; ms per step, steps/s, device busy
-     time and idle share from a trace, peak memory;
+     by shape, the DFN backward handed the row-strided dout of zmc_all's
+     gradient with no copy, float32 inside the steps; ms per step, steps/s,
+     device busy time and idle share from a trace, peak memory;
   7. from one saved state and the same noise, one D+G step with the kernels
      against one with their plain versions swapped in: losses, gradients and
      BN running statistics;
@@ -32,7 +38,8 @@ Phases, each of which exits non-zero on failure:
   9. the BN kernels and their library calls at every shape of the step, one
      CUDA graph each with L2-cold inputs, beside their bounds, summed over a
      step by launches; the plain versions and a trace at the largest shape;
-     the DFN backward's times.
+     the DFN backward at B = 90 and 7 (and the op the step runs, on its
+     strided dout) over the floor, and the DFN pair's time a step.
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -42,14 +49,17 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import copy
+import itertools
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from unittest import mock
 
@@ -58,8 +68,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 STORY_SIZES = (18, 72)  # stories per call; 5 frames each
 KERNEL_BATCHES = (1, 7, 90, 360, 1440)
-BACKWARD_BATCHES = (1, 7, 90, 1440)
-TAPS = ((21, 10), (7, 3))  # (K, pad)
+# (K, pad): the generator's taps and K=7 (the compile-time instantiations
+# of csrc/dfn.cu, with C=3), K=5 (its runtime-K kernel), and L_out != L
+TAPS = ((21, 10), (7, 3), (5, 2), (21, 0))
+DFN_SHAPE = (3, 124, 21, 10)  # (C, L, K, pad) of the generator's DFN
+DFN_STEP_LAUNCHES = {"dfn_forward": 4, "dfn_backward": 2}  # per D+G step
+# the columns of the generator's zmc_all (zm_code, c_mu, DFN output): the G
+# step's DFN dout is its last 124 columns, rows ZMC_WIDTH floats apart
+ZMC_WIDTH = 613
 LR_D, LR_G = 4e-4, 1e-4  # final.yml's DISCRIMINATOR_LR, GENERATOR_LR
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
@@ -128,14 +144,17 @@ def trace(fn, reps: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):  # now and then a trace records no device event at all
         torch.cuda.synchronize()
-    events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
-    check(bool(dev), "torch.profiler recorded no device activity")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
+    check(bool(dev), "torch.profiler recorded no device activity in 3 traces")
     host = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cuda")]
     return dev, host
 
@@ -170,9 +189,9 @@ def device_ms(fn, label: str) -> float:
 def graph_ms(fn, reps: int = 20) -> float:
     """Mean milliseconds per call of `reps` calls captured in one CUDA graph,
     the median of GRAPH_REPLAYS replays (one replay now and then runs several
-    times slower): no host work between launches and no profiler. The DFN
-    is timed so at B=90 only: a grouped cuDNN conv1d hung in capture at
-    B >= 360."""
+    times slower): no host work between launches and no profiler. The DFN's
+    library call, a grouped cuDNN conv1d, is timed so at B=90 only: it hung
+    in capture at B >= 360."""
     import torch
 
     side = torch.cuda.Stream()
@@ -289,6 +308,154 @@ def dfn_backward_bound(B: int, C: int, L: int, K: int, pad: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def launch_floor_ms() -> float:
+    """The card's cost of one launch: `graph_ms` of torch.cuda._sleep(0),
+    PyTorch's spin kernel (one thread) told to spin for 0 cycles, an empty
+    kernel."""
+    import torch
+
+    return graph_ms(lambda: torch.cuda._sleep(0))
+
+
+# one DFN kernel at one batch: µs per call in one CUDA graph and traced, the
+# plain version's and the library call's, the bound
+DfnTime = collections.namedtuple("DfnTime", "graph_ms traced_ms plain_ms library_ms bound_ms bound_by")
+
+
+def dfn_line(name: str, B: int, t: DfnTime, floor: float, library: str, extra: str = "") -> None:
+    print(f"  {name} B={B}: kernel {t.graph_ms * 1e3:.2f} in a graph ({(t.graph_ms - floor) * 1e3:.2f} "
+          f"over the floor, share {t.bound_ms / t.graph_ms:.4f}), traced {t.traced_ms * 1e3:.2f}; "
+          f"plain {t.plain_ms * 1e3:.2f}; {library} {t.library_ms * 1e3:.2f}; bound "
+          f"{t.bound_ms * 1e3:.3f} ({t.bound_by}){extra}")
+
+
+def dfn_forward_times(gen, card: str, floor: float) -> dict:
+    """{B: DfnTime} of the DFN forward of the package on sys.path at the
+    generator's shape, B = 90 (a training call, 18 stories) and 360 (72) and
+    1440, float32, inputs warm in the L2 (on the main path
+    image_net and filter_net write them just before). The library call,
+    grouped F.conv1d, is one cuDNN kernel per group and is timed in a graph
+    at B=90 only (it hung in capture at B >= 360); above, back to back with
+    CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
+    from cpcsv_tpu_torch.ops.dynamic_filter import dynamic_filter_conv1d_plain
+
+    C, L, K, pad = DFN_SHAPE
+    print(f"dfn_forward [{card}]: us per call, inputs warm in L2; launch floor "
+          f"{floor * 1e3:.2f} us in a graph (torch.cuda._sleep(0)); share = bound / kernel")
+    times = {}
+    for B in (90, 360, 1440):
+        img = torch.randn(B, C, L, generator=gen, device="cuda")
+        filt = torch.randn(B, 1, C, K, generator=gen, device="cuda")
+        fns = {
+            "kernel": lambda: dfn_cuda.dfn_forward(img, filt, pad),
+            "plain": lambda: dynamic_filter_conv1d_plain(img, filt, pad),
+            "library": lambda: F.conv1d(img.reshape(1, B * C, L), filt.reshape(B, C, K),
+                                        padding=pad, groups=B),
+        }
+        with float32_math():  # the plain einsum and the library conv in float32
+            check(torch.allclose(fns["library"]().reshape(B, 1, -1), fns["kernel"](),
+                                 rtol=1e-5, atol=1e-5), "grouped conv1d disagrees with the kernel")
+            traced = {k: device_ms(f, f"dfn_forward {k} B={B}") for k, f in fns.items()}
+            graphed = {k: graph_ms(f) for k, f in fns.items() if k != "library" or B == 90}
+            library = graphed.get("library") or event_ms(fns["library"])
+        times[B] = DfnTime(graphed["kernel"], traced["kernel"], graphed["plain"], library,
+                           *dfn_bound(B, C, L, K, pad, 4))
+        dfn_line("dfn_forward", B, times[B], floor,
+                 "grouped conv1d " + ("in a graph" if B == 90 else "back to back"),
+                 f"; traced plain {traced['plain'] * 1e3:.2f}, library {traced['library'] * 1e3:.2f}")
+    return times
+
+
+def dfn_backward_times(gen, card: str, floor: float):
+    """({B: DfnTime}, {B: ms of the step's backward op}, {B: ms of one dout
+    copy}, copies):
+    the DFN backward of the package on sys.path at the generator's shape,
+    B = 90 (the step's) and 7, inputs warm in the L2. The kernel is timed on a contiguous dout; the op
+    is `_DynamicFilterKernel.backward` on the dout the G step hands it, the
+    last L_out columns of a (B, ZMC_WIDTH) gradient, with whatever copy the
+    op makes first; `copies` is how many it made, seen by a pass-through."""
+    import torch
+
+    from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.ops import dynamic_filter as dfn_op
+    from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
+
+    C, L, K, pad = DFN_SHAPE
+    L_out = L + 2 * pad - K + 1
+    print(f"dfn_backward [{card}]: us per call, inputs warm in L2; launch floor "
+          f"{floor * 1e3:.2f} us; op = the autograd Function's backward on the G step's "
+          f"row-strided dout (row stride {ZMC_WIDTH}), its copy included")
+    times, ops, copy_ms = {}, {}, {}
+    for B in (90, 7):
+        img = torch.randn(B, C, L, generator=gen, device="cuda")
+        filt = torch.randn(B, 1, C, K, generator=gen, device="cuda")
+        strided = torch.randn(B, ZMC_WIDTH, generator=gen, device="cuda")[:, -L_out:].unsqueeze(1)
+        dout = strided.contiguous()
+        ctx = types.SimpleNamespace(saved_tensors=(img, filt), pad=pad)
+        fns = {
+            "kernel": lambda: dfn_cuda.dfn_backward(img, filt, dout, pad),
+            "op": lambda: dfn_op._DynamicFilterKernel.backward(ctx, strided),
+            "plain": lambda: dfn_op.dynamic_filter_conv1d_backward_plain(img, filt, dout, pad),
+            "library": lambda: torch.ops.aten.convolution_backward(
+                dout.view(1, B, L_out), img.view(1, B * C, L), filt.view(B, C, K), None, [1],
+                [pad], [1], False, [0], B, [True, True, False]),
+            "copy": lambda: strided.contiguous(),
+        }
+        with float32_math():
+            lib, got = fns["library"](), fns["kernel"]()
+            check(torch.allclose(lib[0].view(B, C, L), got[0], rtol=1e-5, atol=1e-4)
+                  and torch.allclose(lib[1].view(B, 1, C, K), got[1], rtol=1e-5, atol=1e-4),
+                  "grouped conv1d backward disagrees with dfn_backward")
+            with counting_dfn_backward() as handed:
+                fns["op"]()
+            copies = int(handed[0][1] != strided.stride())
+            traced = {k: device_ms(f, f"dfn_backward {k} B={B}") for k, f in fns.items()}
+            graphed = {k: graph_ms(f) for k, f in fns.items()}
+        times[B] = DfnTime(graphed["kernel"], traced["kernel"], graphed["plain"],
+                           graphed["library"], *dfn_backward_bound(B, C, L, K, pad))
+        ops[B], copy_ms[B] = graphed["op"], graphed["copy"]
+        dfn_line("dfn_backward", B, times[B], floor, "convolution_backward in a graph",
+                 f"; op {graphed['op'] * 1e3:.2f} in a graph ({copies} dout copy of "
+                 f"{graphed['copy'] * 1e3:.2f}), traced {traced['op'] * 1e3:.2f}")
+    return times, ops, copy_ms, copies
+
+
+def dfn_step_ms(card: str, forward: DfnTime, backward_op: float, copies: int, copy_ms: float,
+                floor: float) -> float:
+    """Prints and returns the DFN pair's Σ launches × graph time over one D+G
+    step at B=90: DFN_STEP_LAUNCHES of the forward kernel and of the
+    backward op (its dout copies included)."""
+    n_f, n_b = DFN_STEP_LAUNCHES["dfn_forward"], DFN_STEP_LAUNCHES["dfn_backward"]
+    step = n_f * forward.graph_ms + n_b * backward_op
+    print(f"DFN pair per step [{card}]: {n_f} x forward {forward.graph_ms * 1e3:.2f} + {n_b} x "
+          f"backward op {backward_op * 1e3:.2f} ({copies} dout copy each, {copy_ms * 1e3:.2f} us) "
+          f"= {step * 1e3:.2f} us; {n_f + n_b + n_b * copies} launches, floor x launches "
+          f"{(n_f + n_b + n_b * copies) * floor * 1e3:.2f} us")
+    return step
+
+
+@contextlib.contextmanager
+def counting_dfn_backward():
+    """While open, the DFN backward wrapper records the (shape, strides) of
+    each dout it is handed, passing each call on: yields that list."""
+    from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
+
+    handed = []
+    wrapped = dfn_cuda.dfn_backward
+
+    def call(image, filters, dout, pad):
+        handed.append((tuple(dout.shape), dout.stride()))
+        return wrapped(image, filters, dout, pad)
+
+    with mock.patch.object(dfn_cuda, "dfn_backward", call):
+        yield handed
+
+
 def bn_bound(name: str, N: int, C: int, S: int):
     """(bound_ms, bound_by) of a BN reduction over float32 (N, C, S): bn_stats
     reads x and writes two [C] sums, 3 operations an element; bn_grad_reduce
@@ -365,8 +532,7 @@ def per_step_launches(state) -> dict[str, int]:
     return {
         "bn_stats": 2 * g + d_phase + 2 * g + g_phase,
         "bn_grad_reduce": d_phase + 2 * g - unread_mask_bns + g_phase,
-        "dfn_forward": 4,
-        "dfn_backward": 2,
+        **DFN_STEP_LAUNCHES,
     }
 
 
@@ -383,7 +549,6 @@ def main() -> int:
     if not (REPO / "cpcsv_tpu_torch" / "csrc").is_dir():
         fail(f"{REPO} is not a checkout of the repository (no cpcsv_tpu_torch/)")
     sys.path.insert(0, str(REPO))
-    import torch.nn.functional as F
 
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.data.synthetic import (
@@ -433,11 +598,13 @@ def main() -> int:
 
     # --------------------------------------------------------------- 2. build
     phase("2. build")
-    for name in build.SOURCES:
-        t0 = time.perf_counter()
-        log = build.build(name)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        logs = dict(zip(build.SOURCES, pool.map(build.build, build.SOURCES)))
+    print(f"build {', '.join(build.SOURCES)}, one nvcc each at once: "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
         build.load(name)
-        print(f"build {name}: {time.perf_counter() - t0:.2f} s")
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  nvcc {name}: {line.strip()}")
@@ -447,47 +614,78 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     C, L = 3, 124
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dfn_plans = set()  # (kernel, taps, vec, warps a block) the cases ran
+
+    def offset_copy(t, offset: int):
+        """A contiguous copy of t starting `offset` elements past a 256-byte
+        boundary: offset 1 leaves no row 16-byte aligned."""
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    # every instantiation (TAPS), each batch, rows aligned and one element
+    # off, and two launches on one input
     for dtype in (torch.float32, torch.bfloat16):
         # float32: the taps are summed in another order; bfloat16: the kernel
         # accumulates in float32 and rounds its output to bfloat16 once
         tol = 1e-5 if dtype == torch.float32 else 1e-2
-        for B in KERNEL_BATCHES:
-            for K, pad in TAPS:
-                img = torch.randn(B, C, L, generator=gen, device="cuda").to(dtype)
-                filt = torch.randn(B, 1, C, K, generator=gen, device="cuda").to(dtype)
-                out = dfn_cuda.dfn_forward(img, filt, pad)
-                with float32_math():
-                    ref = dynamic_filter_conv1d_plain(img.float(), filt.float(), pad)
-                check(out.dtype == dtype and out.shape == ref.shape,
-                      f"dfn {dtype} B={B} K={K}: {out.dtype} {tuple(out.shape)}")
-                err = (out.float() - ref).abs()
-                check(bool((err <= tol + tol * ref.abs()).all()),
-                      f"dfn kernel vs plain, {dtype} B={B} K={K}: max error {err.max().item()}")
-                max_err[dtype] = max(max_err[dtype], err.max().item())
-    print(f"dfn kernel vs plain on the card, B in {KERNEL_BATCHES}, K/pad in {TAPS}: "
-          f"max abs error f32 {max_err[torch.float32]:.3e} (tol 1e-5), "
-          f"bf16 {max_err[torch.bfloat16]:.3e} (tol 1e-2)")
-    # the backward against autograd of the plain version; float32, the sums
-    # (up to 124 products) run in another order: 1e-5 + 1e-5·|ref|
-    bwd_err = 0.0
-    for B in BACKWARD_BATCHES:
-        for K, pad in TAPS:
-            img = torch.randn(B, C, L, generator=gen, device="cuda")
-            filt = torch.randn(B, 1, C, K, generator=gen, device="cuda")
-            dout = torch.randn(B, 1, L + 2 * pad - K + 1, generator=gen, device="cuda")
-            got = dfn_cuda.dfn_backward(img, filt, dout, pad)
+        for B, (K, pad), offset in itertools.product(KERNEL_BATCHES, TAPS, (0, 1)):
+            img = offset_copy(torch.randn(B, C, L, generator=gen, device="cuda").to(dtype), offset)
+            filt = offset_copy(torch.randn(B, 1, C, K, generator=gen, device="cuda").to(dtype),
+                               offset)
+            p = dfn_cuda.plan(B, C, L, K, pad, sms, offset == 0)
+            dfn_plans.add(("forward", p.taps, p.vec, p.warps))
+            out = dfn_cuda.dfn_forward(img, filt, pad)
             with float32_math():
-                ref = dynamic_filter_conv1d_backward_plain(img, filt, dout, pad)
-            for a, r in zip(got, ref):
-                err = (a - r).abs()
-                check(a.shape == r.shape and bool((err <= 1e-5 + 1e-5 * r.abs()).all()),
-                      f"dfn backward kernel vs plain, B={B} K={K}: max error {err.max().item()}")
-                bwd_err = max(bwd_err, err.max().item())
-            check(all(torch.equal(a, b) for a, b in zip(got, dfn_cuda.dfn_backward(
-                img, filt, dout, pad))), f"dfn backward B={B} K={K}: two launches differ")
-    print(f"dfn backward kernel vs autograd of the plain version, B in {BACKWARD_BATCHES}, "
-          f"K/pad in {TAPS}: max abs error {bwd_err:.3e} (tol 1e-5 + 1e-5·|ref|); "
-          "two launches give the same bits")
+                ref = dynamic_filter_conv1d_plain(img.float(), filt.float(), pad)
+            where = f"dfn {dtype} B={B} K={K} pad={pad} offset {offset}"
+            check(out.dtype == dtype and out.shape == ref.shape,
+                  f"{where}: {out.dtype} {tuple(out.shape)}")
+            err = (out.float() - ref).abs()
+            check(bool((err <= tol + tol * ref.abs()).all()),
+                  f"{where}: kernel vs plain max error {err.max().item()}")
+            check(torch.equal(out, dfn_cuda.dfn_forward(img, filt, pad)),
+                  f"{where}: two launches differ")
+            max_err[dtype] = max(max_err[dtype], err.max().item())
+    print(f"dfn kernel vs plain on the card, B in {KERNEL_BATCHES}, K/pad in {TAPS}, rows "
+          f"aligned and one element off: max abs error f32 {max_err[torch.float32]:.3e} "
+          f"(tol 1e-5), bf16 {max_err[torch.bfloat16]:.3e} (tol 1e-2); two launches give the "
+          "same bits")
+    # the backward against autograd of the plain version; float32, the sums
+    # (up to 124 products) run in another order: 1e-5 + 1e-5·|ref|. dout
+    # as the G step hands it over (the last L_out columns of a (B, 613)
+    # gradient) and contiguous: the same bits
+    bwd_err = 0.0
+    for B, (K, pad), offset in itertools.product(KERNEL_BATCHES, TAPS, (0, 1)):
+        L_out = L + 2 * pad - K + 1
+        img = offset_copy(torch.randn(B, C, L, generator=gen, device="cuda"), offset)
+        filt = offset_copy(torch.randn(B, 1, C, K, generator=gen, device="cuda"), offset)
+        strided = torch.randn(B, ZMC_WIDTH, generator=gen, device="cuda")[:, -L_out:].unsqueeze(1)
+        dout = strided.contiguous()
+        p = dfn_cuda.plan(B, C, L, K, pad, sms, offset == 0, backward=True)
+        dfn_plans.add(("backward", p.taps, p.vec, p.warps))
+        got = dfn_cuda.dfn_backward(img, filt, strided, pad)
+        with float32_math():
+            ref = dynamic_filter_conv1d_backward_plain(img, filt, dout, pad)
+        where = f"dfn backward B={B} K={K} pad={pad} offset {offset}"
+        for a, r in zip(got, ref):
+            err = (a - r).abs()
+            check(a.shape == r.shape and bool((err <= 1e-5 + 1e-5 * r.abs()).all()),
+                  f"{where}: kernel vs plain max error {err.max().item()}")
+            bwd_err = max(bwd_err, err.max().item())
+        for again in (dfn_cuda.dfn_backward(img, filt, strided, pad),
+                      dfn_cuda.dfn_backward(img, filt, dout, pad)):
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{where}: two launches, or strided and contiguous dout, differ")
+    print(f"dfn backward kernel vs autograd of the plain version, B in {KERNEL_BATCHES}, "
+          f"K/pad in {TAPS}, rows aligned and one element off, dout with row stride "
+          f"{ZMC_WIDTH}: max abs error {bwd_err:.3e} (tol 1e-5 + 1e-5·|ref|); two launches, "
+          f"and a contiguous dout, give the same bits; plans (kernel, taps, vec, warps a block) "
+          f"on {sms} SMs: {sorted(dfn_plans)}")
+    check({t for _, t, _, _ in dfn_plans} == {21, 7, 0},
+          f"the cases ran the instantiations {dfn_plans}")
 
     # ------------------------------------------- 4. the slice at full width
     phase("4. the slice at full width")
@@ -582,36 +780,16 @@ def main() -> int:
 
     # ------------------------------------------------- 5a. kernel timings
     phase("5. kernel timings")
-    for B in (90, 1440):
-        K, pad = TAPS[0]
-        img = torch.randn(B, C, L, generator=gen, device="cuda")
-        filt = torch.randn(B, 1, C, K, generator=gen, device="cuda")
-        fns = {
-            "kernel": lambda: dfn_cuda.dfn_forward(img, filt, pad),
-            "plain": lambda: dynamic_filter_conv1d_plain(img, filt, pad),
-            "library": lambda: F.conv1d(img.reshape(1, B * C, L), filt.reshape(B, C, K),
-                                        padding=pad, groups=B),
-        }
-        with float32_math():  # the plain einsum and the library conv in float32
-            check(torch.allclose(fns["library"]().reshape(B, 1, -1), fns["kernel"](),
-                                 rtol=1e-5, atol=1e-5), "grouped conv1d disagrees with the kernel")
-            dev = {k: device_ms(f, f"{k} B={B}") for k, f in fns.items()}
-            call = {k: event_ms(f) for k, f in fns.items()}
-            if B == 90:
-                graphed = {k: graph_ms(f) for k, f in fns.items()}
-                print(f"dfn B={B} f32 [{card}]: us/call in one CUDA graph "
-                      + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in graphed.items()))
-        bound, bound_by = dfn_bound(B, C, L, K, pad, 4)
-        print(f"dfn B={B} f32 [{card}]: traced device us/call kernel {dev['kernel'] * 1e3:.2f}, "
-              f"plain {dev['plain'] * 1e3:.2f}, grouped conv1d {dev['library'] * 1e3:.2f}; "
-              f"per call back to back kernel {call['kernel'] * 1e3:.2f}, plain "
-              f"{call['plain'] * 1e3:.2f}, grouped conv1d {call['library'] * 1e3:.2f}; "
-              f"bound {bound * 1e3:.3f} us ({bound_by})")
-
-    # The main path's shape, 18 stories x 5 frames, timed in one CUDA graph:
-    # the trace gives the library's 90 per-group cuDNN kernels about four
-    # times the graph's time, so the graph is the figure the line reports.
-    bound, bound_by = dfn_bound(90, C, L, *TAPS[0], 4)
+    # the card's cost of one launch in a graph, beside every kernel time
+    floor = launch_floor_ms()
+    empty = device_ms(lambda: torch.cuda._sleep(0), "empty kernel")
+    print(f"launch floor [{card}]: {floor * 1e3:.2f} us per launch in one CUDA graph "
+          f"(torch.cuda._sleep(0), an empty kernel); traced {empty * 1e3:.2f} us")
+    # the main paths' batches: 90 (a training call, 18 stories), 360 (72)
+    fwd = dfn_forward_times(gen, card, floor)
+    # the kernels line reports graph times at the main path's B=90: the
+    # trace gives the library's 90 per-group cuDNN kernels about four times
+    # the graph's time
     kernels = {"dfn_forward": {
         "name": "dfn_forward",
         "route": "cuda",
@@ -619,11 +797,13 @@ def main() -> int:
         "replaces": dfn_cuda.REPLACES,
         "launches": launches,
         "max_abs_err": max_err[torch.float32],
-        "ms": graphed["kernel"],
-        "plain_ms": graphed["plain"],
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": graphed["library"],
+        "ms": fwd[90].graph_ms,
+        "plain_ms": fwd[90].plain_ms,
+        "bound_ms": fwd[90].bound_ms,
+        "bound_by": fwd[90].bound_by,
+        "library_ms": fwd[90].library_ms,
+        "floor_ms": floor,
+        "step_ms": DFN_STEP_LAUNCHES["dfn_forward"] * fwd[90].graph_ms,
     }}
 
     # ------------------------------------------ 6. training at full width
@@ -656,6 +836,7 @@ def main() -> int:
         with contextlib.ExitStack() as stack:
             if i == 0:  # a warm-up step; the shapes are the same every step
                 bn_calls = stack.enter_context(counting_bn_calls())
+                douts = stack.enter_context(counting_dfn_backward())
             torch.cuda.synchronize()
             t = time.perf_counter()
             _, dm = d_step(state, rng, st_batch, im_batch, LR_D)
@@ -673,6 +854,17 @@ def main() -> int:
               f"expected {expected[name]}")
         print(f"{name} calls in one step by (N, C, S), {len(calls)} shapes: "
               + ", ".join(f"{sh} x{n}" for sh, n in calls.items()))
+    # the G step hands each DFN backward its dout as the gradient of the
+    # concatenation zmc_all left it, a column slice; the wrapper gets that
+    # view, so nothing copied it on the way
+    L_out = DFN_SHAPE[1] + 2 * DFN_SHAPE[3] - DFN_SHAPE[2] + 1
+    check(len(douts) == expected["dfn_backward"]
+          and all(sh == (b_im, 1, L_out) and st[0] == ZMC_WIDTH and st[-1] == 1
+                  for sh, st in douts),
+          f"dfn_backward got dout (shape, strides) {douts} in one step: expected "
+          f"{expected['dfn_backward']} views with row stride {ZMC_WIDTH}")
+    print(f"dfn_backward was handed in one step dout (shape, strides) {douts}: the column "
+          f"slice of zmc_all's gradient, row stride {ZMC_WIDTH}, no copy before the kernel")
     peak = torch.cuda.max_memory_allocated()
     for h in flags:
         h.remove()
@@ -941,37 +1133,21 @@ def main() -> int:
             "step_ms": step_bn[name][0], "step_bound_ms": step_bn[name][2],
         }
     del x, dy, fns
-    K, pad = TAPS[0]
-    for B in (90, 7):  # the step's batch, and a small one
-        img = torch.randn(B, C, L, generator=gen, device="cuda")
-        filt = torch.randn(B, 1, C, K, generator=gen, device="cuda")
-        dout = torch.randn(B, 1, L, generator=gen, device="cuda")
-        fns = {
-            "kernel": lambda: dfn_cuda.dfn_backward(img, filt, dout, pad),
-            "plain": lambda: dynamic_filter_conv1d_backward_plain(img, filt, dout, pad),
-            "library": lambda: torch.ops.aten.convolution_backward(
-                dout.view(1, B, L), img.view(1, B * C, L), filt.view(B, C, K), None, [1],
-                [pad], [1], False, [0], B, [True, True, False]),
-        }
-        with float32_math():
-            lib, got = fns["library"](), fns["kernel"]()
-            check(torch.allclose(lib[0].view(B, C, L), got[0], rtol=1e-5, atol=1e-4)
-                  and torch.allclose(lib[1].view(B, 1, C, K), got[1], rtol=1e-5, atol=1e-4),
-                  "grouped conv1d backward disagrees with dfn_backward")
-            traced = {k: device_ms(f, f"dfn_backward {k} B={B}") for k, f in fns.items()}
-            graphed = {k: graph_ms(f) for k, f in fns.items()}
-        bound, bound_by = dfn_backward_bound(B, C, L, K, pad)
-        print(f"dfn_backward B={B} f32 [{card}]: us/call in one CUDA graph "
-              + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in graphed.items())
-              + "; traced " + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in traced.items())
-              + f"; bound {bound * 1e3:.3f} us ({bound_by})")
-        if B == 90:
-            kernels["dfn_backward"] = {
-                "name": "dfn_backward", "route": "cuda", "source": dfn_cuda.SOURCE,
-                "replaces": dfn_cuda.REPLACES_BACKWARD, "launches": train_counts["dfn_backward"],
-                "max_abs_err": bwd_err, "ms": graphed["kernel"], "plain_ms": graphed["plain"],
-                "bound_ms": bound, "bound_by": bound_by, "library_ms": graphed["library"],
-            }
+    # the DFN backward at the step's batch and a small one, and the pair's
+    # time over one D+G step
+    bwd, bwd_op, copy_ms, copies = dfn_backward_times(gen, card, floor)
+    check(copies == 0, f"the DFN backward op copied a row-strided dout {copies} times")
+    dfn_step = dfn_step_ms(card, fwd[90], bwd_op[90], copies, copy_ms[90], floor)
+    kernels["dfn_backward"] = {
+        "name": "dfn_backward", "route": "cuda", "source": dfn_cuda.SOURCE,
+        "replaces": dfn_cuda.REPLACES_BACKWARD, "launches": train_counts["dfn_backward"],
+        "max_abs_err": bwd_err, "ms": bwd[90].graph_ms, "plain_ms": bwd[90].plain_ms,
+        "bound_ms": bwd[90].bound_ms, "bound_by": bwd[90].bound_by,
+        "library_ms": bwd[90].library_ms, "floor_ms": floor,
+        "step_ms": DFN_STEP_LAUNCHES["dfn_backward"] * bwd_op[90],
+    }
+    for name in ("bn_stats", "bn_grad_reduce"):
+        kernels[name]["floor_ms"] = floor
     kernels["dfn_forward"]["launches"] += train_counts["dfn_forward"]
     print(f"dfn_forward launches: serving {launches}, training {train_counts['dfn_forward']}")
 

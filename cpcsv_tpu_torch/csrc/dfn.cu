@@ -1,35 +1,93 @@
 // Per-sample dynamic-filter 1-D cross-correlation, forward and backward, for
 // Hopper (sm_90a).
 //
-// The forward replaces the TPU kernel cpcsv_tpu/ops/pallas/dfn.py:_dfn_kernel
-// (dfn_pallas):
+// dfn_forward replaces the TPU kernel cpcsv_tpu/ops/pallas/dfn.py:dfn_pallas
+// (body _dfn_kernel):
 //
 //   out[b, x] = sum_c sum_k pad(img)[b, c, x + k] * filt[b, 0, c, k]
 //   img (B, C, L), filt (B, 1, C, K), out (B, 1, L_out), L_out = L + 2*pad - K + 1
 //
-// The generator calls it once per forward with C = 3, L = 124, K = 21, pad = 10
-// and B = frames (stories * 5). The backward (dfn_backward, at the end of this
-// file) has no Pallas counterpart: the JAX package differentiates its einsum
-// path through XLA, while here autograd cannot see into the forward kernel.
+// dfn_backward has no Pallas counterpart (the JAX package differentiates its
+// einsum path, cpcsv_tpu/ops/dynamic_filter.py, through XLA):
 //
-// Bound: the work is tiny, B * L_out * C * K multiply-adds (B * 7,812 at the
-// model's shape, 1.4 MFLOP at B = 90), against B * (C*L + C*K + L_out) elements
-// moved (B * 559; 201,240 bytes in f32 at B = 90, 60 ns at 3.35 TB/s; 3.2 MB,
-// 0.96 us at B = 1440). So the kernel is bound by memory and, at these sizes,
-// by launch latency. Design: one block per sample; the block stages the
-// zero-padded row C x (L + 2*pad) and the C x K filter in shared memory as
-// float (each input element is read from device memory once), then each thread
-// computes output positions x = tid, tid + blockDim, ... with a float
-// accumulator. No TPU tiling (batch padding, (8, 128) blocks) is carried over.
+//   dfilt[b, 0, c, k] = sum_x dout[b, x] * pad(img)[b, c, x + k]
+//   dimg[b, c, j]     = sum_k dout[b, j + pad - k] * filt[b, 0, c, k]
+//
+// The generator calls them with C = 3, L = 124, K = 21, pad = 10 and B = 90
+// (360 in the larger serving call). Bound: bytes, 0.06 us (forward) and
+// 0.11 us (backward) at B = 90 over 3.35 TB/s, far below the card's cost of
+// one launch (chip_smoke.py measures it: an empty kernel in a CUDA graph).
+// So both kernels are latency- and launch-bound: what counts is the critical
+// path of one sample, not throughput. The design shortens that path:
+//
+// - One warp owns one sample (forward) or one (sample, channel) (backward),
+//   several warps a block (`warps`, chosen with `grid` by ops/cuda/dfn.py:plan
+//   from B and the SM count). A warp stages its zero-padded rows in its own
+//   slice of shared memory, so only __syncwarp orders staging and compute;
+//   no block-wide barrier. A lane issues all of its global loads before it
+//   stores any of them, so the warp waits on memory once, not once a row.
+// - Rows are read with 16-byte loads (8 bytes for bfloat16) where the rows
+//   start aligned and L % 4 == 0 (`vec` == 4), else element by element.
+// - Each lane computes kR = 4 adjacent outputs from a register window of
+//   kR + K - 1 row values (float4 loads from shared memory, conflict-free),
+//   so kR independent accumulators and no serial chain over K loads.
+// - The tap loops are instantiated for (C, K) = (3, 21) and (3, 7), so they
+//   unroll with the taps in registers; any other (C, K) runs the runtime-K
+//   instantiation (`taps` == 0), the same scheme with a sliding window.
+// - dfilt: each lane sums its stripe of x for all K taps in registers, then
+//   the warp reduce-scatters them in a fixed butterfly order
+//   (__shfl_xor_sync); no float atomics, so two launches give the same bits.
+// - dimg correlates dout, zero-padded, with the reversed taps: the same
+//   register window as the forward.
+// - dout may have any row stride (`dout_stride`, elements), with unit stride
+//   along x: the G step's dout is a column slice of the gradient of a
+//   (B, 613) concatenation and reaches the kernel without a copy.
 //
 // It launches on the caller's stream, does not synchronise and allocates
-// nothing; the Python wrapper (ops/cuda/dfn.py) checks shapes and dtypes and
-// allocates the output.
+// nothing; the Python wrapper (ops/cuda/dfn.py) checks shapes, dtypes and
+// strides, picks the plan and allocates the outputs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include <cstdint>
+
 namespace {
+
+constexpr int kLanes = 32;
+constexpr int kR = 4;                    // adjacent outputs a lane
+constexpr int kChunk = kLanes * kR;      // outputs a warp pass
+constexpr int kMaxWarps = 32;            // 1,024 threads a block
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int chunks(int n) { return (n + kChunk - 1) / kChunk; }
+
+// One warp's slice of shared memory, in floats; every part starts 16-byte
+// aligned. Mirrored by ops/cuda/dfn.py:warp_floats.
+struct Layout {
+    int L_out;
+    int row;          // one zero-padded image row: pad(img)[p] at p
+    int og;           // backward: dout[x] at g[og + x], zeros around it
+    int db;           // backward: dimg window of j starts at g[db + j]
+    int g;            // backward: length of the staged dout
+    int warp_floats;  // forward: C rows + C*K taps; backward: a row, g, K taps
+};
+
+__host__ __device__ inline Layout layout(int C, int L, int K, int pad, bool backward) {
+    Layout s;
+    s.L_out = L + 2 * pad - K + 1;
+    // windows read [x0, x0 + round4(kR + K - 1)), x0 < chunks * kChunk
+    s.row = chunks(s.L_out) * kChunk + round4(K + 3);
+    const int front = K - 1 - pad;  // dout's offset in its padded row
+    s.og = front >= 0 ? front : ((front % 4) + 4) % 4;
+    s.db = s.og - front;  // a multiple of 4, >= 0
+    const int reach = s.og + chunks(s.L_out) * kChunk > s.db + chunks(L) * kChunk
+                          ? s.og + chunks(s.L_out) * kChunk
+                          : s.db + chunks(L) * kChunk;
+    s.g = round4(reach + K + 3);
+    s.warp_floats = backward ? s.row + s.g + round4(K) : C * s.row + round4(C * K);
+    return s;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -40,149 +98,399 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
     return __float2bfloat16(v);
 }
 
+// four elements from an address aligned to four elements
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<unsigned*>(&lo);
+    q.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+}
+
+// kR outputs from o[0, n): four at once where the row allows, else masked
 template <typename T>
-__global__ void dfn_forward_kernel(const T* __restrict__ img, const T* __restrict__ filt,
-                                   T* __restrict__ out, int C, int L, int K, int pad, int L_out) {
-    extern __shared__ float smem[];
-    const int Lp = L + 2 * pad;
-    float* row = smem;         // C * Lp, zero-padded
-    float* f = smem + C * Lp;  // C * K
-    const long long b = blockIdx.x;
-    const T* img_b = img + b * C * L;
-    const T* filt_b = filt + b * C * K;
-
-    for (int i = threadIdx.x; i < C * Lp; i += blockDim.x) {
-        const int c = i / Lp;
-        const int x = i - c * Lp - pad;
-        row[i] = (x >= 0 && x < L) ? to_float(img_b[c * L + x]) : 0.0f;
-    }
-    for (int i = threadIdx.x; i < C * K; i += blockDim.x) f[i] = to_float(filt_b[i]);
-    __syncthreads();
-
-    for (int x = threadIdx.x; x < L_out; x += blockDim.x) {
-        float acc = 0.0f;
-        for (int c = 0; c < C; ++c) {
-            const float* r = row + c * Lp + x;
-            const float* fc = f + c * K;
-            for (int k = 0; k < K; ++k) acc = fmaf(r[k], fc[k], acc);
-        }
-        out[b * L_out + x] = from_float<T>(acc);
+__device__ __forceinline__ void store_outputs(T* o, const float acc[kR], int n, bool aligned4) {
+    if (aligned4 && n >= kR) {
+        store4(o, acc);
+    } else {
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+            if (r < n) o[r] = from_float<T>(acc[r]);
     }
 }
 
-template <typename T>
-cudaError_t launch(const void* img, const void* filt, void* out, int B, int C, int L, int K,
-                   int pad, cudaStream_t stream) {
-    const int L_out = L + 2 * pad - K + 1;
-    const size_t smem = sizeof(float) * ((size_t)C * (L + 2 * pad) + (size_t)C * K);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            dfn_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
+// Staging. A warp waits on device memory once, not once a row: every lane
+// first issues all of its loads of a row's first kChunk elements (rows
+// apart by L in src), the first kHead·32 taps and the first kChunk dout
+// values, into registers, then stores them to shared memory. What lies
+// beyond (longer rows, more taps) is copied after, one element a lane at a
+// time; at the model's shapes there is nothing beyond.
+constexpr int kHead = 2;  // tap loads a lane in the first round
+
+// this lane's 4 of the first kChunk elements of each of NC rows: one
+// 16-byte load (vec) at 4·lane, else 4 loads at lane + 32u
+template <typename T, int NC>
+__device__ __forceinline__ void load_heads(const T* src, int L, bool vec, int lane,
+                                           float (&v)[NC][4]) {
+    if (vec) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+            if (4 * lane < L) load4(src + c * L + 4 * lane, v[c]);
+    } else {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+                const int i = lane + u * kLanes;
+                v[c][u] = i < L ? to_float(src[c * L + i]) : 0.0f;
+            }
     }
-    int threads = ((L_out + 31) / 32) * 32;
-    if (threads > 256) threads = 256;
-    dfn_forward_kernel<T><<<B, threads, smem, stream>>>(
-        static_cast<const T*>(img), static_cast<const T*>(filt), static_cast<T*>(out), C, L, K,
-        pad, L_out);
+}
+
+// stores what load_heads loaded at s[c·row + pad + i]
+template <int NC>
+__device__ __forceinline__ void store_heads(float* s, int row, int L, int pad, bool vec, int lane,
+                                            const float (&v)[NC][4]) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+        float* r = s + c * row + pad;
+        if (vec) {
+            if (4 * lane < L) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) r[4 * lane + j] = v[c][j];
+            }
+        } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                if (lane + u * kLanes < L) r[lane + u * kLanes] = v[c][u];
+        }
+    }
+}
+
+// rows from element kChunk on
+template <typename T>
+__device__ __forceinline__ void stage_tails(float* s, int row, const T* src, int C, int L, int pad,
+                                            int lane) {
+    for (int c = 0; c < C; ++c)
+        for (int i = kChunk + lane; i < L; i += kLanes) s[c * row + pad + i] = to_float(src[c * L + i]);
+}
+
+// zeros at [0, pad) and [pad + L, row) of each of C rows
+__device__ __forceinline__ void zero_pads(float* s, int row, int C, int L, int pad, int lane) {
+    for (int c = 0; c < C; ++c)
+        for (int t = lane; t < row; t += kLanes)
+            if (t < pad || t >= pad + L) s[c * row + t] = 0.0f;
+}
+
+// acc[r] += sum_k s[r + k] * f[k], r < kR; s is 16-byte aligned in shared
+// memory. KT > 0: K = KT taps, unrolled, the window in registers; KT == 0:
+// runtime K, the window slides one value a tap.
+template <int KT>
+__device__ __forceinline__ void correlate(const float* s, const float* f, int K, float acc[kR]) {
+    if constexpr (KT > 0) {
+        constexpr int NW = round4(kR + KT - 1);
+        float w[NW];
+#pragma unroll
+        for (int v = 0; v < NW / 4; ++v) {
+            const float4 q = reinterpret_cast<const float4*>(s)[v];
+            w[4 * v] = q.x; w[4 * v + 1] = q.y; w[4 * v + 2] = q.z; w[4 * v + 3] = q.w;
+        }
+#pragma unroll
+        for (int k = 0; k < KT; ++k) {
+            const float fk = f[k];
+#pragma unroll
+            for (int r = 0; r < kR; ++r) acc[r] = fmaf(w[r + k], fk, acc[r]);
+        }
+    } else {
+        float w[kR];
+#pragma unroll
+        for (int r = 0; r < kR - 1; ++r) w[r] = s[r];
+        for (int k = 0; k < K; ++k) {
+            w[kR - 1] = s[k + kR - 1];
+            const float fk = f[k];
+#pragma unroll
+            for (int r = 0; r < kR; ++r) acc[r] = fmaf(w[r], fk, acc[r]);
+#pragma unroll
+            for (int r = 0; r < kR - 1; ++r) w[r] = w[r + 1];
+        }
+    }
+}
+
+// Sums a[0, N) over the warp's 32 lanes in a fixed butterfly order, lane
+// bit O = 16, 8, ..., 1; after it, a[0] of lane l holds the sum of index
+// l % N. N is a power of two <= 32: across lane bits >= N every lane adds its
+// partner's N values, below N each step keeps half of the values and adds
+// the partner's copy of that half. O is a template argument so that every
+// index is a constant and a[] stays in registers: written as a loop over O,
+// nvcc kept part of it a loop and indexed a[] through chains of predicated
+// moves.
+template <int O, int N>
+__device__ __forceinline__ void reduce_scatter(float (&a)[N], int lane) {
+    if constexpr (O >= N) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) a[i] += __shfl_xor_sync(0xffffffffu, a[i], O);
+    } else {
+        const bool up = (lane & O) != 0;
+#pragma unroll
+        for (int i = 0; i < O; ++i) {
+            const float send = up ? a[i] : a[i + O];
+            const float keep = up ? a[i + O] : a[i];
+            a[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+        }
+    }
+    if constexpr (O > 1) reduce_scatter<O / 2, N>(a, lane);
+}
+
+__host__ __device__ constexpr int pow2_at_least(int n) {
+    return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// One warp a sample. KT, CT > 0: the compile-time taps and channels.
+template <typename T, int KT, int CT>
+__global__ void dfn_forward_kernel(const T* __restrict__ img, const T* __restrict__ filt,
+                                   T* __restrict__ out, int B, int C_, int L, int K_, int pad,
+                                   int vec) {
+    const int C = CT > 0 ? CT : C_;
+    const int K = KT > 0 ? KT : K_;
+    const Layout lay = layout(C, L, K, pad, false);
+    extern __shared__ __align__(16) float smem[];
+    const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+    const long long b = (long long)blockIdx.x * (blockDim.x / kLanes) + warp;
+    if (b >= B) return;  // the whole warp
+    float* rows = smem + (size_t)warp * lay.warp_floats;
+    float* f = rows + C * lay.row;
+    const T* img_b = img + b * C * L;
+    const T* filt_b = filt + b * C * K;
+    float fv[kHead];
+#pragma unroll
+    for (int u = 0; u < kHead; ++u) {
+        const int i = lane + u * kLanes;
+        fv[u] = i < C * K ? to_float(filt_b[i]) : 0.0f;
+    }
+    if constexpr (CT > 0) {  // all C rows' loads in flight at once
+        float v[CT][4];
+        load_heads<T, CT>(img_b, L, vec == 4, lane, v);
+        zero_pads(rows, lay.row, C, L, pad, lane);
+        store_heads<CT>(rows, lay.row, L, pad, vec == 4, lane, v);
+    } else {
+        zero_pads(rows, lay.row, C, L, pad, lane);
+        for (int c = 0; c < C; ++c) {
+            float v[1][4];
+            load_heads<T, 1>(img_b + c * L, L, vec == 4, lane, v);
+            store_heads<1>(rows + c * lay.row, lay.row, L, pad, vec == 4, lane, v);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < kHead; ++u)
+        if (lane + u * kLanes < C * K) f[lane + u * kLanes] = fv[u];
+    stage_tails(rows, lay.row, img_b, C, L, pad, lane);
+    for (int i = kHead * kLanes + lane; i < C * K; i += kLanes) f[i] = to_float(filt_b[i]);
+    __syncwarp();
+
+    for (int x0 = lane * kR; x0 < lay.L_out; x0 += kChunk) {
+        float acc[kR] = {};
+#pragma unroll
+        for (int c = 0; c < C; ++c) correlate<KT>(rows + c * lay.row + x0, f + c * K, K, acc);
+        store_outputs(out + b * lay.L_out + x0, acc, lay.L_out - x0, lay.L_out % 4 == 0);
+    }
+}
+
+// One warp a (sample, channel), float32.
+template <int KT, int CT>
+__global__ void dfn_backward_kernel(const float* __restrict__ img,
+                                    const float* __restrict__ filt,
+                                    const float* __restrict__ dout, float* __restrict__ dimg,
+                                    float* __restrict__ dfilt, int B, int C_, int L, int K_,
+                                    int pad, long long dout_stride, int vec) {
+    const int C = CT > 0 ? CT : C_;
+    const int K = KT > 0 ? KT : K_;
+    const Layout lay = layout(C, L, K, pad, true);
+    extern __shared__ __align__(16) float smem[];
+    const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+    const long long item = (long long)blockIdx.x * (blockDim.x / kLanes) + warp;
+    if (item >= (long long)B * C) return;  // the whole warp
+    const long long b = item / C;
+    float* row = smem + (size_t)warp * lay.warp_floats;
+    float* g = row + lay.row;
+    float* fr = g + lay.g;  // the taps reversed
+    const float* img_i = img + item * L;
+    const float* filt_i = filt + item * K;
+    const float* d = dout + b * dout_stride;
+    // the row, dout and the taps: all loads in flight before any store
+    float v[1][4], gv[4], fv[kHead];
+    load_heads<float, 1>(img_i, L, vec == 4, lane, v);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+        const int x = lane + u * kLanes;
+        gv[u] = x < lay.L_out ? d[x] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kHead; ++u) {
+        const int k = lane + u * kLanes;
+        fv[u] = k < K ? filt_i[k] : 0.0f;
+    }
+    zero_pads(row, lay.row, 1, L, pad, lane);
+    zero_pads(g, lay.g, 1, lay.L_out, lay.og, lane);
+    store_heads<1>(row, lay.row, L, pad, vec == 4, lane, v);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+        if (lane + u * kLanes < lay.L_out) g[lay.og + lane + u * kLanes] = gv[u];
+#pragma unroll
+    for (int u = 0; u < kHead; ++u)
+        if (lane + u * kLanes < K) fr[K - 1 - lane - u * kLanes] = fv[u];
+    stage_tails(row, lay.row, img_i, 1, L, pad, lane);
+    for (int x = kChunk + lane; x < lay.L_out; x += kLanes) g[lay.og + x] = d[x];
+    for (int k = kHead * kLanes + lane; k < K; k += kLanes) fr[K - 1 - k] = filt_i[k];
+    __syncwarp();
+
+    // dimg[j] = sum_k' g[db + j + k'] * fr[k']
+    for (int j0 = lane * kR; j0 < L; j0 += kChunk) {
+        float acc[kR] = {};
+        correlate<KT>(g + lay.db + j0, fr, K, acc);
+        store_outputs(dimg + item * L + j0, acc, L - j0, L % 4 == 0);
+    }
+
+    // dfilt[k] = sum_x g[og + x] * row[x + k], each lane over its stripes of x
+    if constexpr (KT > 0) {
+        constexpr int NP = pow2_at_least(KT);
+        static_assert(NP <= kLanes, "compile-time taps take K <= 32");
+        constexpr int NW = round4(kR + KT - 1);
+        float acc[NP] = {};
+        for (int x0 = lane * kR; x0 < lay.L_out; x0 += kChunk) {
+            float w[NW];
+#pragma unroll
+            for (int i = 0; i < NW / 4; ++i) {
+                const float4 q = reinterpret_cast<const float4*>(row + x0)[i];
+                w[4 * i] = q.x; w[4 * i + 1] = q.y; w[4 * i + 2] = q.z; w[4 * i + 3] = q.w;
+            }
+            float gx[kR];
+#pragma unroll
+            for (int r = 0; r < kR; ++r) gx[r] = g[lay.og + x0 + r];
+#pragma unroll
+            for (int k = 0; k < KT; ++k)
+#pragma unroll
+                for (int r = 0; r < kR; ++r) acc[k] = fmaf(gx[r], w[r + k], acc[k]);
+        }
+        reduce_scatter<kLanes / 2, NP>(acc, lane);
+        if (lane < KT) dfilt[item * K + lane] = acc[0];
+    } else {
+        for (int k = 0; k < K; ++k) {
+            float p = 0.0f;
+            for (int x0 = lane * kR; x0 < lay.L_out; x0 += kChunk)
+#pragma unroll
+                for (int r = 0; r < kR; ++r) p = fmaf(g[lay.og + x0 + r], row[x0 + r + k], p);
+#pragma unroll
+            for (int o = kLanes / 2; o >= 1; o /= 2) p += __shfl_xor_sync(0xffffffffu, p, o);
+            if (lane == 0) dfilt[item * K + k] = p;
+        }
+    }
+}
+
+template <typename Kernel>
+cudaError_t reserve_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// what every launch checks of the plan: a block of 1-32 warps, enough
+// warps for the items, 16-byte rows only where they are aligned, and an
+// instantiation that exists for (C, K)
+bool plan_fits(long long items, int C, int L, int K, int warps, int grid, int vec, int taps,
+               const void* rows, size_t vec_bytes) {
+    if (warps < 1 || warps > kMaxWarps || grid < 1 || (long long)grid * warps < items) return false;
+    if (vec != 1 && vec != 4) return false;
+    if (vec == 4 && (L % 4 != 0 || reinterpret_cast<uintptr_t>(rows) % vec_bytes != 0)) return false;
+    return taps == 0 || (C == 3 && taps == K && (K == 21 || K == 7));
+}
+
+template <typename T, int KT, int CT>
+cudaError_t launch_forward(const void* img, const void* filt, void* out, int B, int C, int L,
+                           int K, int pad, int warps, int grid, int vec, cudaStream_t stream) {
+    const size_t smem = sizeof(float) * (size_t)layout(C, L, K, pad, false).warp_floats * warps;
+    const cudaError_t err = reserve_smem(dfn_forward_kernel<T, KT, CT>, smem);
+    if (err != cudaSuccess) return err;
+    dfn_forward_kernel<T, KT, CT><<<grid, warps * kLanes, smem, stream>>>(
+        static_cast<const T*>(img), static_cast<const T*>(filt), static_cast<T*>(out), B, C, L, K,
+        pad, vec);
     return cudaGetLastError();
 }
 
-// Backward, float32:
-//
-//   dfilt[b, 0, c, k] = sum_x dout[b, x] * pad(img)[b, c, x + k]
-//   dimg[b, c, j]     = sum_k dout[b, j + pad - k] * filt[b, 0, c, k],  0 <= j + pad - k < L_out
-//
-// Bound: bytes, like the forward. It reads img, filt and dout and writes
-// dimg and dfilt, B * (2*C*L + 2*C*K + L_out) elements (B * 994 at the
-// model's shape: 357,840 bytes at B = 90, 0.107 us at 3.35 TB/s), for
-// B * C * K * (L_out + L) multiply-adds (2.8 MFLOP at B = 90). Design as
-// the forward: one block per sample stages the zero-padded image row, the
-// filter and dout zero-padded by K - 1 on both sides in shared memory, so
-// every input element is read from device memory once and no index needs a
-// bounds test; then each thread computes whole outputs (a (c, k) tap of
-// dfilt, a (c, j) element of dimg) with a float accumulator, in a fixed
-// order, so the result does not change from run to run.
-__global__ void dfn_backward_kernel(const float* __restrict__ img, const float* __restrict__ filt,
-                                    const float* __restrict__ dout, float* __restrict__ dimg,
-                                    float* __restrict__ dfilt, int C, int L, int K, int pad,
-                                    int L_out) {
-    extern __shared__ float smem[];
-    const int Lp = L + 2 * pad;
-    const int Lg = L_out + 2 * (K - 1);
-    float* row = smem;         // C * Lp, zero-padded image
-    float* f = row + C * Lp;   // C * K
-    float* g = f + C * K;      // Lg, dout at [K - 1, K - 1 + L_out), zeros around it
-    const long long b = blockIdx.x;
-    const float* img_b = img + b * C * L;
-
-    for (int i = threadIdx.x; i < C * Lp; i += blockDim.x) {
-        const int c = i / Lp;
-        const int x = i - c * Lp - pad;
-        row[i] = (x >= 0 && x < L) ? img_b[c * L + x] : 0.0f;
-    }
-    for (int i = threadIdx.x; i < C * K; i += blockDim.x) f[i] = filt[b * C * K + i];
-    for (int i = threadIdx.x; i < Lg; i += blockDim.x) {
-        const int x = i - (K - 1);
-        g[i] = (x >= 0 && x < L_out) ? dout[b * L_out + x] : 0.0f;
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < C * K; i += blockDim.x) {
-        const int c = i / K;
-        const int k = i - c * K;
-        const float* r = row + c * Lp + k;
-        const float* d = g + (K - 1);
-        float acc = 0.0f;
-        for (int x = 0; x < L_out; ++x) acc = fmaf(d[x], r[x], acc);
-        dfilt[b * C * K + i] = acc;
-    }
-    for (int i = threadIdx.x; i < C * L; i += blockDim.x) {
-        const int c = i / L;
-        const int j = i - c * L;
-        const float* fc = f + c * K;
-        const float* d = g + (K - 1) + j + pad;  // d[-k] = dout[j + pad - k]
-        float acc = 0.0f;
-        for (int k = 0; k < K; ++k) acc = fmaf(d[-k], fc[k], acc);
-        dimg[b * C * L + i] = acc;
-    }
+template <typename T>
+cudaError_t dispatch_forward(const void* img, const void* filt, void* out, int B, int C, int L,
+                             int K, int pad, int warps, int grid, int vec, int taps,
+                             cudaStream_t s) {
+    if (!plan_fits(B, C, L, K, warps, grid, vec, taps, img, 4 * sizeof(T)))
+        return cudaErrorInvalidValue;
+    if (taps == 21) return launch_forward<T, 21, 3>(img, filt, out, B, C, L, K, pad, warps, grid, vec, s);
+    if (taps == 7) return launch_forward<T, 7, 3>(img, filt, out, B, C, L, K, pad, warps, grid, vec, s);
+    return launch_forward<T, 0, 0>(img, filt, out, B, C, L, K, pad, warps, grid, vec, s);
 }
 
+template <int KT, int CT>
 cudaError_t launch_backward(const float* img, const float* filt, const float* dout, float* dimg,
                             float* dfilt, int B, int C, int L, int K, int pad,
+                            long long dout_stride, int warps, int grid, int vec,
                             cudaStream_t stream) {
-    const int L_out = L + 2 * pad - K + 1;
-    const size_t smem = sizeof(float) * ((size_t)C * (L + 2 * pad) + (size_t)C * K +
-                                         (size_t)(L_out + 2 * (K - 1)));
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            dfn_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return err;
-    }
-    int threads = ((C * L + 31) / 32) * 32;
-    if (threads > 256) threads = 256;
-    dfn_backward_kernel<<<B, threads, smem, stream>>>(img, filt, dout, dimg, dfilt, C, L, K, pad,
-                                                     L_out);
+    const size_t smem = sizeof(float) * (size_t)layout(C, L, K, pad, true).warp_floats * warps;
+    const cudaError_t err = reserve_smem(dfn_backward_kernel<KT, CT>, smem);
+    if (err != cudaSuccess) return err;
+    dfn_backward_kernel<KT, CT><<<grid, warps * kLanes, smem, stream>>>(
+        img, filt, dout, dimg, dfilt, B, C, L, K, pad, dout_stride, vec);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16; warps, grid, vec, taps: the plan
+// (ops/cuda/dfn.py:plan). Returns the cudaError_t of the launch.
 extern "C" int dfn_forward(const void* img, const void* filt, void* out, int B, int C, int L,
-                           int K, int pad, int dtype, void* stream) {
+                           int K, int pad, int dtype, int warps, int grid, int vec, int taps,
+                           void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return (int)launch<float>(img, filt, out, B, C, L, K, pad, s);
-    if (dtype == 1) return (int)launch<__nv_bfloat16>(img, filt, out, B, C, L, K, pad, s);
+    if (dtype == 0)
+        return (int)dispatch_forward<float>(img, filt, out, B, C, L, K, pad, warps, grid, vec,
+                                            taps, s);
+    if (dtype == 1)
+        return (int)dispatch_forward<__nv_bfloat16>(img, filt, out, B, C, L, K, pad, warps, grid,
+                                                    vec, taps, s);
     return (int)cudaErrorInvalidValue;
 }
 
-// float32 only: img (B, C, L), filt (B, 1, C, K), dout (B, 1, L_out) ->
-// dimg (B, C, L), dfilt (B, 1, C, K). Returns the cudaError_t of the launch.
+// float32 only: img (B, C, L), filt (B, 1, C, K), dout (B, 1, L_out) with
+// unit stride along x and rows dout_stride elements apart -> dimg (B, C, L),
+// dfilt (B, 1, C, K). Returns the cudaError_t of the launch.
 extern "C" int dfn_backward(const void* img, const void* filt, const void* dout, void* dimg,
-                            void* dfilt, int B, int C, int L, int K, int pad, void* stream) {
-    return (int)launch_backward(static_cast<const float*>(img), static_cast<const float*>(filt),
-                                static_cast<const float*>(dout), static_cast<float*>(dimg),
-                                static_cast<float*>(dfilt), B, C, L, K, pad,
-                                static_cast<cudaStream_t>(stream));
+                            void* dfilt, int B, int C, int L, int K, int pad,
+                            long long dout_stride, int warps, int grid, int vec, int taps,
+                            void* stream) {
+    if (!plan_fits((long long)B * C, C, L, K, warps, grid, vec, taps, img, 16))
+        return (int)cudaErrorInvalidValue;
+    const float* i = static_cast<const float*>(img);
+    const float* f = static_cast<const float*>(filt);
+    const float* d = static_cast<const float*>(dout);
+    float* di = static_cast<float*>(dimg);
+    float* df = static_cast<float*>(dfilt);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (taps == 21)
+        return (int)launch_backward<21, 3>(i, f, d, di, df, B, C, L, K, pad, dout_stride, warps,
+                                           grid, vec, s);
+    if (taps == 7)
+        return (int)launch_backward<7, 3>(i, f, d, di, df, B, C, L, K, pad, dout_stride, warps,
+                                          grid, vec, s);
+    return (int)launch_backward<0, 0>(i, f, d, di, df, B, C, L, K, pad, dout_stride, warps, grid,
+                                      vec, s);
 }

@@ -53,7 +53,12 @@ class _DynamicFilterKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         image, filters = ctx.saved_tensors
-        dimage, dfilters = dfn_cuda.dfn_backward(image, filters, dout.contiguous(), ctx.pad)
+        # the kernel takes rows any distance apart (the G step hands it a
+        # column slice of the gradient of a concatenation) but not a
+        # strided or broadcast L_out
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dimage, dfilters = dfn_cuda.dfn_backward(image, filters, dout, ctx.pad)
         return dimage, dfilters, None
 
 

@@ -121,8 +121,8 @@ def test_image_helpers_match_jax(tmp_path):
 
 
 def _port_sources():
-    return sorted((ROOT / "cpcsv_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                               ROOT / "sweep_bn.py"]
+    return sorted((ROOT / "cpcsv_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "sweep_bn.py", ROOT / "bench_dfn.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
