@@ -22,24 +22,33 @@ Phases, each of which exits non-zero on failure:
      DFN forward kernel at B = 90, 360 and 1440 in one CUDA graph and from a
      trace, over the floor, beside its bound, its plain version and a
      library call;
-  6. training at full width, final.yml at IM_BATCH 90 / ST_BATCH 18, from
-     `create_train_state` through `make_train_steps`: 2 warm-up and 5 timed
-     D+G steps with finite metrics, every parameter, BN running statistic
-     and SN u moved, each kernel's launches equal to the per-step count
-     derived from the code times the steps, the BN calls of one step counted
-     by shape, the DFN backward handed the row-strided dout of zmc_all's
-     gradient with no copy, float32 inside the steps; ms per step, steps/s,
-     device busy time and idle share from a trace, peak memory;
-  7. from one saved state and the same noise, one D+G step with the kernels
-     against one with their plain versions swapped in: losses, gradients and
-     BN running statistics;
-  8. the BN kernels against their plain versions at every (N, C, S) the
+  6. training at full width, final.yml (v1) then cascade.yml, each at
+     IM_BATCH 90 / ST_BATCH 18, from `create_train_state` through
+     `make_train_steps`: 2 warm-up and 5 timed D+G steps with finite metrics
+     (the cascade's three G terms among them), every parameter, BN running
+     statistic and SN u moved, each kernel's launches equal to the per-step
+     count derived from the code times the steps, the BN calls of one step
+     counted by shape, the DFN backward handed the row-strided dout of
+     zmc_all's gradient with no copy, float32 inside the steps; ms per step,
+     steps/s, device busy time and idle share from a trace, peak memory;
+  7. for each config, from one saved state and the same noise, one D+G step
+     with the kernels against one with their plain versions swapped in:
+     losses, gradients and BN running statistics;
+  8. the BN kernels against their plain versions at every (N, C, S) either
      step gave them, at N=7 and at edge shapes, each aligned and unaligned;
-  9. the BN kernels and their library calls at every shape of the step, one
-     CUDA graph each with L2-cold inputs, beside their bounds, summed over a
-     step by launches; the plain versions and a trace at the largest shape;
-     the DFN backward at B = 90 and 7 (and the op the step runs, on its
-     strided dout) over the floor, and the DFN pair's time a step.
+  9. the BN kernels and their library calls at every shape of both steps,
+     one CUDA graph each with L2-cold inputs, beside their bounds, summed
+     over each config's step by launches; the plain versions and a trace at
+     the largest shape; the DFN backward at B = 90 and 7 (and the op the step
+     runs, on its strided dout) over the floor, and the DFN pair's time a
+     step;
+ 10. the port's training CLI in this process at full width: cascade.yml
+     --synthetic 36 for one epoch, then --continue_ckpt auto for a second
+     under a trace, in build/chip_smoke_cli/: the auto-resume, the
+     checkpoints, last_epoch.txt, metrics.jsonl (finite, the JAX package's
+     cascade tags), the sample grids, the launches against the steps run;
+     frames/s, the idle share of the traced epoch's steps, checkpoint write
+     seconds.
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -52,9 +61,11 @@ import collections
 import concurrent.futures
 import contextlib
 import copy
+import io
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -76,7 +87,19 @@ DFN_STEP_LAUNCHES = {"dfn_forward": 4, "dfn_backward": 2}  # per D+G step
 # the columns of the generator's zmc_all (zm_code, c_mu, DFN output): the G
 # step's DFN dout is its last 124 columns, rows ZMC_WIDTH floats apart
 ZMC_WIDTH = 613
-LR_D, LR_G = 4e-4, 1e-4  # final.yml's DISCRIMINATOR_LR, GENERATOR_LR
+LR_D, LR_G = 4e-4, 1e-4  # final.yml's DISCRIMINATOR_LR, GENERATOR_LR (cascade.yml's too)
+TRAIN_CONFIGS = ("final.yml", "cascade.yml")  # phases 6-7, in this order
+CLI_SYNTHETIC = 36  # phase 10's --synthetic: 2 story steps an epoch, one image batch
+# the cascade G step's own metrics, and every tag the JAX package's trainer
+# logs for cascade.yml (cpcsv_tpu/train/steps.py, trainer.py)
+CASCADE_G_TAGS = ("G/image_vae_loss", "G/video_vae_loss", "G/reconstruct_loss")
+CASCADE_TAGS = (
+    "seg_D/loss", "seg_D/real", "seg_D/fake", "Accuracy/se_D", "img_D/loss", "img_D/real",
+    "img_D/fake", "Accuracy/im_D", "st_D/loss", "st_D/real", "st_D/fake", "st_D/order",
+    "G/im_KL", "G/st_KL", "G/KL", "G/consistency", "Accuracy/im_G", "Accuracy/se_G",
+    "Accuracy/st_G", "G/gan_loss", "G/loss", *CASCADE_G_TAGS, "learning/generator",
+    "learning/st_discriminator", "learning/im_discriminator", "perf/frames_per_sec",
+    "perf/epoch_seconds")
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
 GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
@@ -151,12 +174,21 @@ def trace(fn, reps: int):
                 fn()
             torch.cuda.synchronize()
         events = prof.events()
-        dev = [e for e in events if e.device_type == DeviceType.CUDA]
+        dev = device_events(events)
         if dev:
             break
     check(bool(dev), "torch.profiler recorded no device activity in 3 traces")
     host = [e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cuda")]
     return dev, host
+
+
+def device_events(events) -> list:
+    """The card's kernels, copies and sets among a trace's events; not the
+    device-side copies of record_function ranges, which span kernels."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def by_name(events, reps: int) -> dict[str, float]:
@@ -518,22 +550,419 @@ def per_step_launches(state) -> dict[str, int]:
         and the DFN once; per D, `d_phase` encodes real and fake (every
         encoder BN twice) and calls the head three times (real, wrong, fake);
         the backward passes every D BN call.
-      G step: two generator calls; per D, `g_phase` encodes the fakes once
-        and calls the head once; the backward passes every BN call on the
-        loss's path, which is all but the story call's upsample2_seg to
-        upsample4_seg (v1 `_decode`: they feed only the mask, and no loss
-        reads the story call's mask), and both DFN calls."""
-    g = len(bn_modules(state.gen))
+      G step: two generator calls; for the cascade, two `train_autoencoder`
+        calls (the re-encoder's BNs and upsample1_seg to upsample4_seg); per
+        D, `g_phase` encodes the fakes once and calls the head once; the
+        backward passes every BN call on the loss's path, and both DFN
+        calls. That is every call but, in v1 `_decode`, the story call's
+        upsample2_seg to upsample4_seg: they feed only the mask, and no loss
+        reads the story call's mask. In the cascade the story mask feeds the
+        re-encoder, which gates the image trunk and the latent loss, so every
+        call is on the path."""
+    gen = state.gen
+    g = len(bn_modules(gen))
     ds = (state.d_se, state.d_im, state.d_st)
     enc = sum(len(bn_modules(d.encode_img)) for d in ds)
     head = sum(len(bn_modules(d.get_cond_logits)) for d in ds)
     d_phase, g_phase = 2 * enc + 3 * head, enc + head
-    unread_mask_bns = 3
+    autoencoder = unread_mask_bns = 0
+    if gen.cascade:
+        autoencoder = sum(len(bn_modules(getattr(gen, m))) for m in (
+            "presample", "downsample1_seg", "downsample2_seg", "downsample3_seg",
+            "downsample4_seg", "upsample1_seg", "upsample2_seg", "upsample3_seg",
+            "upsample4_seg"))
+    else:
+        unread_mask_bns = 3
     return {
-        "bn_stats": 2 * g + d_phase + 2 * g + g_phase,
-        "bn_grad_reduce": d_phase + 2 * g - unread_mask_bns + g_phase,
+        "bn_stats": 2 * g + d_phase + 2 * g + 2 * autoencoder + g_phase,
+        "bn_grad_reduce": d_phase + 2 * g - unread_mask_bns + 2 * autoencoder + g_phase,
         **DFN_STEP_LAUNCHES,
     }
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
+    from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
+
+    for counts in (dfn_cuda.launches, bn_cuda.launches):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def read_counts() -> dict[str, int]:
+    from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
+    from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
+
+    return {**dfn_cuda.launches, **bn_cuda.launches}
+
+
+def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespace:
+    """Phase 6 for one config: WARMUP_STEPS + TIMED_STEPS D+G steps at the
+    config's batches from `create_train_state` through `make_train_steps`,
+    with every check of the phase; returns what phases 7-9 read."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.train.state import create_train_state
+    from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
+
+    cfg = config_from_file(name)
+    b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, seed)
+    nets = state.nets()
+    st_batch, im_batch = (batch_to_device(b, torch.device("cuda"))
+                          for b in synthetic_batches(cfg, b_st, b_im, seed))
+    d_step, g_step = make_train_steps(cfg)
+    rng = torch.Generator(device="cuda").manual_seed(seed)
+    print(f"{name}, ST_BATCH {b_st} ({b_st * cfg.VIDEO_LEN} frames), IM_BATCH {b_im}: "
+          f"create_train_state and batches {time.perf_counter() - t0:.2f} s [{card}]; parameters "
+          + ", ".join(f"{n} {sum(p.numel() for p in net.parameters()):,}"
+                      for n, net in nets.items()))
+    before = {n: {k: v.detach().clone() for k, v in net.state_dict().items()}
+              for n, net in nets.items()}
+    inside = set()
+    flags = [mod.register_forward_pre_hook(lambda *_: inside.add(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+        for mod in (state.gen.upsample1, state.d_st.get_cond_logits)]
+    expected = per_step_launches(state)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    times, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path: the entry points only
+    for i in range(steps):
+        with contextlib.ExitStack() as stack:
+            if i == 0:  # a warm-up step; the shapes are the same every step
+                bn_calls = stack.enter_context(counting_bn_calls())
+                douts = stack.enter_context(counting_dfn_backward())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, dm = d_step(state, rng, st_batch, im_batch, LR_D)
+            _, gm = g_step(state, rng, st_batch, im_batch, LR_G)
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({**dm, **gm})
+    train_counts = read_counts()
+    # (N, C, S) -> launches in one step, by kernel
+    step_calls = {k: dict(sorted(calls.items())) for k, calls in bn_calls.items()}
+    for k, calls in step_calls.items():
+        check(sum(calls.values()) == expected[k],
+              f"{name} {k}: {sum(calls.values())} calls counted by shape in one step, "
+              f"expected {expected[k]}")
+        print(f"{k} calls in one step by (N, C, S), {len(calls)} shapes: "
+              + ", ".join(f"{sh} x{n}" for sh, n in calls.items()))
+    # the G step hands each DFN backward its dout as the gradient of the
+    # concatenation zmc_all left it, a column slice; the wrapper gets that
+    # view, so nothing copied it on the way
+    L_out = DFN_SHAPE[1] + 2 * DFN_SHAPE[3] - DFN_SHAPE[2] + 1
+    check(len(douts) == expected["dfn_backward"]
+          and all(sh == (b_im, 1, L_out) and st[0] == ZMC_WIDTH and st[-1] == 1
+                  for sh, st in douts),
+          f"{name}: dfn_backward got dout (shape, strides) {douts} in one step: expected "
+          f"{expected['dfn_backward']} views with row stride {ZMC_WIDTH}")
+    print(f"dfn_backward was handed in one step dout (shape, strides) {douts}: the column "
+          f"slice of zmc_all's gradient, row stride {ZMC_WIDTH}, no copy before the kernel")
+    peak = torch.cuda.max_memory_allocated()
+    for h in flags:
+        h.remove()
+
+    for i, m in enumerate(metrics):
+        values = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in values.values()), f"{name} step {i}: metrics {values}")
+    check(not cfg.CASCADE_MODEL or set(CASCADE_G_TAGS) <= set(values),
+          f"{name}: the cascade's metrics {CASCADE_G_TAGS} missing from {sorted(values)}")
+    print("last step: " + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
+    for k, per_step in expected.items():
+        check(train_counts[k] == per_step * steps,
+              f"{name} {k}: {train_counts[k]} launches in {steps} steps, expected {per_step} a step")
+    print(f"launches in {steps} D+G steps: {train_counts}; per step from the code: {expected}")
+    check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32
+          and torch.backends.cuda.matmul.allow_tf32,
+          f"{name}: TF32 flags (cudnn, matmul) inside the steps {inside}")
+    print(f"TF32 flags (cudnn, matmul) inside the steps {sorted(inside)}, global after "
+          f"{torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32}")
+    for n, net in nets.items():
+        state_now = net.state_dict()
+        still = [k for k, _ in net.named_parameters() if torch.equal(state_now[k], before[n][k])]
+        still += [k for k, b in net.named_buffers()
+                  if k.endswith(("running_mean", "running_var", "weight_u")) and b.numel() > 1
+                  and torch.equal(b, before[n][k])]
+        check(not still, f"{name} {n}: unchanged after {steps} steps: {still}")
+    del before
+    print("every parameter, BN running statistic and SN u (but the 1-element u of each "
+          "1-output head conv, which stays ±1) moved")
+    timed = times[WARMUP_STEPS:]
+    med = sorted(timed)[len(timed) // 2]
+    print(f"{name} D+G step [{card}]: {med * 1e3:.2f} ms median of {TIMED_STEPS} (min "
+          f"{min(timed) * 1e3:.2f}, max {max(timed) * 1e3:.2f}), {1 / med:.3f} steps/s; warm-up "
+          + ", ".join(f"{t * 1e3:.2f}" for t in times[:WARMUP_STEPS]) + " ms")
+    print(f"{name} peak device memory over the steps {peak / 2**30:.2f} GiB [{card}]")
+
+    def train_step():
+        d_step(state, rng, st_batch, im_batch, LR_D)
+        g_step(state, rng, st_batch, im_batch, LR_G)
+
+    dev_events, _ = trace(train_step, 2)
+    names = by_name(dev_events, 2)
+    busy = sum(names.values()) / 1e3
+    ours = {k: v for k, v in names.items()
+            if any(f in k for f in ("reduce_maps", "reduce_rows", "finish(", "dfn_"))}
+    bn_kernels = {}  # BN device kernels in the 2 traced steps, by name
+    for e in dev_events:
+        if any(f in e.name for f in ("reduce_maps", "reduce_rows", "finish(")):
+            bn_kernels[e.name] = bn_kernels.get(e.name, 0) + 1
+    bn_calls_per_step = expected["bn_stats"] + expected["bn_grad_reduce"]
+    check(sum(bn_kernels.values()) == 2 * bn_calls_per_step
+          and not any("finish(" in k for k in bn_kernels),
+          f"{name}: 2 traced steps ran the BN device kernels {bn_kernels}: expected one per "
+          f"call, {bn_calls_per_step} a step, and no finish")
+    print(f"  BN device kernels a step: {sum(bn_kernels.values()) / 2:g}, one per call ("
+          + "; ".join(f"{k[:60]} x{v / 2:g}" for k, v in bn_kernels.items()) + ")")
+    print(f"{name} trace of 2 steps [{card}]: device busy {busy:.3f} ms a step in "
+          f"{len(dev_events) / 2:.0f} ops, idle share {1 - busy / (med * 1e3):.3f}; top: "
+          + "; ".join(f"{k[:70]} {v:.1f} us" for k, v in list(names.items())[:8]))
+    print(f"  the port's kernels: {sum(ours.values()):.1f} us a step ("
+          + "; ".join(f"{k[:50]} {v:.1f} us" for k, v in ours.items()) + ")")
+    return types.SimpleNamespace(
+        name=name, cfg=cfg, state=state, st_batch=st_batch, im_batch=im_batch, d_step=d_step,
+        g_step=g_step, expected=expected, train_counts=train_counts, step_calls=step_calls)
+
+
+def twin_step(run: types.SimpleNamespace, seed: int) -> None:
+    """Phase 7: from one saved state and the same noise, one D+G step with the
+    kernels against one with their plain versions swapped in (and one more
+    with the kernels, which must give the same bits but for cuDNN)."""
+    import torch
+
+    from cpcsv_tpu_torch.models import generator as generator_module
+    from cpcsv_tpu_torch.ops import batchnorm
+    from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
+    from cpcsv_tpu_torch.ops.dynamic_filter import dynamic_filter_conv1d_plain
+
+    state, cfg = run.state, run.cfg
+    nets = state.nets()
+    b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE
+    saved = ({n: {k: v.detach().clone() for k, v in net.state_dict().items()}
+              for n, net in nets.items()},
+             {n: copy.deepcopy(opt.state_dict()) for n, opt in state.opts.items()})
+    g_noise = torch.Generator(device="cuda").manual_seed(seed + 1)
+    noise = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, g_noise),
+              state.gen.draw_noise(b_im, 1, g_noise)) for _ in range(2)]
+    plain = (mock.patch.object(batchnorm, "bn_stats", bn_cuda.bn_stats_plain),
+             mock.patch.object(batchnorm, "bn_grad_reduce", bn_cuda.bn_grad_reduce_plain),
+             mock.patch.object(generator_module, "dynamic_filter_conv1d",
+                               dynamic_filter_conv1d_plain))
+
+    def twin(patches):
+        for n, net in nets.items():
+            net.load_state_dict(saved[0][n])
+            # a copy: load_state_dict keeps tensors already on the device,
+            # and the Adam step would then update the saved moments in place
+            state.opts[n].load_state_dict(copy.deepcopy(saved[1][n]))
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            _, dm = run.d_step(state, noise[0], run.st_batch, run.im_batch, LR_D)
+            _, gm = run.g_step(state, noise[1], run.st_batch, run.im_batch, LR_G)
+        return ({k: float(v) for k, v in {**dm, **gm}.items()},
+                {(n, k): p.grad.detach().clone() for n, net in nets.items()
+                 for k, p in net.named_parameters()},
+                {(n, k): b.detach().clone() for n, net in nets.items()
+                 for k, b in net.named_buffers() if k.endswith(("running_mean", "running_var"))})
+
+    def spread(a, b):
+        """(metrics: largest |a-b| / (|b| + 1e-3), accuracies aside;
+        accuracies: largest |a-b|; gradients: largest ‖a-b‖ / ‖b‖; gradients
+        that are 0 in exact arithmetic (‖b‖ under 1e-3 of the net's largest,
+        the Linear biases before a train-mode BN): largest ‖a-b‖ / the net's
+        largest ‖b‖; BN statistics: largest ‖a-b‖ / ‖b‖), and the tensors
+        with the largest gradient errors."""
+        m = max(abs(a[0][k] - b[0][k]) / (abs(b[0][k]) + 1e-3) for k in b[0]
+                if not k.startswith("Accuracy/"))
+        acc = max(abs(a[0][k] - b[0][k]) for k in b[0] if k.startswith("Accuracy/"))
+        largest = {}
+        for (n, k), g in b[1].items():
+            largest[n] = max(largest.get(n, 0.0), float(g.norm()))
+        errs, zero_errs = [(0.0, None)], [(0.0, None)]
+        for key, g in b[1].items():
+            err, norm = float((a[1][key] - g).norm()), float(g.norm())
+            if norm >= 1e-3 * largest[key[0]]:
+                errs.append((err / norm, key))
+            else:
+                zero_errs.append((err / largest[key[0]], key))
+        st = max(float((a[2][key] - v).norm()) / float(v.norm()) for key, v in b[2].items())
+        errs.sort(key=lambda t: -t[0])
+        worst_zero = max(zero_errs, key=lambda t: t[0])
+        return ((m, acc, errs[0][0], worst_zero[0], st),
+                ([(".".join(key), f"{e:.2e}") for e, key in errs[:5] if key], worst_zero[1]))
+
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # cuDNN's backward would add its own spread
+    try:
+        kern, kern_again, ref = twin(()), twin(()), twin(plain)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    (self_spread, _), (twin_spread, worst) = spread(kern_again, kern), spread(kern, ref)
+    # float32, the kernels sum in other orders than the plain versions; the
+    # step carries those last-bit differences through BN
+    # divisions and two backward passes. The gradients of the motion GRU's
+    # path (m_net -> recurrent) amplify them most: 4.1e-3 on the card, while
+    # a wrong reduction or DFN backward moves a gradient by O(1). An accuracy
+    # counts labels: 0.01 is two of the ~240 positive labels of IM_BATCH 90
+    # flipping at p = 0.5.
+    tols = (1e-4, 1e-2, 1e-2, 1e-5, 1e-4)
+    print(f"{run.name}: " + "kernels vs plain versions, one D+G step from one state and noise: largest metric "
+          "error {:.3e} (tol {:g}), accuracy {:.3e} (tol {:g}), gradient {:.3e} (tol {:g}), "
+          "zero gradient {:.3e} (tol {:g}), BN statistics {:.3e} (tol {:g}); worst gradients, "
+          "relative and zero: "
+          "{}; kernels vs kernels: {:.3e}, {:.3e}, {:.3e}, {:.3e}, {:.3e}".format(
+              *(x for pair in zip(twin_spread, tols) for x in pair), worst, *self_spread))
+    check(all(e <= t for e, t in zip(twin_spread, tols)),
+          f"{run.name}: kernels vs plain step spread {twin_spread} above {tols}")
+
+
+
+def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int]:
+    """Phase 10: the port's training CLI in this process, on the card, at
+    full width: `cascade.yml --synthetic CLI_SYNTHETIC --max_epoch 1`, then
+    `--max_epoch 2 --continue_ckpt auto` under a torch.profiler trace, in a
+    run directory under build/ that it removes after. Checks the resume, the
+    artifacts and the kernels' launches against the steps and sample grids
+    run; prints each epoch's frames/s, its steps' time on the host clock and
+    the wait for their first batches, the idle share of the traced epoch's
+    steps and the checkpoint write times. Returns the launches."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpcsv_tpu_torch.cli import main_pororo
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.train import trainer as trainer_module
+    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+    from cpcsv_tpu_torch.train.trainer import EPOCH_STEPS_SPAN
+
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "cascade.yml")
+    cfg = config_from_file(cfg_file)
+    run_root = REPO / "build" / "chip_smoke_cli"
+    if run_root.exists():
+        shutil.rmtree(run_root)
+    run_root.mkdir(parents=True)
+    run_dir = run_root / "output" / "torch" / cfg.CONFIG_NAME
+    args = ["--cfg", cfg_file, "--synthetic", str(CLI_SYNTHETIC), "--manualSeed", str(seed)]
+    steps_an_epoch = max(CLI_SYNTHETIC, cfg.TRAIN.ST_BATCH_SIZE) // cfg.TRAIN.ST_BATCH_SIZE
+    saves = []  # (epoch, seconds) of each CheckpointManager.save
+    real_save = CheckpointManager.save
+
+    def timed_save(self, state, epoch, completed=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_save(self, state, epoch, completed)
+        saves.append((epoch, time.perf_counter() - t))
+
+    # host clock: each epoch's steps, from the start of the loop to the last
+    # step's metrics read back, and the wait before its first D step
+    starts, spans, waits = [], [], []
+    real_span, real_steps = trainer_module.record_function, trainer_module.make_train_steps
+
+    @contextlib.contextmanager
+    def timed_span(name):
+        starts.append(time.perf_counter())
+        with real_span(name):
+            yield
+        spans.append(time.perf_counter() - starts[-1])
+
+    def timed_steps(cfg):
+        d_step, g_step = real_steps(cfg)
+
+        def d_step_timing_the_first(*args):
+            if len(waits) < len(starts):
+                waits.append(time.perf_counter() - starts[-1])
+            return d_step(*args)
+
+        return d_step_timing_the_first, g_step
+
+    printed = io.StringIO()  # the CLI's output; its config dump is left out below
+    cwd = os.getcwd()
+    os.chdir(run_root)  # the CLI writes under ./output/torch/
+    try:
+        with mock.patch.object(CheckpointManager, "save", timed_save), \
+                mock.patch.object(trainer_module, "record_function", timed_span), \
+                mock.patch.object(trainer_module, "make_train_steps", timed_steps), \
+                contextlib.redirect_stdout(printed):
+            reset_counts()  # the main path: the CLI only
+            t = time.perf_counter()
+            main_pororo.main(args + ["--max_epoch", "1"])
+            first_s = time.perf_counter() - t
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                main_pororo.main(args + ["--max_epoch", "2", "--continue_ckpt", "auto"])
+                torch.cuda.synchronize()
+            counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    lines = [line for line in printed.getvalue().splitlines()
+             if line.startswith(("----[", "Auto-resume", "Continue", "LR DECAY"))]
+    print(f"CLI output [{card}] (config dumps left out):\n  " + "\n  ".join(lines))
+    check("Auto-resume from epoch 1" in lines,
+          "the second CLI run did not print 'Auto-resume from epoch 1'")
+
+    model = run_dir / "Model"
+    for f in ("netG_epoch_0.pth", "netG_epoch_1.pth", "netG_epoch_2.pth", "train_state_last.pth",
+              "netD_im_epoch_last.pth", "netD_st_epoch_last.pth", "netD_se_epoch_last.pth"):
+        check((model / f).is_file(), f"the CLI runs wrote no {model / f}")
+    check((model / "last_epoch.txt").read_text().strip() == "1",
+          f"last_epoch.txt holds {(model / 'last_epoch.txt').read_text()!r}, expected 1")
+    for png in ("pororo_00000.png", "pororo_00001.png", "segment_00000.png"):
+        check((run_dir / "log" / png).is_file(), f"no sample grid {png}")
+    records = [json.loads(line) for line in (run_dir / "log" / "metrics.jsonl").open()]
+    tags = {r["tag"] for r in records}
+    check(all(np.isfinite(r["value"]) for r in records), "metrics.jsonl holds a non-finite value")
+    check(tags == set(CASCADE_TAGS), f"metrics.jsonl tags {sorted(tags)} differ from the JAX "
+          f"package's cascade set: missing {set(CASCADE_TAGS) - tags}, extra {tags - set(CASCADE_TAGS)}")
+    fps = {r["step"]: r["value"] for r in records if r["tag"] == "perf/frames_per_sec"}
+    epoch_s = {r["step"]: r["value"] for r in records if r["tag"] == "perf/epoch_seconds"}
+
+    # 2 epochs of steps_an_epoch D+G steps, and an eval-mode sample grid an
+    # epoch (one DFN forward, eval BN)
+    steps = 2 * steps_an_epoch
+    expected = {k: v * steps for k, v in per_step.items()}
+    expected["dfn_forward"] += 2
+    check(counts == expected, f"CLI runs: launches {counts}, expected {expected} for {steps} "
+                              "steps and 2 sample grids")
+    print(f"CLI runs: {steps} D+G steps and 2 sample grids launched {counts} = {per_step} a "
+          "step, plus one dfn_forward a grid")
+
+    # the traced (second) run: the card's busy time inside its epoch's steps
+    events = prof.events()
+    span = [e for e in events if e.name == EPOCH_STEPS_SPAN and e.device_type == DeviceType.CPU]
+    check(len(span) == 1, f"{len(span)} '{EPOCH_STEPS_SPAN}' ranges in the trace of one epoch")
+    start, end = span[0].time_range.start, span[0].time_range.end
+    dev = device_events(events)
+    busy = sum(e.time_range.elapsed_us() for e in dev
+               if start <= e.time_range.start and e.time_range.end <= end)
+    check(busy > 0, "the trace holds no device work inside the epoch's steps")
+    sizes = {f: (model / f).stat().st_size / 2**20 for f in ("netG_epoch_2.pth",
+                                                             "train_state_last.pth")}
+    check(len(spans) == len(waits) == 2,
+          f"{len(spans)} epochs' steps timed in 2 CLI runs of one epoch each")
+    frames = steps_an_epoch * (cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE)
+    print(f"CLI epoch 0 [{card}]: {fps[0]:.1f} frames/s, {epoch_s[0]:.2f} s for "
+          f"{steps_an_epoch} steps and the sample grid; the steps alone {spans[0] * 1e3:.2f} ms "
+          f"({frames / spans[0]:.1f} frames/s), of which {waits[0] * 1e3:.2f} ms before the "
+          f"first step had its batches (epoch 1: {waits[1] * 1e3:.2f} ms); first run "
+          f"{first_s:.2f} s in all, state init and checkpoints included")
+    print(f"CLI epoch 1 under torch.profiler [{card}]: {fps[1]:.1f} frames/s; its steps span "
+          f"{(end - start) / 1e3:.2f} ms traced ({spans[1] * 1e3:.2f} ms on the host clock), "
+          f"device busy {busy / 1e3:.2f} ms: idle share {1 - busy / (end - start):.3f} of the "
+          f"traced span, {1 - busy / (spans[0] * 1e6):.3f} of epoch 0's untraced steps")
+    print(f"checkpoint writes [{card}]: " + ", ".join(f"epoch {e} {s:.2f} s" for e, s in saves)
+          + f"; netG_epoch_2.pth {sizes['netG_epoch_2.pth']:.1f} MiB, train_state_last.pth "
+          f"{sizes['train_state_last.pth']:.1f} MiB")
+    shutil.rmtree(run_root)  # ~2.5 GB of checkpoints
+    return counts
 
 
 def main() -> int:
@@ -551,15 +980,10 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     from cpcsv_tpu_torch.config import config_from_file
-    from cpcsv_tpu_torch.data.synthetic import (
-        SyntheticStoryDataset,
-        story_batches,
-        synthetic_batches,
-    )
+    from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
     from cpcsv_tpu_torch.device import float32_math
     from cpcsv_tpu_torch.evaluation.drivers import Infer
     from cpcsv_tpu_torch.models import generator as generator_module
-    from cpcsv_tpu_torch.ops import batchnorm
     from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
     from cpcsv_tpu_torch.ops.cuda import build
     from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
@@ -567,15 +991,6 @@ def main() -> int:
         dynamic_filter_conv1d_backward_plain,
         dynamic_filter_conv1d_plain,
     )
-    from cpcsv_tpu_torch.train.state import create_train_state
-    from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
-
-    def reset_counts() -> None:
-        for counts in (dfn_cuda.launches, bn_cuda.launches):
-            counts.update(dict.fromkeys(counts, 0))
-
-    def read_counts() -> dict[str, int]:
-        return {**dfn_cuda.launches, **bn_cuda.launches}
 
     # TF32 allowed globally, as cuDNN allows it by default, and for matmuls
     # too: the entry point must hold its float32 itself (phase 4 checks it),
@@ -602,7 +1017,7 @@ def main() -> int:
     with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
         logs = dict(zip(build.SOURCES, pool.map(build.build, build.SOURCES)))
     print(f"build {', '.join(build.SOURCES)}, one nvcc each at once: "
-          f"{time.perf_counter() - t0:.2f} s")
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
     for name, log in logs.items():
         build.load(name)
         for line in log.splitlines():
@@ -773,7 +1188,7 @@ def main() -> int:
                       f"idle share {1 - busy / (med * 1e3):.3f}; top: "
                       + "; ".join(f"{k[:70]} {v:.1f} us" for k, v in list(names.items())[:6]))
             print(f"{name}: peak device memory "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
             del infer, state
             torch.cuda.empty_cache()
     check(launches == expected_launches, f"dfn launches {launches} != {expected_launches}")
@@ -806,205 +1221,21 @@ def main() -> int:
         "step_ms": DFN_STEP_LAUNCHES["dfn_forward"] * fwd[90].graph_ms,
     }}
 
-    # ------------------------------------------ 6. training at full width
-    phase("6. training at full width")
-    cfg = config_from_file("final.yml")
-    b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE
-    t0 = time.perf_counter()
-    state = create_train_state(cfg, args.seed)
-    nets = state.nets()
-    st_batch, im_batch = (batch_to_device(b, torch.device("cuda"))
-                          for b in synthetic_batches(cfg, b_st, b_im, args.seed))
-    d_step, g_step = make_train_steps(cfg)
-    rng = torch.Generator(device="cuda").manual_seed(args.seed)
-    print(f"final.yml, ST_BATCH {b_st} ({b_st * cfg.VIDEO_LEN} frames), IM_BATCH {b_im}: "
-          f"create_train_state and batches {time.perf_counter() - t0:.2f} s; parameters "
-          + ", ".join(f"{n} {sum(p.numel() for p in net.parameters()):,}"
-                      for n, net in nets.items()))
-    before = {n: {k: v.detach().clone() for k, v in net.state_dict().items()}
-              for n, net in nets.items()}
-    inside = set()
-    flags = [mod.register_forward_pre_hook(lambda *_: inside.add(
-        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
-        for mod in (state.gen.upsample1, state.d_st.get_cond_logits)]
-    expected = per_step_launches(state)
-    steps = WARMUP_STEPS + TIMED_STEPS
-    times, metrics = [], []
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # the main path: the entry points only
-    for i in range(steps):
-        with contextlib.ExitStack() as stack:
-            if i == 0:  # a warm-up step; the shapes are the same every step
-                bn_calls = stack.enter_context(counting_bn_calls())
-                douts = stack.enter_context(counting_dfn_backward())
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            _, dm = d_step(state, rng, st_batch, im_batch, LR_D)
-            _, gm = g_step(state, rng, st_batch, im_batch, LR_G)
-            torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        metrics.append({**dm, **gm})
-    train_counts = read_counts()
-    # (N, C, S) -> launches in one step, by kernel
-    step_calls = {name: dict(sorted(calls.items())) for name, calls in bn_calls.items()}
-    bn_shapes = set(step_calls["bn_stats"]) | set(step_calls["bn_grad_reduce"])
-    for name, calls in step_calls.items():
-        check(sum(calls.values()) == expected[name],
-              f"{name}: {sum(calls.values())} calls counted by shape in one step, "
-              f"expected {expected[name]}")
-        print(f"{name} calls in one step by (N, C, S), {len(calls)} shapes: "
-              + ", ".join(f"{sh} x{n}" for sh, n in calls.items()))
-    # the G step hands each DFN backward its dout as the gradient of the
-    # concatenation zmc_all left it, a column slice; the wrapper gets that
-    # view, so nothing copied it on the way
-    L_out = DFN_SHAPE[1] + 2 * DFN_SHAPE[3] - DFN_SHAPE[2] + 1
-    check(len(douts) == expected["dfn_backward"]
-          and all(sh == (b_im, 1, L_out) and st[0] == ZMC_WIDTH and st[-1] == 1
-                  for sh, st in douts),
-          f"dfn_backward got dout (shape, strides) {douts} in one step: expected "
-          f"{expected['dfn_backward']} views with row stride {ZMC_WIDTH}")
-    print(f"dfn_backward was handed in one step dout (shape, strides) {douts}: the column "
-          f"slice of zmc_all's gradient, row stride {ZMC_WIDTH}, no copy before the kernel")
-    peak = torch.cuda.max_memory_allocated()
-    for h in flags:
-        h.remove()
-
-    for i, m in enumerate(metrics):
-        values = {k: float(v) for k, v in m.items()}
-        check(all(np.isfinite(v) for v in values.values()), f"step {i}: metrics {values}")
-    print("last step: " + ", ".join(f"{k} {v:.4f}" for k, v in values.items()))
-    for name, per_step in expected.items():
-        check(train_counts[name] == per_step * steps,
-              f"{name}: {train_counts[name]} launches in {steps} steps, expected {per_step} a step")
-    print(f"launches in {steps} D+G steps: {train_counts}; per step from the code: {expected}")
-    check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32
-          and torch.backends.cuda.matmul.allow_tf32,
-          f"TF32 flags (cudnn, matmul) inside the steps {inside}")
-    print(f"TF32 flags (cudnn, matmul) inside the steps {sorted(inside)}, global after "
-          f"{torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32}")
-    for n, net in nets.items():
-        state_now = net.state_dict()
-        still = [k for k, _ in net.named_parameters() if torch.equal(state_now[k], before[n][k])]
-        still += [k for k, b in net.named_buffers()
-                  if k.endswith(("running_mean", "running_var", "weight_u")) and b.numel() > 1
-                  and torch.equal(b, before[n][k])]
-        check(not still, f"{n}: unchanged after {steps} steps: {still}")
-    print("every parameter, BN running statistic and SN u (but the 1-element u of each "
-          "1-output head conv, which stays ±1) moved")
-    timed = times[WARMUP_STEPS:]
-    med = sorted(timed)[len(timed) // 2]
-    print(f"D+G step [{card}]: {med * 1e3:.2f} ms median of {TIMED_STEPS} (min "
-          f"{min(timed) * 1e3:.2f}, max {max(timed) * 1e3:.2f}), {1 / med:.3f} steps/s; warm-up "
-          + ", ".join(f"{t * 1e3:.2f}" for t in times[:WARMUP_STEPS]) + " ms")
-    print(f"peak device memory over the steps {peak / 2**30:.2f} GiB")
-
-    def train_step():
-        d_step(state, rng, st_batch, im_batch, LR_D)
-        g_step(state, rng, st_batch, im_batch, LR_G)
-
-    dev_events, _ = trace(train_step, 2)
-    names = by_name(dev_events, 2)
-    busy = sum(names.values()) / 1e3
-    ours = {k: v for k, v in names.items()
-            if any(f in k for f in ("reduce_maps", "reduce_rows", "finish(", "dfn_"))}
-    bn_kernels = {}  # BN device kernels in the 2 traced steps, by name
-    for e in dev_events:
-        if any(f in e.name for f in ("reduce_maps", "reduce_rows", "finish(")):
-            bn_kernels[e.name] = bn_kernels.get(e.name, 0) + 1
-    bn_calls_per_step = expected["bn_stats"] + expected["bn_grad_reduce"]
-    check(sum(bn_kernels.values()) == 2 * bn_calls_per_step
-          and not any("finish(" in k for k in bn_kernels),
-          f"2 traced steps ran the BN device kernels {bn_kernels}: expected one per call, "
-          f"{bn_calls_per_step} a step, and no finish")
-    print(f"  BN device kernels a step: {sum(bn_kernels.values()) / 2:g}, one per call ("
-          + "; ".join(f"{k[:60]} x{v / 2:g}" for k, v in bn_kernels.items()) + ")")
-    print(f"trace of 2 steps: device busy {busy:.3f} ms a step in {len(dev_events) / 2:.0f} ops, "
-          f"idle share {1 - busy / (med * 1e3):.3f}; top: "
-          + "; ".join(f"{k[:70]} {v:.1f} us" for k, v in list(names.items())[:8]))
-    print(f"  the port's kernels: {sum(ours.values()):.1f} us a step ("
-          + "; ".join(f"{k[:50]} {v:.1f} us" for k, v in ours.items()) + ")")
-
-    # ------------------------------- 7. the step: kernels vs plain versions
-    phase("7. one D+G step, kernels vs plain versions")
-    saved = ({n: {k: v.detach().clone() for k, v in net.state_dict().items()}
-              for n, net in nets.items()},
-             {n: copy.deepcopy(opt.state_dict()) for n, opt in state.opts.items()})
-    g_noise = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    noise = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, g_noise),
-              state.gen.draw_noise(b_im, 1, g_noise)) for _ in range(2)]
-    plain = (mock.patch.object(batchnorm, "bn_stats", bn_cuda.bn_stats_plain),
-             mock.patch.object(batchnorm, "bn_grad_reduce", bn_cuda.bn_grad_reduce_plain),
-             mock.patch.object(generator_module, "dynamic_filter_conv1d",
-                               dynamic_filter_conv1d_plain))
-
-    def twin(patches):
-        for n, net in nets.items():
-            net.load_state_dict(saved[0][n])
-            # a copy: load_state_dict keeps tensors already on the device,
-            # and the Adam step would then update the saved moments in place
-            state.opts[n].load_state_dict(copy.deepcopy(saved[1][n]))
-        with contextlib.ExitStack() as stack:
-            for patch in patches:
-                stack.enter_context(patch)
-            _, dm = d_step(state, noise[0], st_batch, im_batch, LR_D)
-            _, gm = g_step(state, noise[1], st_batch, im_batch, LR_G)
-        return ({k: float(v) for k, v in {**dm, **gm}.items()},
-                {(n, k): p.grad.detach().clone() for n, net in nets.items()
-                 for k, p in net.named_parameters()},
-                {(n, k): b.detach().clone() for n, net in nets.items()
-                 for k, b in net.named_buffers() if k.endswith(("running_mean", "running_var"))})
-
-    def spread(a, b):
-        """(metrics: largest |a-b| / (|b| + 1e-3), accuracies aside;
-        accuracies: largest |a-b|; gradients: largest ‖a-b‖ / ‖b‖; gradients
-        that are 0 in exact arithmetic (‖b‖ under 1e-3 of the net's largest,
-        the Linear biases before a train-mode BN): largest ‖a-b‖ / the net's
-        largest ‖b‖; BN statistics: largest ‖a-b‖ / ‖b‖), and the tensors
-        with the largest gradient errors."""
-        m = max(abs(a[0][k] - b[0][k]) / (abs(b[0][k]) + 1e-3) for k in b[0]
-                if not k.startswith("Accuracy/"))
-        acc = max(abs(a[0][k] - b[0][k]) for k in b[0] if k.startswith("Accuracy/"))
-        largest = {}
-        for (n, k), g in b[1].items():
-            largest[n] = max(largest.get(n, 0.0), float(g.norm()))
-        errs, zero_errs = [(0.0, None)], [(0.0, None)]
-        for key, g in b[1].items():
-            err, norm = float((a[1][key] - g).norm()), float(g.norm())
-            if norm >= 1e-3 * largest[key[0]]:
-                errs.append((err / norm, key))
-            else:
-                zero_errs.append((err / largest[key[0]], key))
-        st = max(float((a[2][key] - v).norm()) / float(v.norm()) for key, v in b[2].items())
-        errs.sort(key=lambda t: -t[0])
-        worst_zero = max(zero_errs, key=lambda t: t[0])
-        return ((m, acc, errs[0][0], worst_zero[0], st),
-                ([(".".join(key), f"{e:.2e}") for e, key in errs[:5] if key], worst_zero[1]))
-
-    saved_det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True  # cuDNN's backward would add its own spread
-    try:
-        kern, kern_again, ref = twin(()), twin(()), twin(plain)
-    finally:
-        torch.backends.cudnn.deterministic = saved_det
-    (self_spread, _), (twin_spread, worst) = spread(kern_again, kern), spread(kern, ref)
-    # float32, the kernels sum in other orders than the plain versions; the
-    # step carries those last-bit differences through BN
-    # divisions and two backward passes. The gradients of the motion GRU's
-    # path (m_net -> recurrent) amplify them most: 4.1e-3 on the card, while
-    # a wrong reduction or DFN backward moves a gradient by O(1). An accuracy
-    # counts labels: 0.01 is two of the ~240 positive labels of IM_BATCH 90
-    # flipping at p = 0.5.
-    tols = (1e-4, 1e-2, 1e-2, 1e-5, 1e-4)
-    print("kernels vs plain versions, one D+G step from one state and noise: largest metric "
-          "error {:.3e} (tol {:g}), accuracy {:.3e} (tol {:g}), gradient {:.3e} (tol {:g}), "
-          "zero gradient {:.3e} (tol {:g}), BN statistics {:.3e} (tol {:g}); worst gradients, "
-          "relative and zero: "
-          "{}; kernels vs kernels: {:.3e}, {:.3e}, {:.3e}, {:.3e}, {:.3e}".format(
-              *(x for pair in zip(twin_spread, tols) for x in pair), worst, *self_spread))
-    check(all(e <= t for e, t in zip(twin_spread, tols)),
-          f"kernels vs plain step spread {twin_spread} above {tols}")
-    del kern, kern_again, ref, saved
-
+    # ----------------------- 6-7. training at full width, each config in turn
+    runs = {}
+    for name in TRAIN_CONFIGS:
+        phase(f"6. training at full width, {name}")
+        run = train_at_full_width(name, args.seed, card)
+        phase(f"7. one D+G step of {name}, kernels vs plain versions")
+        twin_step(run, args.seed)
+        # keep what phases 8-10 read; free the state before the next config
+        runs[name] = types.SimpleNamespace(expected=run.expected, step_calls=run.step_calls,
+                                           train_counts=run.train_counts)
+        del run
+        torch.cuda.empty_cache()
+    bn_shapes = set().union(*(set(r.step_calls["bn_stats"]) | set(r.step_calls["bn_grad_reduce"])
+                              for r in runs.values()))
+    train_counts = {k: sum(r.train_counts[k] for r in runs.values()) for k in read_counts()}
     # ------------------------- 8. BN kernels vs plain at the step's shapes
     phase("8. BN kernels vs plain")
     shapes = (sorted(bn_shapes) + sorted({(7, c, sp) for _, c, sp in bn_shapes})
@@ -1064,32 +1295,39 @@ def main() -> int:
     # exceed the L2 (COLD_BYTES), so no call finds its input there.
     print(f"BN per shape [{card}], us per call in one CUDA graph, inputs L2-cold (cycled "
           f"through copies of >= {COLD_BYTES / 1e6:.1f} MB); share = bound / kernel")
-    per_shape = {"bn_stats": [], "bn_grad_reduce": []}
-    for name, calls in step_calls.items():
-        for (N, Cb, S), n_calls in calls.items():
+    # (kernel, (N, C, S)) -> BnTime with calls = launches a step of each config
+    per_shape = {}
+    for name in ("bn_stats", "bn_grad_reduce"):
+        for N, Cb, S in sorted(set().union(*(r.step_calls[name] for r in runs.values()))):
+            calls = {c: r.step_calls[name].get((N, Cb, S), 0) for c, r in runs.items()}
             inputs = bn_cold_inputs(gen, name, N, Cb, S)
             kernel_ms = cold_graph_ms(getattr(bn_cuda, name), inputs)
             library_ms = cold_graph_ms(bn_library(name), inputs)
             bound, bound_by = bn_bound(name, N, Cb, S)
-            per_shape[name].append(BnTime((N, Cb, S), n_calls, kernel_ms, library_ms, bound))
-            print(f"  {name} N={N} C={Cb} S={S}: {n_calls} a step, kernel {kernel_ms * 1e3:.2f}, "
-                  f"library {library_ms * 1e3:.2f}, bound {bound * 1e3:.3f} ({bound_by}), "
-                  f"share {bound / kernel_ms:.3f}; {len(inputs)} copies")
+            per_shape[name, (N, Cb, S)] = BnTime((N, Cb, S), calls, kernel_ms, library_ms, bound)
+            print(f"  {name} N={N} C={Cb} S={S}: a step "
+                  + ", ".join(f"{c} x{n}" for c, n in calls.items())
+                  + f"; kernel {kernel_ms * 1e3:.2f}, library {library_ms * 1e3:.2f}, bound "
+                  f"{bound * 1e3:.3f} ({bound_by}), share {bound / kernel_ms:.3f}; "
+                  f"{len(inputs)} copies")
             check(bound <= kernel_ms, f"{name} {(N, Cb, S)}: {kernel_ms * 1e3:.2f} us is under "
                   f"its bound {bound * 1e3:.3f} us: the inputs were not L2-cold")
             del inputs
-    step_bn = {}  # name -> (kernel, library, bound) ms, summed over a step's launches
-    for name, rows in per_shape.items():
-        step_bn[name] = tuple(sum(r.calls * getattr(r, k) for r in rows)
-                              for k in ("kernel_ms", "library_ms", "bound_ms"))
-        kernel_ms, library_ms, bound = step_bn[name]
-        print(f"{name} per step [{card}]: {sum(r.calls for r in rows)} launches at {len(rows)} "
-              f"shapes; sum of launches x kernel {kernel_ms * 1e3:.2f} us, x library "
-              f"{library_ms * 1e3:.2f} us, x bound {bound * 1e3:.2f} us; share of the per-step "
-              f"bound {bound / kernel_ms:.3f}")
-    kernel_ms, _, bound = (sum(v) for v in zip(*step_bn.values()))
-    print(f"BN kernels per step [{card}]: {kernel_ms * 1e3:.2f} us against a bound of "
-          f"{bound * 1e3:.2f} us, share {bound / kernel_ms:.3f}")
+    # config -> kernel -> (kernel, library, bound) ms, summed over a step's launches
+    step_bn = {c: {} for c in runs}
+    for c in runs:
+        for name in ("bn_stats", "bn_grad_reduce"):
+            rows = [r for (k, _), r in per_shape.items() if k == name and r.calls[c]]
+            step_bn[c][name] = tuple(sum(r.calls[c] * getattr(r, k) for r in rows)
+                                     for k in ("kernel_ms", "library_ms", "bound_ms"))
+            kernel_ms, library_ms, bound = step_bn[c][name]
+            print(f"{c} {name} per step [{card}]: {sum(r.calls[c] for r in rows)} launches at "
+                  f"{len(rows)} shapes; sum of launches x kernel {kernel_ms * 1e3:.2f} us, x "
+                  f"library {library_ms * 1e3:.2f} us, x bound {bound * 1e3:.2f} us; share of the "
+                  f"per-step bound {bound / kernel_ms:.3f}")
+        kernel_ms, _, bound = (sum(v) for v in zip(*step_bn[c].values()))
+        print(f"{c} BN kernels per step [{card}]: {kernel_ms * 1e3:.2f} us against a bound of "
+              f"{bound * 1e3:.2f} us, share {bound / kernel_ms:.3f}")
 
     # the largest shape: the plain versions in a graph, and a trace of all
     # three (188.7 MB of input, more than the L2 holds, so no copies)
@@ -1117,8 +1355,7 @@ def main() -> int:
     for name, f in fns.items():
         plain_ms = graph_ms(f["plain"])
         traced = {k: device_ms(fn, f"{name} {k} {largest}") for k, fn in f.items()}
-        _, _, kernel_ms, library_ms, bound = next(
-            r for r in per_shape[name] if r.shape == largest)
+        _, _, kernel_ms, library_ms, bound = per_shape[name, largest]
         bound_by = bn_bound(name, N, Cb, S)[1]
         print(f"{name} (N, C, S)={largest} f32 [{card}]: us/call in one CUDA graph kernel "
               f"{kernel_ms * 1e3:.2f}, plain {plain_ms * 1e3:.2f}, library "
@@ -1130,7 +1367,10 @@ def main() -> int:
             "replaces": bn_cuda.REPLACES[name], "launches": train_counts[name],
             "max_abs_err": bn_err[name], "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": library_ms,
-            "step_ms": step_bn[name][0], "step_bound_ms": step_bn[name][2],
+            "step_ms": step_bn["final.yml"][name][0],
+            "step_bound_ms": step_bn["final.yml"][name][2],
+            "cascade_step_ms": step_bn["cascade.yml"][name][0],
+            "cascade_step_bound_ms": step_bn["cascade.yml"][name][2],
         }
     del x, dy, fns
     # the DFN backward at the step's batch and a small one, and the pair's
@@ -1148,8 +1388,15 @@ def main() -> int:
     }
     for name in ("bn_stats", "bn_grad_reduce"):
         kernels[name]["floor_ms"] = floor
-    kernels["dfn_forward"]["launches"] += train_counts["dfn_forward"]
-    print(f"dfn_forward launches: serving {launches}, training {train_counts['dfn_forward']}")
+
+    # -------------------------------------- 10. the trainer through the CLI
+    phase("10. the trainer through the CLI: cascade.yml, one epoch, then auto-resume")
+    cli_counts = cli_trainer(card, runs["cascade.yml"].expected, args.seed)
+    for name in ("bn_stats", "bn_grad_reduce", "dfn_backward"):
+        kernels[name]["launches"] = train_counts[name] + cli_counts[name]
+    kernels["dfn_forward"]["launches"] += train_counts["dfn_forward"] + cli_counts["dfn_forward"]
+    print(f"launches on the main paths: serving {launches} dfn_forward; the steps of "
+          f"{', '.join(runs)} {train_counts}; the CLI {cli_counts}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,7 +1,8 @@
-"""Deterministic synthetic stories with the Pororo batch schema (counterpart
-of `cpcsv_tpu/data/synthetic.py`: the same items from the same seed), a
-plain batching iterator for them, and the train step's synthetic batches
-(`synthetic_batches`, counterpart of `cpcsv_tpu/utils/benchutil.py:100-123`)."""
+"""Deterministic synthetic stories and images with the Pororo item schema
+(counterpart of `cpcsv_tpu/data/synthetic.py`: the same items from the same
+seed), a plain batching iterator for stories, and the train step's synthetic
+batches (`synthetic_batches`, counterpart of
+`cpcsv_tpu/utils/benchutil.py:100-123`)."""
 
 from __future__ import annotations
 
@@ -43,6 +44,53 @@ class SyntheticStoryDataset:
             "labels": labels,
             "text": [f"synthetic story {item} frame {t}" for t in range(T)],
         }
+
+
+class SyntheticImageDataset:
+    """Single frames with their story's content (reference ImageDataset,
+    datasets/pororo.py:181-246): images (64, 64, 3), description (356),
+    subtitle (128), labels (9), content (T, 365) and, with `use_segment`,
+    images_seg (64, 64, 1), all float32, and a text string."""
+
+    def __init__(
+        self,
+        n: int = 64,
+        video_len: int = 5,
+        imsize: int = 64,
+        sesize: int = 64,
+        text_dim: int = 356,
+        label_num: int = 9,
+        use_segment: bool = True,
+        seed: int = 1,
+    ):
+        self.n = n
+        self.video_len = video_len
+        self.imsize = imsize
+        self.sesize = sesize
+        self.text_dim = text_dim
+        self.label_num = label_num
+        self.use_segment = use_segment
+        self.seed = seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, item: int) -> dict:
+        rng = np.random.default_rng(self.seed * 7_000_003 + item)
+        S = self.imsize
+        out = {
+            "images": rng.uniform(-1, 1, (S, S, 3)).astype(np.float32),
+            "description": rng.standard_normal(self.text_dim).astype(np.float32),
+            "subtitle": rng.standard_normal(128).astype(np.float32),
+            "labels": (rng.random(self.label_num) < 0.3).astype(np.float32),
+            "content": rng.standard_normal(
+                (self.video_len, self.text_dim + self.label_num)).astype(np.float32),
+            "text": f"synthetic image {item}",
+        }
+        if self.use_segment:
+            out["images_seg"] = rng.uniform(
+                -1, 1, (self.sesize, self.sesize, 1)).astype(np.float32)
+        return out
 
 
 def story_batches(dataset, batch_size: int) -> Iterator[dict]:

@@ -52,12 +52,11 @@ def generator_from_config(cfg: Config) -> StoryGenerator:
 # Training settings the port's train step does not cover yet, with the slice
 # that brings each.
 NOT_TRAINED_YET = {
-    "CASCADE_MODEL": (True, "the cascade training terms (train_autoencoder, latent and "
-                            "reconstruct MSE) come with the next training slice"),
     "USE_SEQ_CONSISTENCY": (True, "the VideoEncoder order-consistency branch comes with a "
                                   "later training slice"),
-    "SEGMENT_LEARNING": (False, "the training slice ports the segment-learning generator "
-                                "(final.yml); the plain one comes with a later slice"),
+    "SEGMENT_LEARNING": (False, "the port trains the segment-learning generators "
+                                "(final.yml, cascade.yml); the plain one comes with a later "
+                                "slice"),
 }
 
 

@@ -9,7 +9,9 @@ Counterpart of `cpcsv_tpu/models/generator.py`, both variants behind the
   dynamic filter:  image_net(motion) (B*T,3,124) conv1d filter_net(crnn) (B*T,1,3,21)
   zmc = [zm | c_mu | dfn] (613) -> fc -> 4x4 map -> 4 UpBlocks -> 64x64 tanh image
   seg branch: a 1-channel trunk gating the image trunk at 4x4 and 8x8; the
-  cascade variant re-encodes the generated mask and gates with its latents.
+  cascade variant re-encodes the generated mask and gates with its latents,
+  and trains the re-encoder and the seg trunk as an autoencoder of masks
+  (`train_autoencoder`).
 
 Internally NCHW. The public samplers keep the JAX layouts: video
 (B, T, 64, 64, 3), mask (N, 64, 64, 1), latents NHWC (as views).
@@ -263,6 +265,18 @@ class StoryGenerator(nn.Module):
             c_logvar=r_logvar,
             seg=_nhwc(mask) if seg else None,
         )
+
+    def train_autoencoder(self, real_segments: torch.Tensor) -> torch.Tensor:
+        """Seg autoencoder reconstruction (reference cascade_model.py:528-540):
+        mask (N, 64, 64, 1) -> re-encoder -> the seg trunk's upsample1_seg ..
+        upsample4_seg and img_seg -> (N, 64, 64, 1). It runs the same modules
+        as the seg trunk, so in train mode each call updates their BN running
+        statistics too."""
+        if not self.cascade:
+            raise ValueError("the seg autoencoder exists only in the cascade generator")
+        g1, _, _, _ = self._reencode_mask(real_segments.permute(0, 3, 1, 2))
+        h = self.upsample4_seg(self.upsample3_seg(self.upsample2_seg(self.upsample1_seg(g1))))
+        return _nhwc(self.img_seg(h))
 
     def sample_images(
         self,

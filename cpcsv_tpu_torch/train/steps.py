@@ -8,8 +8,16 @@
   G step: the generator samples again with fresh noise, the conditions are
     detached, the discriminators run `g_phase` in train mode (their BN and SN
     state changes, their parameters do not), and only the generator steps on
-      im_G + KL·im_KL + SEGMENT_RATIO·se_G + IMAGE_RATIO·st_G + KL·st_KL.
+      im_G + KL·im_KL + SEGMENT_RATIO·se_G + IMAGE_RATIO·st_G + KL·st_KL
+        [+ RECONSTRUCT_LOSS·(video_latent + reconstruct), cascade only].
     The reference's `ratio` on the story/seg group is 1.0 (main_pororo.py).
+    Cascade: video_latent (image_latent) is the sum of four MSEs between the
+    story (image) call's two latent pyramids, (zmc_seg, h_seg1, h_seg2,
+    h_seg3) and the re-encoder's (g1, g2, g3, g4), neither side detached;
+    reconstruct is the mean of the seg autoencoder's MSE on the real masks
+    and on the generated ones, in that order (each call updates the seg
+    trunk's BN statistics). image_latent is logged but kept out of the total,
+    as the reference does (trainer.py:370-413).
 
 Batches are dicts in the JAX schema (`steps.py:100-106`), numpy arrays or
 tensors, NHWC: st_batch images (B, T, 64, 64, 3), description (B, T, 356),
@@ -54,6 +62,15 @@ def build_conditions(st_batch, im_batch, c_mu, cim_mu):
     return st_mu, torch.cat([im_motion, cim_mu], dim=1)
 
 
+def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(a - b))
+
+
+def _latent_loss(latents) -> torch.Tensor:
+    (h1, h2, h3, h4), (g1, g2, g3, g4) = latents
+    return _mse(g1, h1) + _mse(g2, h2) + _mse(g3, h3) + _mse(g4, h4)
+
+
 def _sample_all(cfg: Config, net_g, rng, st_batch, im_batch):
     st_motion = torch.cat([st_batch["description"], st_batch["labels"]], dim=2)
     im_motion = torch.cat([im_batch["description"], im_batch["labels"]], dim=1)
@@ -63,7 +80,9 @@ def _sample_all(cfg: Config, net_g, rng, st_batch, im_batch):
         im_noise = net_g.draw_noise(im_motion.shape[0], 1, rng)
     else:
         st_noise, im_noise = rng
-    st_out = net_g.sample_videos(st_motion, st_batch["description"], seg=False, noise=st_noise)
+    # the cascade reads the story call's mask and latents in the G step
+    st_out = net_g.sample_videos(st_motion, st_batch["description"], seg=cfg.CASCADE_MODEL,
+                                 noise=st_noise)
     im_out = net_g.sample_images(im_motion, im_content, seg=True, noise=im_noise)
     return st_out, im_out
 
@@ -135,9 +154,23 @@ def make_train_steps(cfg: Config):
             im_kl = kl_loss(im_out.c_mu, im_out.c_logvar)
             st_kl = kl_loss(st_out.c_mu, st_out.c_logvar)
             total = im_g.total + im_kl * kl + (se_g.total * seg_w + st_g.total * img_w + st_kl * kl)
+            cascade = {}
+            if cfg.CASCADE_MODEL:
+                se_real = im_batch["images_seg"]
+                recon_real = state.gen.train_autoencoder(se_real)
+                recon_fake = state.gen.train_autoencoder(im_out.seg)
+                cascade = {
+                    "G/image_vae_loss": _latent_loss(im_out.latents),
+                    "G/video_vae_loss": _latent_loss(st_out.latents),
+                    "G/reconstruct_loss": (_mse(recon_real, se_real)
+                                           + _mse(recon_fake, im_out.seg)) / 2.0,
+                }
+                total = total + (cascade["G/video_vae_loss"]
+                                 + cascade["G/reconstruct_loss"]) * cfg.RECONSTRUCT_LOSS
             _step(state.gen, state.opts["gen"], total, lr_g)
         state.step += 1
         metrics = {
+            **cascade,
             "G/im_KL": im_kl, "G/st_KL": st_kl, "G/KL": im_kl + st_kl,
             "G/consistency": st_g.consistency,
             "Accuracy/im_G": im_g.accuracy, "Accuracy/se_G": se_g.accuracy,

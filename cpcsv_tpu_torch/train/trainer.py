@@ -1,0 +1,253 @@
+"""GANTrainer, the training driver (counterpart of `cpcsv_tpu/train/trainer.py`;
+reference `trainer.py:42-485`).
+
+Per epoch: iterate the story loader, draw the image loader in lockstep (it
+wraps around), run the D step then the G step, log scalars under the
+reference's tensorboard tag names (`st_D/*` every step, the rest every 20),
+render the epoch sample grid, log the learning rates (the reference's manual
+halving with a doubling interval, `lr_at_epoch`), frames/s and the epoch's
+seconds, and save a checkpoint every SNAPSHOT_INTERVAL epochs and at the end.
+
+Every epoch's randomness comes from (seed, epoch): one `torch.Generator` for
+the steps' noise, one for the sample grid, and the loaders' `set_epoch`, so a
+resumed epoch E trains exactly as an uninterrupted run's epoch E.
+
+The host-to-card copy of the next pair of batches is made on a background
+thread and a side stream while the card runs the current step
+(`data/prefetch.py`). A D+G pair's metrics come back in one copy, as in the
+JAX package.
+
+The run directory archives itself (reference trainer.py:55-61): the YAML
+config and the port's generator and trainer sources are copied into it.
+
+SCAN_STEPS, the JAX package's K updates in one dispatch, is the same sequence
+of updates; the port runs it one D+G pair at a time. Refused, naming the
+slice that brings each: a MESH_SHAPE, EVALUATE_FID_SCORE and
+CPCSV_PROFILE_DIR.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from cpcsv_tpu_torch.config import Config
+from cpcsv_tpu_torch.data.loader import DataLoader, WrapAroundIterator
+from cpcsv_tpu_torch.data.prefetch import BatchCopier, device_prefetch
+from cpcsv_tpu_torch.device import float32_math, resolve_device
+from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+from cpcsv_tpu_torch.train.state import TrainState, create_train_state
+from cpcsv_tpu_torch.train.steps import make_train_steps
+from cpcsv_tpu_torch.utils.image import save_image_results, save_story_results
+from cpcsv_tpu_torch.utils.logging import MetricsLogger
+
+EPOCH_STEPS_SPAN = "GANTrainer.epoch_steps"  # a torch.profiler range around an epoch's steps
+
+
+def lr_at_epoch(base_lr: float, epoch: int, decay_step: int) -> float:
+    """Reference schedule (trainer.py:447-456): at the end of each epoch e > 0
+    with e % current_step == 0, halve the LR and double current_step (20, 40,
+    80, ...). So epoch == decay_step still trains at the pre-decay LR; the
+    halved LR first applies at decay_step + 1."""
+    lr = base_lr
+    step = decay_step
+    for e in range(1, epoch):
+        if step > 0 and e % step == 0:
+            lr *= 0.5
+            step *= 2
+    return lr
+
+
+def epoch_seed(seed: int, epoch: int, stream: int) -> int:
+    """A 64-bit seed for one of an epoch's random streams (0: the steps'
+    noise, 1: the sample grid), from (seed, epoch, stream) alone."""
+    return int(np.random.SeedSequence([seed, epoch, stream]).generate_state(1, np.uint64)[0])
+
+
+def refuse_unported(cfg: Config) -> None:
+    """NotImplementedError for what the port's trainer does not do yet."""
+    if cfg.MESH_SHAPE:
+        raise NotImplementedError(
+            f"MESH_SHAPE={cfg.MESH_SHAPE!r}: multi-device training comes with the DDP slice "
+            "(torch.distributed); the port trains on one device")
+    if cfg.EVALUATE_FID_SCORE:
+        raise NotImplementedError(
+            "EVALUATE_FID_SCORE=True: the in-training FID/FSD hook comes with the evaluation "
+            "slice")
+    if os.environ.get("CPCSV_PROFILE_DIR"):
+        raise NotImplementedError(
+            "CPCSV_PROFILE_DIR: the trainer's profile capture comes with the tools slice; "
+            "unset it (chip_smoke.py traces the port with torch.profiler)")
+
+
+class GANTrainer:
+    def __init__(
+        self,
+        cfg: Config,
+        output_dir: str,
+        cfg_file: Optional[str] = None,
+        continue_ckpt: Optional[str | int] = None,
+        seed: int = 0,
+        device: str | torch.device = "cuda",
+    ):
+        refuse_unported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.output_dir = output_dir
+        self.model_dir = os.path.join(output_dir, "Model")
+        self.image_dir = os.path.join(output_dir, "Image")
+        self.log_dir = os.path.join(output_dir, "log")
+        self.test_dir = os.path.join(output_dir, "Test")
+        for d in (self.model_dir, self.image_dir, self.log_dir, self.test_dir):
+            os.makedirs(d, exist_ok=True)
+
+        # run-dir self-archiving (reference trainer.py:55-61)
+        if cfg_file and not os.path.exists(os.path.join(output_dir, "setting.yml")):
+            shutil.copyfile(cfg_file, os.path.join(output_dir, "setting.yml"))
+            pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            shutil.copyfile(os.path.join(pkg, "models", "generator.py"),
+                            os.path.join(output_dir, "generator.py"))
+            shutil.copyfile(os.path.abspath(__file__), os.path.join(output_dir, "trainer.py"))
+
+        self.max_epoch = cfg.TRAIN.MAX_EPOCH
+        self.snapshot_interval = cfg.TRAIN.SNAPSHOT_INTERVAL
+        self.continue_ckpt = continue_ckpt
+        self.seed = seed
+        self.d_step, self.g_step = make_train_steps(cfg)
+        self.ckpt = CheckpointManager(self.model_dir)
+        self.logger = MetricsLogger(self.log_dir)
+
+    # ------------------------------------------------------------------
+    def _warm_start_generator(self, state: TrainState) -> None:
+        """NET_G: the generator from a port or reference netG_epoch_E.pth
+        (reference trainer.py:109-114), its BN statistics included."""
+        sd = torch.load(self.cfg.NET_G, map_location="cpu", weights_only=True)
+        sd = {k.removeprefix("module."): v for k, v in sd.items()}  # a DataParallel save
+        state.gen.load_state_dict(sd, strict=True)
+        print("Load netG from:", self.cfg.NET_G)
+
+    def train(self, imageloader: DataLoader, storyloader: DataLoader, testloader=None) -> TrainState:
+        cfg = self.cfg
+        state = create_train_state(cfg, self.seed, self.device)
+        if cfg.NET_G:
+            self._warm_start_generator(state)
+
+        start_epoch = 0
+        if self.continue_ckpt == "auto":
+            # crash-resume after the last completed epoch: resuming at it
+            # would train it twice
+            last = self.ckpt.last_epoch()
+            if last is not None:
+                self.ckpt.restore(state)
+                start_epoch = last + 1
+                print(f"Auto-resume from epoch {start_epoch}")
+        elif self.continue_ckpt:
+            # an explicit --continue_ckpt E restarts at E, the checkpointed
+            # epoch trained again (the reference's semantics, trainer.py:232-235)
+            start_epoch = int(self.continue_ckpt)
+            self.ckpt.restore(state, epoch=start_epoch)
+            print(f"Continue training from epoch {start_epoch}")
+
+        image_iter = WrapAroundIterator(imageloader)
+        copier = BatchCopier(self.device)
+        num_step = len(storyloader)
+        c_time = time.time()
+        print(f"LR DECAY EPOCH: {cfg.TRAIN.LR_DECAY_EPOCH}")
+
+        for epoch in range(start_epoch, self.max_epoch):
+            start_t = time.time()
+            rng = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch, 0))
+            for loader in (storyloader, imageloader):
+                if hasattr(loader, "set_epoch"):
+                    loader.set_epoch(epoch)
+            lr_g = lr_at_epoch(cfg.TRAIN.GENERATOR_LR, epoch, cfg.TRAIN.LR_DECAY_EPOCH)
+            lr_d = lr_at_epoch(cfg.TRAIN.DISCRIMINATOR_LR, epoch, cfg.TRAIN.LR_DECAY_EPOCH)
+            stats: dict = {}
+
+            def paired_batches():
+                for st_host in storyloader:
+                    yield st_host, next(image_iter)
+
+            def put(pair):
+                st_host, im_host = pair
+                return st_host, copier(st_host), copier(im_host)
+
+            def log_row(row: dict, i: int) -> None:
+                """Reference cadence: story-D scalars every step
+                (trainer.py:357-360), everything else every 20 (:432-435)."""
+                stats.update(row)
+                step = i + num_step * epoch
+                for tag in ("st_D/loss", "st_D/real", "st_D/fake", "st_D/order"):
+                    if tag in row:
+                        self.logger.add_scalar(tag, row[tag], step)
+                if i % 20 == 0:
+                    self.logger.add_scalars(
+                        {k: v for k, v in stats.items() if not k.startswith("st_D/")}, step)
+
+            last_st_host = None
+            with record_function(EPOCH_STEPS_SPAN):
+                for i, (st_host, st_staged, im_staged) in enumerate(
+                        device_prefetch(paired_batches(), put, depth=2)):
+                    st_batch, im_batch = copier.ready(st_staged), copier.ready(im_staged)
+                    _, d_metrics = self.d_step(state, rng, st_batch, im_batch, lr_d)
+                    _, g_metrics = self.g_step(state, rng, st_batch, im_batch, lr_g)
+                    # one device-to-host copy for all of the pair's scalars
+                    metrics = {**d_metrics, **g_metrics}
+                    values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
+                    log_row(dict(zip(metrics, values.tolist())), i)
+                    last_st_host = st_host
+
+            # ---- epoch sample grid (reference trainer.py:437-444)
+            if last_st_host is not None:
+                self._log_epoch_samples(state, epoch, last_st_host)
+
+            self.logger.add_scalar("learning/generator", lr_g, epoch)
+            self.logger.add_scalar("learning/st_discriminator", lr_d, epoch)
+            self.logger.add_scalar("learning/im_discriminator", lr_d, epoch)
+
+            epoch_time = time.time() - start_t
+            total_mins = int((time.time() - c_time) / 60)
+            frames_per_step = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
+            fps = num_step * frames_per_step / max(epoch_time, 1e-9)
+            self.logger.add_scalar("perf/frames_per_sec", fps, epoch)
+            self.logger.add_scalar("perf/epoch_seconds", epoch_time, epoch)
+            print(f"----[{epoch}/{self.max_epoch}] epoch time {epoch_time:.1f}s "
+                  f"({fps:.0f} frames/s), total {total_mins} mins----")
+
+            if epoch % self.snapshot_interval == 0:
+                self.ckpt.save(state, epoch)
+        # the final save keeps the reference's name netG_epoch_{MAX_EPOCH} and
+        # records the last completed epoch for auto-resume
+        self.ckpt.save(state, self.max_epoch, completed=self.max_epoch - 1)
+        self.logger.flush()
+        return state
+
+    # ------------------------------------------------------------------
+    def _log_epoch_samples(self, state: TrainState, epoch: int, st_host: dict) -> None:
+        """The last story batch through the eval-mode generator, with noise of
+        the epoch's own sample stream (the steps' stream is not touched)."""
+        cfg, gen = self.cfg, state.gen
+        generator = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch, 1))
+        motion = np.concatenate([st_host["description"], st_host["labels"]], axis=2)
+        gen.eval()
+        try:
+            with torch.no_grad(), float32_math():
+                out = gen.sample_videos(
+                    torch.as_tensor(motion, dtype=torch.float32, device=self.device),
+                    torch.as_tensor(st_host["description"], dtype=torch.float32,
+                                    device=self.device),
+                    seg=cfg.SEGMENT_LEARNING, generator=generator)
+        finally:
+            gen.train()
+        grid = save_story_results(st_host["images"], out.image.cpu().numpy(), st_host.get("text"),
+                                  f"{epoch:03d}", self.image_dir)
+        self.logger.add_image("pororo", grid, epoch)
+        if out.seg is not None:
+            self.logger.add_image("segment", save_image_results(None, out.seg.cpu().numpy(),
+                                                                cfg.VIDEO_LEN), epoch)

@@ -132,10 +132,12 @@ def discriminator_state_dict_from_jax(variables: dict, kind: str) -> dict[str, t
 def load_jax_train_state(state, jax_state) -> None:
     """Loads a JAX `TrainState` (its NetStates' params, batch_stats and
     spectral, numpy leaves) into the port's `train.state.TrainState`, strictly.
-    The Adam moments are not carried over: the optimizers keep theirs."""
+    The generator's variant (segment learning, cascade) is the port
+    generator's own, as its config built it. The Adam moments are not
+    carried over: the optimizers keep theirs."""
     state.gen.load_state_dict(generator_state_dict_from_jax(
         {"params": jax_state.gen.params, "batch_stats": jax_state.gen.batch_stats},
-        use_segment=True, cascade=False), strict=True)
+        use_segment=state.gen.use_segment, cascade=state.gen.cascade), strict=True)
     for name, kind in (("d_im", "image"), ("d_st", "story"), ("d_se", "seg")):
         net = getattr(jax_state, name)
         variables = {"params": net.params, "batch_stats": net.batch_stats,

@@ -19,6 +19,7 @@ import torch
 from cpcsv_tpu_torch.ops import blocks
 from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
 from cpcsv_tpu_torch.ops.cuda import build
+from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 # (N, C, S): a dense head, conv maps, an odd N; the step's shapes, narrowed
 SHAPES = [(7, 40, 1), (6, 12, 16), (5, 9, 64), (3, 5, 1024)]
@@ -55,10 +56,11 @@ def test_plain_reductions_match_pallas_interpret(jax_bn, shape):
     mean = np.random.default_rng(3).standard_normal(C).astype(np.float32)
     inv = np.random.default_rng(4).uniform(0.5, 2.0, C).astype(np.float32)
     ours = bn_cuda.bn_stats_plain(torch.from_numpy(x))
-    ref = pallas_bn.bn_stats(jnp.asarray(_rows(x)), interpret=True)
     ours += bn_cuda.bn_grad_reduce_plain(*map(torch.from_numpy, (x, dy, mean, inv)))
-    ref += pallas_bn.bn_grad_reduce(jnp.asarray(_rows(x)), jnp.asarray(_rows(dy)),
-                                    jnp.asarray(mean), jnp.asarray(inv), interpret=True)
+    ref = jax.jit(lambda x, dy, mean, inv: (
+        pallas_bn.bn_stats(x, interpret=True)
+        + pallas_bn.bn_grad_reduce(x, dy, mean, inv, interpret=True)))(
+            jnp.asarray(_rows(x)), jnp.asarray(_rows(dy)), jnp.asarray(mean), jnp.asarray(inv))
     for a, r in zip(ours, ref):
         # float32 sums of up to 3,072 terms in other orders
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=2e-5, atol=1e-3)
@@ -95,10 +97,10 @@ def test_train_bn_matches_bn_train_core(jax_bn, shape):
         y, _, _ = jax_batchnorm.bn_train_core(x2d, scale, bias, 1e-5, True)
         return jnp.sum(y * w2d)
 
-    y_ref, mean, var = jax_batchnorm.bn_train_core(
-        jnp.asarray(x2d), jnp.asarray(scale), jnp.asarray(bias), 1e-5, True)
-    dx, dscale, dbias = jax.grad(loss, argnums=(0, 1, 2))(
-        jnp.asarray(x2d), jnp.asarray(scale), jnp.asarray(bias))
+    (y_ref, mean, var), (dx, dscale, dbias) = jax.jit(lambda *args: (
+        jax_batchnorm.bn_train_core(*args, 1e-5, True),
+        jax.grad(loss, argnums=(0, 1, 2))(*args)))(
+            jnp.asarray(x2d), jnp.asarray(scale), jnp.asarray(bias))
     M = x2d.shape[0]
     to_rows = (lambda a: a) if len(shape) == 2 else (
         lambda a: a.transpose(0, 2, 3, 1).reshape(-1, C))
@@ -134,14 +136,15 @@ def test_train_bn_matches_flax_arm(jax_bn, dim):
     params = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
     stats = variables["batch_stats"]
     bn = _port_bn(C, dim, scale, bias)
-    for x in xs:
-        def f(params, x):
-            y, mut = flax_bn.apply({"params": params, "batch_stats": stats}, x,
-                                   use_running_average=False, mutable=["batch_stats"])
-            return jnp.sum(jnp.sin(y) * y), (y, mut)
 
-        (_, (y_ref, mut)), (g_p, g_x) = jax.value_and_grad(f, argnums=(0, 1), has_aux=True)(
-            params, jnp.asarray(nhwc(x)))
+    def f(params, x, stats):
+        y, mut = flax_bn.apply({"params": params, "batch_stats": stats}, x,
+                               use_running_average=False, mutable=["batch_stats"])
+        return jnp.sum(jnp.sin(y) * y), (y, mut)
+
+    value_and_grad = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))
+    for x in xs:
+        (_, (y_ref, mut)), (g_p, g_x) = value_and_grad(params, jnp.asarray(nhwc(x)), stats)
         stats = mut["batch_stats"]
         bn.weight.grad = bn.bias.grad = None
         xt = torch.from_numpy(x).requires_grad_()

@@ -24,6 +24,7 @@ import torch
 from cpcsv_tpu_torch.ops import dynamic_filter
 from cpcsv_tpu_torch.ops.cuda import build
 from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
+from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 C, L = 3, 124
 # (B, K, pad): the model's taps, K=7, a runtime-K shape, L_out != L
@@ -38,14 +39,19 @@ def _inputs(B, K, seed, O=1):
 
 @pytest.fixture(scope="module")
 def jax_dfn():
-    """(einsum path, Pallas kernel in interpret mode) of the JAX package."""
+    """(einsum path, Pallas kernel in interpret mode) of the JAX package,
+    jitted."""
     pytest.importorskip("jax")
     from cpcsv_tpu.ops.dynamic_filter import dynamic_filter_conv1d
     from cpcsv_tpu.ops.pallas.dfn import dfn_pallas
 
+    import jax
+
     return (
-        lambda img, filt, pad: dynamic_filter_conv1d(img, filt, pad, use_pallas=False),
-        lambda img, filt, pad: dfn_pallas(img, filt, pad, interpret=True),
+        jax.jit(lambda img, filt, pad: dynamic_filter_conv1d(img, filt, pad, use_pallas=False),
+                static_argnums=2),
+        jax.jit(lambda img, filt, pad: dfn_pallas(img, filt, pad, interpret=True),
+                static_argnums=2),
     )
 
 
@@ -81,8 +87,9 @@ def test_plain_backward_matches_jax_grad(jax_dfn, B, K, pad):
         np.float32)
     ours = dynamic_filter.dynamic_filter_conv1d_backward_plain(
         *(torch.from_numpy(a) for a in (image, filters, dout)), pad)
-    _, vjp = jax.vjp(lambda i, f: jax_dfn[0](i, f, pad), jnp.asarray(image), jnp.asarray(filters))
-    for a, r in zip(ours, vjp(jnp.asarray(dout))):
+    grads = jax.jit(lambda i, f, d: jax.vjp(lambda i, f: jax_dfn[0](i, f, pad), i, f)[1](d))(
+        jnp.asarray(image), jnp.asarray(filters), jnp.asarray(dout))
+    for a, r in zip(ours, grads):
         # float32 sums of up to 124 products in other orders
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-5, atol=1e-4)
 

@@ -1,6 +1,7 @@
 """The port's discriminators and spectral norm against the JAX package's.
 
-JAX variables (tiny width DF_DIM=16, the real condition width 489) are
+JAX variables (tiny width DF_DIM=16, the real condition width 489; a port
+discriminator's init through the JAX package's converter, BN moved) are
 converted with `cpcsv_tpu_torch.utils.weights.discriminator_state_dict_from_jax`
 and loaded strictly; the same numpy inputs go through `d_phase` / `g_phase`
 on both sides in train mode. Compared: every logit, the character logits,
@@ -8,6 +9,8 @@ and the BN running statistics and SN u that the calls mutated
 (JAX `mutable=["batch_stats", "spectral"]`), including the batch-1 guard
 that skips the wrong-pair head call.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -22,9 +25,11 @@ from cpcsv_tpu.models.discriminators import (
 )
 from cpcsv_tpu.ops.spectral_norm import SNConv
 from cpcsv_tpu.utils.export_torch import export_discriminator_variables
+from cpcsv_tpu.utils.port_torch import port_discriminator_state_dict
 from cpcsv_tpu_torch.models import discriminators
 from cpcsv_tpu_torch.ops.spectral_norm import SNConv2d
 from cpcsv_tpu_torch.utils.weights import discriminator_state_dict_from_jax
+from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 NDF, COND, TEXT, LABELS, T = 16, 124, 356, 9, 5
 NEF = COND + TEXT + LABELS
@@ -50,14 +55,20 @@ def inputs(kind, B, seed):
     return real, fake, rng.standard_normal((B, NEF)).astype(np.float32)
 
 
+def port_variables(port_d, kind):
+    """The port discriminator's weights as JAX variables (numpy copies),
+    through the JAX package's own converter: its tree is flax's, and building
+    it costs no trace of flax's init."""
+    return jax.tree.map(np.array, port_discriminator_state_dict(port_d.state_dict(), kind))
+
+
 @pytest.fixture(scope="module", params=["image", "seg", "story"])
 def setup(request):
     """(kind, JAX module, its variables as numpy, port module loaded with them)."""
     kind = request.param
     jax_d, port_d = models(kind)
-    real, _, cond = inputs(kind, 2, seed=0)
-    variables = jax.tree.map(np.array, jax_d.init(
-        jax.random.PRNGKey(3), jnp.asarray(real), jnp.asarray(cond), method="full_forward"))
+    torch.manual_seed(3)
+    variables = port_variables(port_d, kind)
     # BN scale and bias away from 1 and 0, so their use is seen
     rng = np.random.default_rng(1)
 
@@ -81,8 +92,9 @@ def _run_both(setup, phase, B):
     port_d.load_state_dict(discriminator_state_dict_from_jax(variables, kind), strict=True)
     args = (real, fake, cond) if phase == "d_phase" else (fake, cond)
     with jax.default_matmul_precision("highest"):
-        ref, mut = jax_d.apply(variables, *map(jnp.asarray, args), method=phase,
-                               mutable=["batch_stats", "spectral"])
+        ref, mut = jax.jit(functools.partial(jax_d.apply, method=phase,
+                                             mutable=["batch_stats", "spectral"]))(
+            variables, *map(jnp.asarray, args))
     with torch.no_grad():
         ours = getattr(port_d, phase)(*map(torch.from_numpy, args))
     return kind, variables, port_d, ours, ref, mut
@@ -112,10 +124,9 @@ def test_phase_matches_jax(setup, phase, B):
 
 @pytest.mark.parametrize("kind", ["image", "seg", "story"])
 def test_state_dict_matches_export(kind):
-    jax_d, port_d = models(kind)
-    real, _, cond = inputs(kind, 2, seed=2)
-    variables = jax.tree.map(np.array, jax_d.init(
-        jax.random.PRNGKey(4), jnp.asarray(real), jnp.asarray(cond), method="full_forward"))
+    _, port_d = models(kind)
+    torch.manual_seed(4)
+    variables = port_variables(port_d, kind)
     ours = discriminator_state_dict_from_jax(variables, kind)
     ref = export_discriminator_variables(variables, kind)
     assert set(ours) == set(ref) == set(port_d.state_dict())
@@ -144,13 +155,15 @@ def test_spectral_norm_matches_jax_snconv():
         conv.weight_orig.copy_(torch.from_numpy(variables["params"]["kernel"].transpose(3, 2, 0, 1)))
         conv.weight_u.copy_(torch.from_numpy(variables["spectral"]["u"]))
     spectral = variables["spectral"]
-    for _ in range(2):
-        def loss(kernel, spectral):
-            y, mut = mod.apply({"params": {"kernel": kernel}, "spectral": spectral},
-                               jnp.asarray(x), sn_update=True, mutable=["spectral"])
-            return jnp.sum(y * w_out), (y, mut["spectral"])
 
-        (_, (y_ref, spectral)), g_ref = jax.value_and_grad(loss, has_aux=True)(
+    def loss(kernel, spectral):
+        y, mut = mod.apply({"params": {"kernel": kernel}, "spectral": spectral},
+                           jnp.asarray(x), sn_update=True, mutable=["spectral"])
+        return jnp.sum(y * w_out), (y, mut["spectral"])
+
+    value_and_grad = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    for _ in range(2):
+        (_, (y_ref, spectral)), g_ref = value_and_grad(
             jnp.asarray(variables["params"]["kernel"]), spectral)
         conv.weight_orig.grad = None
         y = conv(torch.from_numpy(x.transpose(0, 3, 1, 2)))

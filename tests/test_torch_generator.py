@@ -24,10 +24,13 @@ from cpcsv_tpu.config import config_from_file as jax_config_from_file
 from cpcsv_tpu.models import generator_from_config as jax_generator_from_config
 from cpcsv_tpu.ops import blocks as jax_blocks
 from cpcsv_tpu.utils.export_torch import export_generator_variables
+from cpcsv_tpu.utils.port_torch import port_generator_file, port_generator_state_dict
 from cpcsv_tpu_torch.config import GanConfig, config_from_file
 from cpcsv_tpu_torch.models.factory import generator_from_config
 from cpcsv_tpu_torch.ops import blocks
+from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.utils.weights import generator_state_dict_from_jax
+from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 B, T, TEXT, MOTION, COND, NOISE = 3, 5, 356, 365, 124, 100
 TINY = dict(CONDITION_DIM=124, Z_DIM=100, DF_DIM=16, GF_DIM=8, GF_SEG_DIM=32)
@@ -73,16 +76,15 @@ def configs(cascade, quirk=False):
 
 @pytest.fixture(scope="module", params=[False, True], ids=["v1", "cascade"])
 def variant(request):
-    """(cascade, JAX variables with moved BN, port generator loaded with them)."""
+    """(cascade, JAX variables with moved BN, port generator loaded with them).
+    The variables' tree comes from a port generator through the JAX package's
+    own converter (`port_generator_state_dict`), cheaper than tracing flax's
+    init; perturb then draws every kernel and BN value anew."""
     cascade = request.param
-    jcfg, tcfg = configs(cascade)
-    gen = jax_generator_from_config(jcfg)
-    zeros = jnp.zeros((2, T, MOTION)), jnp.zeros((2, T, TEXT))
-    variables = jax.jit(gen.init)(
-        {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)}, *zeros
-    )
-    variables = perturb(variables, seed=10 + cascade)
+    _, tcfg = configs(cascade)
     net = generator_from_config(tcfg)
+    variables = port_generator_state_dict(net.state_dict(), use_segment=True, cascade=cascade)
+    variables = perturb(variables, seed=10 + cascade)
     net.load_state_dict(
         generator_state_dict_from_jax(variables, use_segment=True, cascade=cascade),
         strict=True,
@@ -90,31 +92,38 @@ def variant(request):
     return cascade, variables, net.eval()
 
 
-def jax_sample(gen, variables, method, motion, content, key):
-    """JAX eval-mode sampler, jitted once, returning (image, seg, noise draws).
-    The draws are tapped from jax.random.normal while the sampler traces;
-    only those made by the generator module count (flax also calls the BN
-    scale initialiser under eval_shape to check parameter shapes)."""
-    draws = []
-    real = jax.random.normal
+_SAMPLERS = {}  # (JAX config, method) -> its jitted sampler, traced once
 
-    def tap(key, shape=(), dtype=jnp.float32):
-        x = real(key, shape, dtype)
-        if sys._getframe(1).f_code.co_filename.endswith("models/generator.py"):
-            draws.append(x)
-        return x
 
-    def fn(variables, motion, content, key):
-        jax.random.normal = tap
-        try:
-            out = gen.apply(variables, motion, content, True, False,
-                            method=method, rngs={"noise": key})
-        finally:
-            jax.random.normal = real
-        return out.image, out.seg, list(draws)
+def jax_sample(jcfg, variables, method, motion, content, key):
+    """The JAX generator of `jcfg` in eval mode, jitted once per (config,
+    method), returning (image, seg, noise draws). The draws are tapped from
+    jax.random.normal while the sampler traces; only those made by the
+    generator module count (flax also calls the BN scale initialiser under
+    eval_shape to check parameter shapes)."""
+    if (jcfg, method) not in _SAMPLERS:
+        gen, real = jax_generator_from_config(jcfg), jax.random.normal
 
+        def fn(variables, motion, content, key):
+            draws = []
+
+            def tap(key, shape=(), dtype=jnp.float32):
+                x = real(key, shape, dtype)
+                if sys._getframe(1).f_code.co_filename.endswith("models/generator.py"):
+                    draws.append(x)
+                return x
+
+            jax.random.normal = tap
+            try:
+                out = gen.apply(variables, motion, content, True, False,
+                                method=method, rngs={"noise": key})
+            finally:
+                jax.random.normal = real
+            return out.image, out.seg, draws
+
+        _SAMPLERS[jcfg, method] = jax.jit(fn)
     with jax.default_matmul_precision("highest"):
-        image, seg, noise = jax.jit(fn)(variables, motion, content, key)
+        image, seg, noise = _SAMPLERS[jcfg, method](variables, motion, content, key)
     return np.asarray(image), np.asarray(seg), [np.array(d) for d in noise]
 
 
@@ -137,10 +146,8 @@ def test_sample_videos_matches_jax(variant, quirk):
     motion = rng.standard_normal((B, T, MOTION)).astype(np.float32)
     content = rng.standard_normal((B, T, TEXT)).astype(np.float32)
 
-    image, seg, draws = jax_sample(
-        jax_generator_from_config(jcfg), variables, "sample_videos",
-        motion, content, jax.random.PRNGKey(7),
-    )
+    image, seg, draws = jax_sample(jcfg, variables, "sample_videos", motion, content,
+                                   jax.random.PRNGKey(7))
     # draw order: CA eps, motion-GRU h0, per-step noise
     assert [d.shape for d in draws] == [(B, COND), (B, MOTION), (B, T, NOISE)]
     with torch.no_grad():
@@ -161,10 +168,8 @@ def test_sample_images_matches_jax(variant):
     motion = rng.standard_normal((B, MOTION)).astype(np.float32)
     content = rng.standard_normal((B, T, TEXT)).astype(np.float32)
 
-    image, seg, draws = jax_sample(
-        jax_generator_from_config(jcfg), variables, "sample_images",
-        motion, content, jax.random.PRNGKey(9),
-    )
+    image, seg, draws = jax_sample(jcfg, variables, "sample_images", motion, content,
+                                   jax.random.PRNGKey(9))
     assert [d.shape for d in draws] == [(B, COND), (B, MOTION), (B, 1, NOISE)]
     with torch.no_grad():
         out = net.sample_images(
@@ -172,6 +177,35 @@ def test_sample_images_matches_jax(variant):
             noise=tuple(torch.from_numpy(d) for d in draws),
         )
     assert out.image.shape == (B, 64, 64, 3)
+    np.testing.assert_allclose(out.image.numpy(), image, **TOL)
+    np.testing.assert_allclose(out.seg.numpy(), seg, **TOL)
+
+
+def test_jax_package_samples_a_port_snapshot_as_the_port_does(variant, tmp_path):
+    """A generator snapshot as the port's trainer writes it
+    (`CheckpointManager.save_generator`, netG_epoch_0.pth) read by the JAX
+    package's `port_generator_file`: the same variables, and its eval-mode
+    sample_videos from them, with JAX's noise injected into a port generator
+    loaded from the same file, gives the same frames and masks."""
+    cascade, variables, net = variant
+    jcfg, tcfg = configs(cascade)
+    CheckpointManager(str(tmp_path)).save_generator(net.state_dict(), 0)
+    path = str(tmp_path / "netG_epoch_0.pth")
+    ported = port_generator_file(path, use_segment=True, cascade=cascade)
+    assert jax.tree.structure(ported) == jax.tree.structure(variables)
+    for a, b in zip(jax.tree.leaves(ported), jax.tree.leaves(variables)):
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(50 + cascade)
+    motion = rng.standard_normal((B, T, MOTION)).astype(np.float32)
+    content = rng.standard_normal((B, T, TEXT)).astype(np.float32)
+    image, seg, draws = jax_sample(jcfg, ported, "sample_videos", motion, content,
+                                   jax.random.PRNGKey(11))
+    loaded = generator_from_config(tcfg)
+    loaded.load_state_dict(torch.load(path, weights_only=True), strict=True)
+    with torch.no_grad():
+        out = loaded.eval().sample_videos(
+            torch.from_numpy(motion), torch.from_numpy(content), seg=True,
+            noise=tuple(torch.from_numpy(d) for d in draws))
     np.testing.assert_allclose(out.image.numpy(), image, **TOL)
     np.testing.assert_allclose(out.seg.numpy(), seg, **TOL)
 
@@ -192,7 +226,8 @@ def test_blocks_match_flax(kind):
             fused = kind.split("_")[1]
             flax_mod = jax_blocks.UpBlock(5, fused=fused)
             port = blocks.UpBlock(6, 5, fused)
-    variables = perturb(flax_mod.init(jax.random.PRNGKey(1), jnp.asarray(x), False), 41)
+    variables = perturb(jax.jit(flax_mod.init, static_argnums=2)(
+        jax.random.PRNGKey(1), jnp.asarray(x), False), 41)
     p, s = variables["params"], variables["batch_stats"]
     sd = {}
     if kind == "dense":
@@ -214,7 +249,8 @@ def test_blocks_match_flax(kind):
     port.eval()
 
     with jax.default_matmul_precision("highest"):
-        ref = np.asarray(flax_mod.apply(variables, jnp.asarray(x), False))
+        ref = np.asarray(jax.jit(flax_mod.apply, static_argnums=2)(variables, jnp.asarray(x),
+                                                                   False))
     xt = torch.from_numpy(x if kind == "dense" else x.transpose(0, 3, 1, 2).copy())
     with torch.no_grad():
         y = port(xt).numpy()
@@ -225,7 +261,8 @@ def test_blocks_match_flax(kind):
     # train mode: batch statistics, and the running statistics updated
     port.train()
     with jax.default_matmul_precision("highest"):
-        ref, mut = flax_mod.apply(variables, jnp.asarray(x), True, mutable=["batch_stats"])
+        ref, mut = jax.jit(lambda v, x: flax_mod.apply(v, x, True, mutable=["batch_stats"]))(
+            variables, jnp.asarray(x))
     with torch.no_grad():
         y = port(xt).numpy()
     if kind != "dense":

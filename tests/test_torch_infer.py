@@ -19,6 +19,7 @@ from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
 from cpcsv_tpu_torch.evaluation.drivers import Infer
 from cpcsv_tpu_torch.models.factory import generator_from_config
 from cpcsv_tpu_torch.utils import image
+from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = GanConfig(CONDITION_DIM=124, Z_DIM=100, DF_DIM=16, GF_DIM=8, GF_SEG_DIM=32)

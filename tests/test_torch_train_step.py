@@ -1,16 +1,21 @@
-"""The port's alternating D step and G step against the JAX package's.
+"""The port's alternating D step and G step against the JAX package's, for
+`final.yml` (v1) and `cascade.yml`, and the cascade's seg autoencoder.
 
-One JAX `TrainState` (tiny widths, `final.yml` otherwise) is loaded into the
-port's nets (`utils.weights.load_jax_train_state`); the same numpy batches
-and the same noise (JAX's own draws, tapped while its step runs) go through
-`cpcsv_tpu.train.steps.make_train_steps` and the port's. Compared: every
-metric, every BN running statistic and SN u the step mutated, and the
-gradients. JAX's gradients are recovered by replacing its Adam with the
-identity transform, so that its update at lr = 1 is −g; the port leaves its
-gradients in `.grad`.
+The port's initial state (tiny widths, the config otherwise) is carried into
+a JAX `TrainState` by the JAX package's own converter (`utils/port_torch.py`)
+and back into fresh port nets by `utils.weights.load_jax_train_state`; the
+same numpy batches and the same noise (JAX's own draws, tapped while its step
+runs) go through `cpcsv_tpu.train.steps.make_train_steps` and the port's.
+Compared: every metric, every BN running statistic and SN u the step
+mutated, and the gradients. JAX's gradients are recovered by replacing its
+Adam with the identity transform, so that its update at lr = 1 is −g; the
+port leaves its gradients in `.grad`.
 """
 
 import collections
+import copy
+import functools
+import gc
 import os
 import sys
 from unittest import mock
@@ -27,22 +32,27 @@ from cpcsv_tpu.config import GanConfig as JaxGanConfig
 from cpcsv_tpu.config import config_from_file as jax_config_from_file
 from cpcsv_tpu.losses import gan_losses as jax_losses
 from cpcsv_tpu.models import build_models as jax_build_models
-from cpcsv_tpu.train import create_train_state as jax_create_train_state
+from cpcsv_tpu.models import generator_from_config as jax_generator_from_config
 from cpcsv_tpu.train import make_train_steps as jax_make_train_steps
+from cpcsv_tpu.train.state import NetState as JaxNetState
+from cpcsv_tpu.train.state import TrainState as JaxTrainState
 from cpcsv_tpu.utils.benchutil import synthetic_batches as jax_synthetic_batches
+from cpcsv_tpu.utils.port_torch import port_discriminator_state_dict, port_generator_state_dict
 from cpcsv_tpu_torch.config import GanConfig, config_from_file
 from cpcsv_tpu_torch.data.synthetic import synthetic_batches
 from cpcsv_tpu_torch.losses import gan_losses
-from cpcsv_tpu_torch.ops import dynamic_filter
+from cpcsv_tpu_torch.ops import batchnorm, blocks, dynamic_filter
 from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
-from cpcsv_tpu_torch.models.factory import build_models
-from cpcsv_tpu_torch.train.state import create_train_state, make_adam
+from cpcsv_tpu_torch.models.factory import build_models, generator_from_config
+from cpcsv_tpu_torch.train.state import create_train_state, make_adam, weights_init
+from cpcsv_tpu_torch.train import steps as steps_module
 from cpcsv_tpu_torch.train.steps import make_train_steps
 from cpcsv_tpu_torch.utils.weights import (
     discriminator_state_dict_from_jax,
     generator_state_dict_from_jax,
     load_jax_train_state,
 )
+from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 TINY = dict(CONDITION_DIM=124, Z_DIM=100, DF_DIM=16, GF_DIM=8, GF_SEG_DIM=32)
 B_ST, B_IM = 4, 4
@@ -58,13 +68,28 @@ TOL = dict(rtol=1e-3, atol=1e-4)
 # margin. A gradient that is 0 in exact arithmetic (a Linear bias before a
 # train-mode BN) is held to 1e-2 x 1e-4 of the net's largest gradient norm instead.
 GRAD_RTOL, GRAD_FLOOR = 1e-2, 1e-4
+# The cascade G step chains more train-mode BNs (the re-encoder gates the
+# image trunk, the autoencoder runs the seg trunk twice more). Against a
+# float64 run of the port, JAX's float32 gradients differ by several times
+# more than the port's float32 ones (largest at upsample4_seg's BN scale, 2
+# channels at these widths, a sum that cancels), so the error is the
+# reference's; `test_cascade_g_gradients_hold_against_float64` checks both.
+# A wrong term moves a gradient by O(1).
+GRAD_RTOL_CASCADE_G = 1e-1
+# the port's float32 cascade G gradients against its float64 run
+GRAD_RTOL_CASCADE_G_FLOAT64 = 2e-2
 
 
-def configs():
+# the steps compared, by test id: (config, step)
+STEPS = {"d": ("final.yml", "d"), "g": ("final.yml", "g"),
+         "cascade-d": ("cascade.yml", "d"), "cascade-g": ("cascade.yml", "g")}
+
+
+def configs(name="final.yml"):
     jcfg = jax_config_from_file(os.path.join(os.path.dirname(cpcsv_tpu.__file__), "configs",
-                                             "final.yml"))
+                                             name))
     return (jcfg.with_updates(GAN=JaxGanConfig(**TINY)),
-            config_from_file("final.yml").with_updates(GAN=GanConfig(**TINY)))
+            config_from_file(name).with_updates(GAN=GanConfig(**TINY)))
 
 
 def tapped(step):
@@ -89,28 +114,88 @@ def tapped(step):
     return jax.jit(fn)
 
 
-@pytest.fixture(scope="module")
-def run():
+def jax_state_from_port(state, tx):
+    """The port's TrainState as the JAX package's, through its converter
+    (numpy copies; optimizer states from `tx`)."""
+    def net_state(variables):
+        variables = jax.tree.map(np.array, variables)
+        return JaxNetState(params=variables["params"], batch_stats=variables["batch_stats"],
+                           spectral=variables.get("spectral", {}),
+                           opt_state=tx.init(variables["params"]))
+
+    sd = lambda net: net.state_dict()  # noqa: E731
+    return JaxTrainState(
+        step=jnp.zeros((), jnp.int32),
+        gen=net_state(port_generator_state_dict(sd(state.gen), cascade=state.gen.cascade)),
+        **{name: net_state(port_discriminator_state_dict(sd(getattr(state, name)), kind))
+           for name, kind in KINDS.items()})
+
+
+@functools.lru_cache(maxsize=None)
+def port_init(name):
+    """The port's initial TrainState of a config (seed 0); callers step a
+    deep copy."""
+    return create_train_state(configs(name)[1], seed=0, device="cpu")
+
+
+def _run(name):
     """JAX state before, after its D step and after its G step (both from the
     state before), with their metrics and noise, and the batches."""
-    jcfg, _ = configs()
+    jcfg, tcfg = configs(name)
     models = jax_build_models(jcfg)
-    state0 = jax_create_train_state(jcfg, jax.random.PRNGKey(0), models)
+    state0 = jax_state_from_port(port_init(name), optax.identity())
     with mock.patch("cpcsv_tpu.train.steps.make_adam", lambda cfg=None: optax.identity()):
         d_step, g_step = jax_make_train_steps(jcfg, models, jit=False)
-    st, im = synthetic_batches(configs()[1], B_ST, B_IM, seed=4)
+    st, im = synthetic_batches(tcfg, B_ST, B_IM, seed=4)
     out = {}
-    with jax.default_matmul_precision("highest"):
-        for name, step, key in (("d", d_step, 1), ("g", g_step, 2)):
-            out[name] = tapped(step)(state0, jax.random.PRNGKey(key), st, im, 1.0)
+    # tracing a step allocates many short-lived objects, and the cyclic
+    # garbage collector's passes over them are a sizeable share of its time
+    gc.disable()
+    try:
+        with jax.default_matmul_precision("highest"):
+            for which, step, key in (("d", d_step, 1), ("g", g_step, 2)):
+                out[which] = tapped(step)(state0, jax.random.PRNGKey(key), st, im, 1.0)
+    finally:
+        gc.enable()
     to_np = lambda s: jax.tree.map(np.array, s)  # noqa: E731  writable host copies
     return to_np(state0), {k: to_np(v) for k, v in out.items()}, (st, im)
 
 
-def port_step(run, which):
+@pytest.fixture(scope="module")
+def runs():
+    """name -> `_run(name)`, each config's JAX steps traced once a module."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            cache[name] = _run(name)
+        return cache[name]
+
+    return get
+
+
+@pytest.fixture
+def run(runs):
+    return runs("final.yml")
+
+
+# (config, "d" | "g") -> the calls port_step's step made to the kernels' plain
+# versions, and port_step's result
+PLAIN_CALLS, PORT_STEPS = {}, {}
+
+
+def port_step(run, name, which):
+    """The port's D or G step from the JAX state before, with JAX's noise:
+    (state, metrics), taken once a module."""
+    if (name, which) not in PORT_STEPS:
+        PORT_STEPS[name, which] = _port_step(run, name, which)
+    return PORT_STEPS[name, which]
+
+
+def _port_step(run, name, which):
     state0, outs, (st, im) = run
-    _, tcfg = configs()
-    state = create_train_state(tcfg, seed=0, device="cpu")
+    _, tcfg = configs(name)
+    state = copy.deepcopy(port_init(name))
     load_jax_train_state(state, state0)
     draws = outs[which][2]
     # 6 draws: story then image, each CA eps, motion-GRU h0, per-step noise
@@ -118,10 +203,23 @@ def port_step(run, which):
                                         (B_IM, 124), (B_IM, 365), (B_IM, 1, 100)]
     noise = tuple(tuple(torch.from_numpy(d) for d in draws[i:i + 3]) for i in (0, 3))
     d_step, g_step = make_train_steps(tcfg)
-    return (d_step if which == "d" else g_step)(state, noise, st, im, 4e-4)
+    calls = PLAIN_CALLS[name, which] = collections.Counter()
+
+    def counted(kernel, fn):
+        def call(*args):
+            calls[kernel] += 1
+            return fn(*args)
+        return call
+
+    with mock.patch.object(bn_cuda, "bn_stats_plain", counted("bn_stats", bn_cuda.bn_stats_plain)), \
+            mock.patch.object(bn_cuda, "bn_grad_reduce_plain",
+                              counted("bn_grad_reduce", bn_cuda.bn_grad_reduce_plain)), \
+            mock.patch.object(dynamic_filter, "dynamic_filter_conv1d_plain", counted(
+                "dfn_forward", dynamic_filter.dynamic_filter_conv1d_plain)):
+        return (d_step if which == "d" else g_step)(state, noise, st, im, 4e-4)
 
 
-def jax_state_dicts(state, grads_of=None):
+def jax_state_dicts(state, grads_of=None, cascade=False):
     """Per net, the JAX state as the port's state_dict; with `grads_of` (the
     state before), the parameters replaced by before − after = the gradient."""
     out = {}
@@ -132,7 +230,7 @@ def jax_state_dicts(state, grads_of=None):
             params = jax.tree.map(lambda a, b: a - b, getattr(grads_of, name).params, params)
         if name == "gen":
             out[name] = generator_state_dict_from_jax(
-                {"params": params, "batch_stats": net.batch_stats})
+                {"params": params, "batch_stats": net.batch_stats}, cascade=cascade)
         else:
             out[name] = discriminator_state_dict_from_jax(
                 {"params": params, "batch_stats": net.batch_stats, "spectral": net.spectral},
@@ -148,17 +246,22 @@ def close(ours, ref, what):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("which", ["d", "g"])
-def test_step_metrics_state_and_gradients_match_jax(run, which):
+@pytest.mark.parametrize("test_id", list(STEPS))
+def test_step_metrics_state_and_gradients_match_jax(runs, test_id):
+    name, which = STEPS[test_id]
+    cascade = name == "cascade.yml"
+    run = runs(name)
     state0, outs, _ = run
     jax_after, jax_metrics, _ = outs[which]
-    state, metrics = port_step(run, which)
+    state, metrics = port_step(run, name, which)
     assert set(metrics) == set(jax_metrics)
+    cascade_tags = {"G/image_vae_loss", "G/video_vae_loss", "G/reconstruct_loss"}
+    assert (cascade_tags <= set(metrics)) == (cascade and which == "g")
     for tag, value in jax_metrics.items():
         np.testing.assert_allclose(float(metrics[tag]), float(value), **TOL, err_msg=tag)
 
-    after = jax_state_dicts(jax_after)
-    grads = jax_state_dicts(jax_after, grads_of=state0)
+    after = jax_state_dicts(jax_after, cascade=cascade)
+    grads = jax_state_dicts(jax_after, grads_of=state0, cascade=cascade)
     stepped = ("gen",) if which == "g" else tuple(KINDS)
     for name, net in state.nets().items():
         for key, buf in net.named_buffers():
@@ -169,12 +272,91 @@ def test_step_metrics_state_and_gradients_match_jax(run, which):
             continue
         ref = {key: np.asarray(grads[name][key]) for key, _ in net.named_parameters()}
         floor = GRAD_FLOOR * max(np.linalg.norm(g) for g in ref.values())
+        rtol = GRAD_RTOL_CASCADE_G if test_id == "cascade-g" else GRAD_RTOL
         for key, p in net.named_parameters():
             err = np.linalg.norm(p.grad.numpy() - ref[key])
-            assert err <= GRAD_RTOL * max(np.linalg.norm(ref[key]), floor), (
+            assert err <= rtol * max(np.linalg.norm(ref[key]), floor), (
                 f"{which} step, d {name}.{key}: error {err:.3e}, |ref| "
                 f"{np.linalg.norm(ref[key]):.3e}")
     assert state.step == (1 if which == "g" else 0)
+
+
+def test_train_autoencoder_matches_jax():
+    """The cascade's seg autoencoder in train mode: its output and the BN
+    running statistics it updates (the re-encoder's and the seg trunk's)
+    against JAX's `apply(method="train_autoencoder", mutable=["batch_stats"])`.
+    Its gradients are held in the cascade G step above, where the
+    reconstruction loss reaches them."""
+    jcfg, tcfg = configs("cascade.yml")
+    net = generator_from_config(tcfg).train()
+    weights_init(net, torch.Generator().manual_seed(3))
+    variables = jax.tree.map(np.array, port_generator_state_dict(net.state_dict(), cascade=True))
+    before = generator_state_dict_from_jax(variables, cascade=True)
+    masks = np.random.default_rng(8).uniform(-1, 1, (3, 64, 64, 1)).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        ref, mut = jax.jit(lambda v, x: jax_generator_from_config(jcfg).apply(
+            v, x, method="train_autoencoder", mutable=["batch_stats"]))(variables, masks)
+    with torch.no_grad():
+        out = net.train_autoencoder(torch.from_numpy(masks))
+    assert out.shape == (3, 64, 64, 1)
+    close(out, ref, "train_autoencoder output")
+    after = generator_state_dict_from_jax(
+        {"params": variables["params"], "batch_stats": jax.tree.map(np.array, mut["batch_stats"])},
+        cascade=True)
+    moved = set()
+    for key, buf in net.named_buffers():
+        if key.endswith(("running_mean", "running_var")):
+            close(buf, after[key], key)
+            if not torch.equal(after[key], before[key]):
+                moved.add(key.split(".")[0])
+    # the re-encoder (presample, 4 down blocks) and the 4 up blocks of the seg trunk
+    assert moved == {"presample", "downsample1_seg", "downsample2_seg", "downsample3_seg",
+                     "downsample4_seg", "upsample1_seg", "upsample2_seg", "upsample3_seg",
+                     "upsample4_seg"}
+
+
+def test_cascade_g_gradients_hold_against_float64(runs):
+    """The ground for GRAD_RTOL_CASCADE_G: from the same state and noise, the
+    cascade G step of the port in float64 (its plain kernels take any
+    dtype; the float32 guard of train-mode BN is lifted for this run) against
+    the port's float32 gradients and the JAX package's. Relative L2 per
+    tensor, tensors whose gradient is 0 in exact arithmetic aside."""
+    name = "cascade.yml"
+    run = runs(name)
+    state0, outs, (st, im) = run
+    jax_after, _, draws = outs["g"]
+    _, tcfg = configs(name)
+
+    def port_grads(dtype):  # the cascade G step of port_step, in `dtype`
+        state = copy.deepcopy(port_init(name))
+        load_jax_train_state(state, state0)
+        for net in state.nets().values():
+            net.to(dtype)
+        noise = tuple(tuple(torch.from_numpy(d).to(dtype) for d in draws[i:i + 3])
+                      for i in (0, 3))
+        cast = lambda batch, device: {k: torch.as_tensor(v).to(dtype)  # noqa: E731
+                                      for k, v in batch.items() if isinstance(v, np.ndarray)}
+        with mock.patch.object(steps_module, "batch_to_device", cast), \
+                mock.patch.object(blocks, "batch_norm_train", batchnorm._BatchNormTrain.apply):
+            make_train_steps(tcfg)[1](state, noise, st, im, 4e-4)
+        return {k: p.grad.double().numpy() for k, p in state.gen.named_parameters()}
+
+    exact = port_grads(torch.float64)
+    ours = {k: p.grad.double().numpy()
+            for k, p in port_step(run, name, "g")[0].gen.named_parameters()}
+    ref = jax_state_dicts(jax_after, grads_of=state0, cascade=True)["gen"]
+    floor = GRAD_FLOOR * max(np.linalg.norm(g) for g in exact.values())
+    worst = {"port": 0.0, "jax": 0.0}
+    for key, g in exact.items():
+        norm = np.linalg.norm(g)
+        if norm < floor:
+            continue
+        worst["port"] = max(worst["port"], np.linalg.norm(ours[key] - g) / norm)
+        worst["jax"] = max(worst["jax"], np.linalg.norm(ref[key].numpy() - g) / norm)
+    print(f"cascade G gradients against float64, largest relative L2: port float32 "
+          f"{worst['port']:.3e}, JAX float32 {worst['jax']:.3e}")
+    assert worst["port"] <= GRAD_RTOL_CASCADE_G_FLOAT64, worst
+    assert worst["jax"] <= GRAD_RTOL_CASCADE_G, worst
 
 
 def test_mutated_state_moves(run):
@@ -256,8 +438,7 @@ def test_synthetic_batches_match_jax():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("CASCADE_MODEL", True), ("USE_SEQ_CONSISTENCY", True), ("SEGMENT_LEARNING", False),
-    ("USE_INFONCE", True),
+    ("USE_SEQ_CONSISTENCY", True), ("SEGMENT_LEARNING", False), ("USE_INFONCE", True),
 ])
 def test_build_models_refuses_what_the_slice_does_not_train(key, value):
     cfg = configs()[1].with_updates(**{key: value})
@@ -271,30 +452,17 @@ def test_create_train_state_without_a_card_raises(monkeypatch):
         create_train_state(configs()[1], seed=0)
 
 
-def test_chip_smoke_launch_counts_match_a_step():
+@pytest.mark.parametrize("name", ["final.yml", "cascade.yml"])
+def test_chip_smoke_launch_counts_match_a_step(runs, name):
     """The per-step kernel launches that chip_smoke.py derives from the code
-    equal the calls one CPU step makes to the kernels' plain versions."""
+    equal the calls a D step and a G step of the parity tests above made to
+    the kernels' plain versions on the CPU."""
     import chip_smoke
 
     calls = collections.Counter()
-
-    def counted(name, fn):
-        def call(*args):
-            calls[name] += 1
-            return fn(*args)
-        return call
-
-    _, tcfg = configs()
-    state = create_train_state(tcfg, seed=1, device="cpu")
-    d_step, g_step = make_train_steps(tcfg)
-    st, im = synthetic_batches(tcfg, 2, 2, seed=1)
-    rng = torch.Generator().manual_seed(1)
-    with mock.patch.object(bn_cuda, "bn_stats_plain", counted("bn_stats", bn_cuda.bn_stats_plain)), \
-            mock.patch.object(bn_cuda, "bn_grad_reduce_plain",
-                              counted("bn_grad_reduce", bn_cuda.bn_grad_reduce_plain)), \
-            mock.patch.object(dynamic_filter, "dynamic_filter_conv1d_plain", counted(
-                "dfn_forward", dynamic_filter.dynamic_filter_conv1d_plain)):
-        d_step(state, rng, st, im, 4e-4)
-        g_step(state, rng, st, im, 1e-4)
-    expected = chip_smoke.per_step_launches(state)
+    for which in ("d", "g"):
+        if (name, which) not in PLAIN_CALLS:  # this test alone: take the steps now
+            port_step(runs(name), name, which)
+        calls += PLAIN_CALLS[name, which]
+    expected = chip_smoke.per_step_launches(port_init(name))
     assert dict(calls) == {k: v for k, v in expected.items() if k != "dfn_backward"}
