@@ -48,7 +48,20 @@ Phases, each of which exits non-zero on failure:
      checkpoints, last_epoch.txt, metrics.jsonl (finite, the JAX package's
      cascade tags), the sample grids, the launches against the steps run;
      frames/s, the idle share of the traced epoch's steps, checkpoint write
-     seconds.
+     seconds;
+ 11. a procedural Pororo tree of 48 episodes written by the port's writer
+     into a temporary directory under build/, and cascade.yml --data_dir on
+     it through the CLI for 2 epochs of 34 steps: the launches, finite
+     metrics under the cascade tags, the snapshots of epochs 0 and 2; each
+     epoch's frames/s, the median step after the first against phase 6's,
+     the first-batch wait, the loader's host time a batch, the idle share of
+     5 traced steps;
+ 12. --eval_fid 1, --eval_ssim 1 and --load_ckpt 2 through the CLI on that
+     run: a CSV row a snapshot, newest first, finite and tagged random-init;
+     the numbered PNGs; the DFN launches; TF32 off inside the extractors;
+     each backbone on the card against the CPU; seconds a checkpoint by part
+     (generation and PNG writing, PNG reading, Inception, R(2+1)D, the host
+     statistics and Frechet).
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -61,6 +74,7 @@ import collections
 import concurrent.futures
 import contextlib
 import copy
+import csv
 import io
 import itertools
 import json
@@ -71,6 +85,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -90,6 +105,8 @@ ZMC_WIDTH = 613
 LR_D, LR_G = 4e-4, 1e-4  # final.yml's DISCRIMINATOR_LR, GENERATOR_LR (cascade.yml's too)
 TRAIN_CONFIGS = ("final.yml", "cascade.yml")  # phases 6-7, in this order
 CLI_SYNTHETIC = 36  # phase 10's --synthetic: 2 story steps an epoch, one image batch
+DISK_TRACED = (10, 5)  # phase 11: the first of epoch 1's steps under the profiler, and how many
+LOADER_ALONE = 4  # phase 11: batches of each loader timed with nothing else running
 # the cascade G step's own metrics, and every tag the JAX package's trainer
 # logs for cascade.yml (cpcsv_tpu/train/steps.py, trainer.py)
 CASCADE_G_TAGS = ("G/image_vae_loss", "G/video_vae_loss", "G/reconstruct_loss")
@@ -728,7 +745,8 @@ def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespac
           + "; ".join(f"{k[:50]} {v:.1f} us" for k, v in ours.items()) + ")")
     return types.SimpleNamespace(
         name=name, cfg=cfg, state=state, st_batch=st_batch, im_batch=im_batch, d_step=d_step,
-        g_step=g_step, expected=expected, train_counts=train_counts, step_calls=step_calls)
+        g_step=g_step, expected=expected, train_counts=train_counts, step_calls=step_calls,
+        step_ms=med * 1e3, busy_ms=busy)
 
 
 def twin_step(run: types.SimpleNamespace, seed: int) -> None:
@@ -962,6 +980,406 @@ def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int
           + f"; netG_epoch_2.pth {sizes['netG_epoch_2.pth']:.1f} MiB, train_state_last.pth "
           f"{sizes['train_state_last.pth']:.1f} MiB")
     shutil.rmtree(run_root)  # ~2.5 GB of checkpoints
+    return counts
+
+
+def timing(buckets: dict, key: str, fn):
+    """`fn`, adding the host seconds of each call to buckets[key] (a list;
+    appends are safe from the loaders' threads)."""
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            buckets.setdefault(key, []).append(time.perf_counter() - t)
+
+    return timed
+
+
+def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamespace, seed: int,
+                 root: Path) -> tuple[dict[str, int], Path, Path]:
+    """Phase 11: a procedural Pororo tree (the port's writer, 48 episodes)
+    under `root`, then `cascade.yml --data_dir` through the CLI in this
+    process for 2 epochs. Checks the launches against the steps and sample
+    grids run, finite metrics under the JAX package's cascade tags, and the
+    snapshots; prints each epoch's frames/s, its steps' median host time
+    after the first (min, max) against phase 6's, the first-batch wait, the
+    host time a batch spends in the datasets and the collate, and the idle
+    share of 5 traced steps of epoch 1. Returns (launches, run dir, data dir)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpcsv_tpu_torch.cli import main_pororo
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data import loader as loader_module
+    from cpcsv_tpu_torch.data import pororo
+    from cpcsv_tpu_torch.data.procedural import write_procedural_pororo
+    from cpcsv_tpu_torch.train import trainer as trainer_module
+
+    data_dir = root / "pororo"
+    t = time.perf_counter()
+    info = write_procedural_pororo(str(data_dir))
+    print(f"procedural tree [{card}]: {info} written in {time.perf_counter() - t:.2f} s")
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "cascade.yml")
+    cfg = config_from_file(cfg_file)
+    steps_an_epoch = info["train_clips"] // cfg.TRAIN.ST_BATCH_SIZE
+    traced = range(DISK_TRACED[0], DISK_TRACED[0] + DISK_TRACED[1])  # epoch 1's traced steps
+
+    host: dict[str, list] = {}  # host seconds by what ran
+    starts, spans, step_starts = [], [], []  # per epoch: the span's start and length, its steps
+    window = {}
+    real_span, real_steps = trainer_module.record_function, trainer_module.make_train_steps
+
+    @contextlib.contextmanager
+    def timed_span(name):
+        starts.append(time.perf_counter())
+        step_starts.append([])
+        with real_span(name):
+            yield
+        spans.append(time.perf_counter() - starts[-1])
+
+    def timed_steps(cfg):
+        d_step, g_step = real_steps(cfg)
+
+        def d_step_timing(*args):
+            i = len(step_starts[-1])
+            if len(starts) == 2 and i == traced.stop:  # the card drained with the last readback
+                window["host_s"] = time.perf_counter() - window.pop("t")
+                window["prof"].__exit__(None, None, None)
+            step_starts[-1].append(time.perf_counter())
+            if len(starts) == 2 and i == traced.start:
+                window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                window["prof"].__enter__()
+                window["t"] = time.perf_counter()
+            return d_step(*args)
+
+        return d_step_timing, g_step
+
+    def timed_loading(buckets):
+        stack = contextlib.ExitStack()
+        for obj, attr, key in ((pororo.StoryDataset, "__getitem__", "story item"),
+                               (pororo.ImageDataset, "__getitem__", "image item"),
+                               (loader_module, "default_collate", "collate")):
+            stack.enter_context(mock.patch.object(obj, attr, timing(buckets, key,
+                                                                     getattr(obj, attr))))
+        return stack
+
+    # the loaders alone, the card idle: the clip-index cache built, then the
+    # first LOADER_ALONE batches of the story and the image loader in turn
+    alone: dict[str, list] = {}
+    with timed_loading(alone):
+        t = time.perf_counter()
+        image_loader, story_loader, _ = pororo.build_pororo_loaders(
+            cfg.with_updates(DATA_DIR=str(data_dir)), seed)
+        index_s = time.perf_counter() - t
+        walls = {}
+        for name, loader in (("story", story_loader), ("image", image_loader)):
+            loader.set_epoch(0)
+            n = min(LOADER_ALONE, len(loader))
+            t = time.perf_counter()
+            for _ in itertools.islice(loader, n):
+                pass
+            walls[name] = (time.perf_counter() - t) / n
+    print(f"loaders alone [{card}]: clip index and cache {index_s:.2f} s; a story batch "
+          f"{walls['story'] * 1e3:.2f} ms, an image batch {walls['image'] * 1e3:.2f} ms on the "
+          f"host clock (first {LOADER_ALONE} of each, read ahead by a thread); host time an item "
+          f"{np.mean(alone['story item']) * 1e3:.2f} ms a story, "
+          f"{np.mean(alone['image item']) * 1e3:.2f} ms an image, a collate "
+          f"{np.mean(alone['collate']) * 1e3:.2f} ms")
+
+    run_root = root / "run"
+    run_root.mkdir()
+    printed = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(run_root)
+    try:
+        with mock.patch.object(trainer_module, "record_function", timed_span), \
+                mock.patch.object(trainer_module, "make_train_steps", timed_steps), \
+                timed_loading(host), contextlib.redirect_stdout(printed):
+            reset_counts()  # the main path: the CLI only
+            t = time.perf_counter()
+            main_pororo.main(["--cfg", cfg_file, "--data_dir", str(data_dir), "--max_epoch", "2",
+                              "--manualSeed", str(seed)])
+            run_s = time.perf_counter() - t
+            counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    lines = [line for line in printed.getvalue().splitlines() if line.startswith("----[")]
+    print(f"CLI output [{card}]:\n  " + "\n  ".join(lines))
+    run_dir = run_root / "output" / "torch" / cfg.CONFIG_NAME
+
+    model = run_dir / "Model"
+    for f in ("netG_epoch_0.pth", "netG_epoch_2.pth", "train_state_last.pth",
+              "netD_im_epoch_last.pth", "netD_st_epoch_last.pth", "netD_se_epoch_last.pth"):
+        check((model / f).is_file(), f"the --data_dir run wrote no {model / f}")
+    check(not (model / "netG_epoch_1.pth").exists(),
+          "a snapshot of epoch 1, which SNAPSHOT_INTERVAL 10 does not take")
+    check((model / "last_epoch.txt").read_text().strip() == "1",
+          f"last_epoch.txt holds {(model / 'last_epoch.txt').read_text()!r}, expected 1")
+    check(all((data_dir / c).is_file() for c in ("img_cache4.npy", "following_cache4.npy")),
+          "the loaders wrote no clip-index cache")
+    records = [json.loads(line) for line in (run_dir / "log" / "metrics.jsonl").open()]
+    tags = {r["tag"] for r in records}
+    check(all(np.isfinite(r["value"]) for r in records), "metrics.jsonl holds a non-finite value")
+    check(tags == set(CASCADE_TAGS), f"metrics.jsonl tags {sorted(tags)} differ from the JAX "
+          f"package's cascade set: missing {set(CASCADE_TAGS) - tags}, extra {tags - set(CASCADE_TAGS)}")
+    steps = 2 * steps_an_epoch
+    expected = {k: v * steps for k, v in per_step.items()}
+    expected["dfn_forward"] += 2
+    check(counts == expected, f"--data_dir run: launches {counts}, expected {expected} for "
+                              f"{steps} steps and 2 sample grids")
+    print(f"--data_dir run: {steps} D+G steps ({steps_an_epoch} an epoch) and 2 sample grids "
+          f"launched {counts} = {per_step} a step, plus one dfn_forward a grid")
+
+    fps = {r["step"]: r["value"] for r in records if r["tag"] == "perf/frames_per_sec"}
+    epoch_s = {r["step"]: r["value"] for r in records if r["tag"] == "perf/epoch_seconds"}
+    check(len(spans) == 2 and all(len(s) == steps_an_epoch for s in step_starts),
+          f"{len(spans)} epochs with {[len(s) for s in step_starts]} steps timed")
+    frames_per_step = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
+    for epoch in (0, 1):
+        marks = step_starts[epoch] + [starts[epoch] + spans[epoch]]
+        steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        later = sorted(steps_ms[1:])
+        med = later[len(later) // 2]
+        wait = (step_starts[epoch][0] - starts[epoch]) * 1e3
+        print(f"--data_dir epoch {epoch} [{card}]: {fps[epoch]:.1f} frames/s "
+              f"(perf/frames_per_sec), {epoch_s[epoch]:.2f} s; its {steps_an_epoch} steps "
+              f"{spans[epoch] * 1e3:.2f} ms on the host clock ({steps_an_epoch * frames_per_step / spans[epoch]:.1f} "
+              f"frames/s); first-batch wait {wait:.2f} ms; first step {steps_ms[0]:.2f} ms; "
+              f"steps after the first {med:.2f} ms median (min {later[0]:.2f}, max {later[-1]:.2f})"
+              + (f", {len(traced)} of them traced" if epoch == 1 else "")
+              + f"; phase 6 cascade step {phase6.step_ms:.2f} ms with batches on the card")
+    items = {k: len(v) for k, v in host.items()}
+    batches = len(host["collate"])
+    print(f"loader host time [{card}] (background threads, beside the steps): story batch "
+          f"{sum(host['story item']) / (items['story item'] / cfg.TRAIN.ST_BATCH_SIZE) * 1e3:.2f} "
+          f"ms in StoryDataset "
+          f"({cfg.TRAIN.ST_BATCH_SIZE} stories of {cfg.VIDEO_LEN} PNG frames), image batch "
+          f"{sum(host['image item']) / (items['image item'] / cfg.TRAIN.IM_BATCH_SIZE) * 1e3:.2f} ms in "
+          f"ImageDataset ({cfg.TRAIN.IM_BATCH_SIZE} frames and masks), collate "
+          f"{sum(host['collate']) / batches * 1e3:.2f} ms a batch over {batches} batches; items "
+          f"read {items}; host time an item {np.mean(host['story item']) * 1e3:.2f} ms a story, "
+          f"{np.mean(host['image item']) * 1e3:.2f} ms an image")
+    dev = device_events(window["prof"].events())
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    check(busy > 0, "the trace of epoch 1's steps holds no device work")
+    n = len(traced)
+    print(f"--data_dir epoch 1, steps {traced.start}-{traced.stop - 1} under torch.profiler "
+          f"[{card}]: {window['host_s'] * 1e3 / n:.2f} ms a step on the host clock, device busy "
+          f"{busy / n:.2f} ms a step in {len(dev) / n:.0f} ops: idle share "
+          f"{1 - busy / (window['host_s'] * 1e3):.3f}; against phase 6's busy "
+          f"{phase6.busy_ms:.2f} ms a step, the untraced steps' idle share "
+          f"{1 - phase6.busy_ms / med:.3f} (epoch 1's median)")
+    print(f"--data_dir run [{card}]: {run_s:.2f} s in all, state init, cache build and "
+          "checkpoints included")
+    return counts, run_dir, data_dir
+
+
+class TimedExtractor:
+    """An extractor whose calls add their host seconds to host[key] and
+    their frames to host[key + " frames"] (the call returns numpy, so the
+    card has finished)."""
+
+    def __init__(self, ex, key: str, host: dict):
+        self.ex, self.key, self.host = ex, key, host
+        self.random_init, self.fingerprint = ex.random_init, ex.fingerprint
+
+    def __call__(self, x):
+        import numpy as np
+
+        t = time.perf_counter()
+        out = self.ex(x)
+        self.host.setdefault(self.key, []).append(time.perf_counter() - t)
+        self.host.setdefault(f"{self.key} frames", []).append(int(np.prod(np.shape(x)[:-3])))
+        return out
+
+
+def timed_extractor(make, key: str, host: dict, inside: set, built: dict):
+    """`make` (a make_*_extractor), its extractor timed, kept in built[key],
+    and the TF32 flags its backbone sees added to `inside`."""
+    import torch
+
+    def build(path, device):
+        ex = make(path, device)
+        ex.net.register_forward_pre_hook(lambda *_: inside.add(
+            (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+        built[key] = ex
+        return TimedExtractor(ex, key, host)
+
+    return build
+
+
+def calibrated_copy(net, x, seed: int):
+    """A CPU copy of a random-init backbone with BN statistics from one
+    train-mode pass over `x` (N, C, ...) and affines drawn away from identity,
+    in eval mode: its features depend on the input."""
+    import torch
+
+    net = copy.deepcopy(net).cpu()
+    gen = torch.Generator().manual_seed(seed)
+    bns = [m for m in net.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    with torch.no_grad():
+        for m in bns:
+            m.momentum = None  # the running statistics become the pass's
+            m.weight.uniform_(0.8, 1.2, generator=gen)
+            m.bias.normal_(0.0, 0.05, generator=gen)
+        net.train()(x)
+    for m in bns:
+        m.momentum = 0.1
+    return net.eval()
+
+
+def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]:
+    """Phase 12: --eval_fid 1, --eval_ssim 1 and --load_ckpt 2 through the
+    CLI on phase 11's run. Checks one CSV row a snapshot, newest first,
+    finite, with the random-init tags; the numbered PNGs; the DFN launches of
+    the generations; TF32 off inside the extractors; each backbone's forward
+    on the card against the same weights on the CPU. Prints each
+    checkpoint's seconds by part (generation and PNG writing, PNG reading,
+    each backbone, the host statistics and Frechet) and the backbones'
+    frames/s. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.cli import main_pororo
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.evaluation import datasets, drivers, features, fid, fsd
+    from cpcsv_tpu_torch.evaluation.weights import RandomInitMetricWarning
+
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "cascade.yml")
+    cfg = config_from_file(cfg_file)
+    args = ["--cfg", cfg_file, "--data_dir", str(data_dir), "--manualSeed", str(seed)]
+    epochs = [2, 0]  # phase 11's snapshots, newest first
+    test_stories = (len(np.load(data_dir / "train_test_ids.npy", allow_pickle=True)[1])
+                    // cfg.TRAIN.ST_BATCH_SIZE * cfg.TRAIN.ST_BATCH_SIZE)
+    host: dict[str, list] = {}
+    extractors, inside = {}, set()
+
+    patches = [
+        mock.patch.object(drivers.Infer, "generate_story",
+                          timing(host, "generation and PNG writing", drivers.Infer.generate_story)),
+        mock.patch.object(datasets.FolderImageDataset, "__getitem__", timing(
+            host, "PNG reading", datasets.FolderImageDataset.__getitem__)),
+        mock.patch.object(datasets.FolderStoryDataset, "__getitem__", timing(
+            host, "PNG reading", datasets.FolderStoryDataset.__getitem__)),
+        mock.patch.object(features, "calculate_activation_statistics", timing(
+            host, "statistics", features.calculate_activation_statistics)),
+        mock.patch.object(fid, "calculate_frechet_distance", timing(
+            host, "Frechet", fid.calculate_frechet_distance)),
+        mock.patch.object(fsd, "calculate_frechet_distance", timing(
+            host, "Frechet", fsd.calculate_frechet_distance)),
+    ]
+    printed = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(run_dir.parent.parent.parent)  # the CLI reads ./output/torch/<config>
+    try:
+        with contextlib.ExitStack() as stack, contextlib.redirect_stdout(printed), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for p in patches:
+                stack.enter_context(p)
+            for name, key in (("make_inception_extractor", "Inception"),
+                              ("make_fsd_extractor", "R(2+1)D")):
+                stack.enter_context(mock.patch.object(drivers, name, timed_extractor(
+                    getattr(drivers, name), key, host, inside, extractors)))
+            reset_counts()  # the main path: the CLI's walks only
+            t = time.perf_counter()
+            fid_rows = main_pororo.main(args + ["--eval_fid", "1"])
+            fid_s = time.perf_counter() - t
+            fid_host = {k: list(v) for k, v in host.items()}
+            t = time.perf_counter()
+            ssim_rows = main_pororo.main(args + ["--eval_ssim", "1"])
+            ssim_s = time.perf_counter() - t
+            t = time.perf_counter()
+            main_pororo.main(args + ["--load_ckpt", "2"])
+            dump_s = time.perf_counter() - t
+            counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    eval_dir = run_dir / "Evaluation" / cfg.CONFIG_NAME
+    with open(eval_dir / "fid_score2.csv") as f:
+        fid_csv = [[float(v) for v in row] for row in csv.reader(f)]
+    with open(eval_dir / "ssim_score.csv") as f:
+        ssim_csv = [[float(v) for v in row] for row in csv.reader(f)]
+    check([r["epoch"] for r in fid_rows] == epochs and [r[0] for r in fid_csv] == epochs,
+          f"--eval_fid rows {fid_rows}, CSV {fid_csv}: expected epochs {epochs}, newest first")
+    check(all(np.isfinite([r["fid"], r["vfid"]]).all() and r["fid_random_init"]
+              and r["fsd_random_init"] for r in fid_rows),
+          f"--eval_fid rows {fid_rows}: expected finite values tagged random-init")
+    check(fid_csv == [[r["epoch"], r["fid"], r["vfid"]] for r in fid_rows],
+          f"fid_score2.csv {fid_csv} differs from the rows {fid_rows}")
+    check(printed.getvalue().count("[RANDOM-INIT extractors!]") == len(epochs),
+          "the --eval_fid lines lack the random-init tag")
+    check(sum(issubclass(w.category, RandomInitMetricWarning) for w in caught) == 2,
+          f"{len(caught)} warnings in the walks, expected one RandomInitMetricWarning a backbone")
+    check([r["epoch"] for r in ssim_rows] == epochs and [r[0] for r in ssim_csv] == epochs
+          and all(np.isfinite(r["ssim"]) for r in ssim_rows),
+          f"--eval_ssim rows {ssim_rows}, CSV {ssim_csv}")
+    pngs = {d: len([f for f in os.listdir(run_dir / "Evaluation" / d) if f.endswith(".png")])
+            for d in ("samples", "ref")}
+    check(pngs == {"samples": test_stories * cfg.VIDEO_LEN, "ref": test_stories * cfg.VIDEO_LEN},
+          f"--load_ckpt 2 wrote {pngs} numbered PNGs, expected {test_stories} test stories x "
+          f"{cfg.VIDEO_LEN}")
+    # a generate_story per checkpoint and the dump: one DFN forward a story
+    # batch; SSIM: one a chunk of 64 stories; eval BN, no gradients
+    batches = test_stories // cfg.TRAIN.ST_BATCH_SIZE
+    expected = {"dfn_forward": 2 * batches + 2 * -(-test_stories // 64) + batches,
+                "dfn_backward": 0, "bn_stats": 0, "bn_grad_reduce": 0}
+    check(counts == expected, f"walks: launches {counts}, expected {expected}")
+    check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32,
+          f"TF32 flags (cudnn, matmul) inside the extractors {inside}")
+    print(f"walks: launches {counts}; TF32 flags (cudnn, matmul) inside the extractors "
+          f"{sorted(inside)}")
+    for r in fid_rows:
+        print(f"--eval_fid [{card}]: epoch {r['epoch']} fid {r['fid']!r} fsd {r['vfid']!r} "
+              f"(random-init extractors: fid {r['fid_random_init']}, fsd {r['fsd_random_init']})")
+    for r in ssim_rows:
+        print(f"--eval_ssim [{card}]: epoch {r['epoch']} ssim {r['ssim']!r}")
+    n = len(epochs)
+    parts = ("generation and PNG writing", "PNG reading", "Inception", "R(2+1)D", "statistics",
+             "Frechet")
+    print(f"--eval_fid walk [{card}]: {fid_s:.2f} s for {n} checkpoints of {test_stories} "
+          f"stories, the backbones' construction included; a checkpoint: "
+          + ", ".join(f"{k} {sum(fid_host.get(k, [])) / n:.2f} s" for k in parts)
+          + f"; the rest {(fid_s - sum(sum(fid_host.get(k, [])) for k in parts)) / n:.2f} s")
+    for key in ("Inception", "R(2+1)D"):
+        frames = sum(fid_host[f"{key} frames"])
+        print(f"  {key} [{card}]: {frames} frames in {sum(fid_host[key]):.2f} s, "
+              f"{frames / sum(fid_host[key]):.1f} frames/s (host clock around the calls, "
+              "host-to-card copies included)")
+    print(f"--eval_ssim walk [{card}]: {ssim_s:.2f} s, {ssim_s / n:.2f} s a checkpoint of "
+          f"{test_stories} stories; --load_ckpt 2: {dump_s:.2f} s for "
+          f"{2 * test_stories * cfg.VIDEO_LEN} PNGs")
+
+    # each backbone on the card against the same weights on the CPU, its BN
+    # calibrated first (calibrated_copy): a random-init backbone's features
+    # barely depend on the input, so the raw features could agree while the
+    # part that carries the input did not. Both the raw features and the
+    # features less their mean over the 4 inputs are held at 1e-3.
+    gen = np.random.default_rng(seed)
+    for key, shape in (("Inception", (4, 64, 64, 3)),
+                       ("R(2+1)D", (4, cfg.VIDEO_LEN, 64, 64, 3))):
+        low = 0.0 if key == "Inception" else -1.0  # [0, 1] images, [-1, 1] stories
+        calib, x = (torch.from_numpy(gen.uniform(low, 1, shape).astype(np.float32)).movedim(-1, 1)
+                    for _ in range(2))
+        cpu_net = calibrated_copy(extractors[key].net, calib, seed)
+        card_net = copy.deepcopy(cpu_net).cuda()
+        with torch.no_grad(), float32_math():
+            card_out = card_net(x.cuda()).cpu().numpy()
+            cpu_out = cpu_net(x).numpy()
+        errs = {}
+        for part, a, b in (("raw", card_out, cpu_out),
+                           ("centred", card_out - card_out.mean(0), cpu_out - cpu_out.mean(0))):
+            errs[part] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        share = float(np.linalg.norm(cpu_out - cpu_out.mean(0)) / np.linalg.norm(cpu_out))
+        check(max(errs.values()) <= 1e-3 and share > 5e-2,
+              f"{key} on the card against the CPU: relative L2 {errs} (tol 1e-3), the "
+              f"input-dependent share of the features {share:.3e} (expected > 5e-2)")
+        print(f"{key} forward, BN calibrated, card against CPU, 4 inputs, float32: relative "
+              f"L2 {errs['raw']:.3e} raw, {errs['centred']:.3e} less the mean over the inputs "
+              f"(tol 1e-3); the centred features are {share:.3e} of the raw ones")
     return counts
 
 
@@ -1230,7 +1648,8 @@ def main() -> int:
         twin_step(run, args.seed)
         # keep what phases 8-10 read; free the state before the next config
         runs[name] = types.SimpleNamespace(expected=run.expected, step_calls=run.step_calls,
-                                           train_counts=run.train_counts)
+                                           train_counts=run.train_counts, step_ms=run.step_ms,
+                                           busy_ms=run.busy_ms)
         del run
         torch.cuda.empty_cache()
     bn_shapes = set().union(*(set(r.step_calls["bn_stats"]) | set(r.step_calls["bn_grad_reduce"])
@@ -1395,8 +1814,21 @@ def main() -> int:
     for name in ("bn_stats", "bn_grad_reduce", "dfn_backward"):
         kernels[name]["launches"] = train_counts[name] + cli_counts[name]
     kernels["dfn_forward"]["launches"] += train_counts["dfn_forward"] + cli_counts["dfn_forward"]
+
+    # -------------------------- 11-12. from disk, then the checkpoint walks
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_", dir=build_dir) as tmp:
+        phase("11. cascade.yml from a procedural Pororo tree on disk through the CLI, 2 epochs")
+        disk_counts, run_dir, data_dir = disk_trainer(card, runs["cascade.yml"].expected,
+                                                      runs["cascade.yml"], args.seed, Path(tmp))
+        phase("12. the checkpoint walks: --eval_fid, --eval_ssim, --load_ckpt")
+        walk_counts = walks(card, run_dir, data_dir, args.seed)
+    for name in kernels:
+        kernels[name]["launches"] += disk_counts[name] + walk_counts[name]
     print(f"launches on the main paths: serving {launches} dfn_forward; the steps of "
-          f"{', '.join(runs)} {train_counts}; the CLI {cli_counts}")
+          f"{', '.join(runs)} {train_counts}; the CLI {cli_counts}; from disk {disk_counts}; "
+          f"the walks {walk_counts}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -3,13 +3,14 @@ for (counterpart of `cpcsv_tpu/cli/dispatch.py`; reference
 `main_pororo.py:152-171`).
 
 The ladder keeps the reference's order, eval flags before --load_ckpt before
-training. The port trains; the evaluation walks and --load_ckpt inference
-raise until the evaluation slice brings them.
+training. --eval_fvd and --eval_is raise until the next evaluation slice
+brings FVD and the Inception Score.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def _str2bool(v: str) -> bool:
@@ -51,12 +52,22 @@ def add_device_flag(parser):
 
 
 def dispatch(cfg, args, output_dir, imageloader, storyloader, testloader):
-    if (args.eval_fid or args.eval_fvd or args.eval_is or args.eval_ssim
-            or args.load_ckpt is not None):
+    """The reference's ladder: an evaluation walk, else --load_ckpt's sample
+    dump, else training; the walks run on args.device as training does."""
+    if not args.eval_fid and (args.eval_fvd or args.eval_is):
         raise NotImplementedError(
-            "--eval_fid / --eval_fvd / --eval_is / --eval_ssim / --load_ckpt: the evaluation "
-            "walks and checkpoint inference come with the evaluation slice; the port's CLI "
-            "trains")
+            "--eval_fvd / --eval_is: FVD (I3D) and the Inception Score come with the next "
+            "evaluation slice; the port walks --eval_fid and --eval_ssim")
+    if args.eval_fid or args.eval_ssim or args.load_ckpt is not None:
+        from cpcsv_tpu_torch.evaluation.drivers import Infer
+
+        if args.eval_fid or args.eval_ssim:
+            infer = Infer(cfg, output_dir=output_dir, device=args.device)
+            walk = infer.eval_fid2 if args.eval_fid else infer.eval_ssim_walk
+            return walk(testloader)
+        infer = Infer(cfg, output_dir=output_dir, device=args.device, load_ckpt=args.load_ckpt)
+        return infer.inference_samples(
+            testloader, os.path.join(output_dir, "Evaluation", "samples"))
     from cpcsv_tpu_torch.train.trainer import GANTrainer
 
     trainer = GANTrainer(cfg, output_dir, cfg_file=args.cfg_file,

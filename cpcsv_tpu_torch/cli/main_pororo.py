@@ -2,16 +2,18 @@
 (`cpcsv_tpu/cli/main_pororo.py`, itself the reference's `main_pororo.py:29-43`)
 plus --device:
 
-  python -m cpcsv_tpu_torch.cli.main_pororo --cfg CFG.yml --synthetic N
+  python -m cpcsv_tpu_torch.cli.main_pororo --cfg CFG.yml
+      (--data_dir DIR | --synthetic N)
       [--max_epoch E] [--continue_ckpt auto|E] [--debug] [--manualSeed S]
-      [--device cuda|cpu]
+      [--eval_fid 1 | --eval_ssim 1 | --load_ckpt E] [--device cuda|cpu]
 
-`--synthetic N` trains on the in-memory synthetic datasets, built as the JAX
-package builds them. The Pororo dataset on disk (--data_dir, DATA_DIR) is
-not read yet: without --synthetic the CLI raises. Runs go under
+--data_dir (or the config's DATA_DIR) reads a Pororo-protocol dataset from
+disk (`data/pororo.py`; `python -m cpcsv_tpu_torch.data.procedural DIR`
+writes one); `--synthetic N` trains on the in-memory synthetic datasets
+instead, built as the JAX package builds them. Runs go under
 ./output/torch/{CONFIG_NAME} (./output/torch/debug with --debug), apart from
 the JAX package's ./output/..., so that the two never share a
-last_epoch.txt.
+last_epoch.txt; the evaluation flags walk the snapshots of that directory.
 """
 
 from __future__ import annotations
@@ -83,11 +85,16 @@ def main(argv=None):
 
     output_dir = os.path.join(".", "output", "torch",
                               "debug" if args.debug else cfg.CONFIG_NAME)
-    if not args.synthetic:
-        raise NotImplementedError(
-            "the Pororo dataset loader (--data_dir, DATA_DIR) is not ported yet: it waits "
-            "until the dataset is in the repository; pass --synthetic N")
-    loaders = synthetic_loaders(cfg, args.synthetic, args.manualSeed)
+    if args.synthetic:
+        loaders = synthetic_loaders(cfg, args.synthetic, args.manualSeed)
+    elif cfg.DATA_DIR:
+        from cpcsv_tpu_torch.data.pororo import build_pororo_loaders
+
+        loaders = build_pororo_loaders(cfg, args.manualSeed)
+    else:
+        raise ValueError(
+            "no data: pass --data_dir DIR (or set DATA_DIR in the config) for the Pororo "
+            "dataset loader, or --synthetic N for synthetic data")
     return dispatch(cfg, args, output_dir, *loaders)
 
 

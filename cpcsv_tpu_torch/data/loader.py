@@ -58,10 +58,14 @@ class DataLoader:
         self._rng = np.random.default_rng(seed)
 
     def set_epoch(self, epoch: int) -> None:
-        """The shuffle stream from (seed, epoch), as torch's
+        """The shuffle stream, and the dataset's per-item draws where it has
+        them (`data/pororo.py:_SeededDraws`), from (seed, epoch), as torch's
         DistributedSampler.set_epoch: a resumed run's epoch E sees the data
-        order of an uninterrupted run's."""
+        of an uninterrupted run's."""
         self._rng = np.random.default_rng([self._seed, epoch])
+        draws = getattr(self.dataset, "_draws", None)
+        if draws is not None:
+            draws.reseed(epoch)
 
     def __len__(self) -> int:
         n = len(self.dataset)

@@ -1,24 +1,55 @@
-"""Serving driver (counterpart of the sampling part of
-`cpcsv_tpu/evaluation/drivers.py`; reference `inference.py:32-199`).
+"""Inference and evaluation drivers (counterpart of
+`cpcsv_tpu/evaluation/drivers.py`; reference `inference.py:32-230`), with
+the reference's file protocol:
 
-`Infer` holds an eval-mode generator on one device and turns story batches
-into frames: `sample_videos_np` returns numpy videos (B, T, 64, 64, 3) in
-[-1, 1], and `generate_story` writes the reference's folder trees
-Evaluation/{name}/{original,generate}/{story}/{t}.png.
+  * `generate_story`: Evaluation/{name}/{dirname}/{original,generate}/{i}/{t}.png
+    (inference.py:147-199);
+  * `inference_samples`: numbered PNGs {1..N}.png of the generated frames,
+    and of the real ones under <run>/Evaluation/ref (miscc/utils.py:402-428);
+  * `eval_fid2`: the run's generator snapshots, newest first, each
+    regenerating the test stories and appending "epoch,fid,fsd" to
+    Evaluation/{name}/fid_score2.csv (inference.py:201-230);
+  * `eval_ssim_walk`: the same walk, appending "epoch,ssim" to
+    Evaluation/{name}/ssim_score.csv.
+
+`Infer` holds an eval-mode generator on one device. It takes the weights
+either as a `state_dict` (a `netG_epoch_E.pth`, or JAX variables converted
+by `utils.weights.generator_state_dict_from_jax`) or from the run directory
+`output_dir` (`load_ckpt=E`, `load_epoch(E)`, and the walks). Noise comes
+from one `torch.Generator` on the device, seeded with `seed`.
+
+One process runs a walk: the JAX package's multi-host barrier around the
+walks (`@_centralized`) comes with the DDP slice, and the port never wrote
+the JAX package's legacy params-only snapshots, so it does not read them.
+FVD and the Inception Score come with the next evaluation slice.
 """
 
 from __future__ import annotations
 
+import csv
+import functools
 import os
 import shutil
+from typing import Optional
 
 import numpy as np
 import torch
 
 from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.device import float32_math, resolve_device
+from cpcsv_tpu_torch.evaluation.datasets import (
+    FolderImageDataset,
+    FolderStoryDataset,
+    StoryGANSSIMDataset,
+)
+from cpcsv_tpu_torch.evaluation.fid import fid_score
+from cpcsv_tpu_torch.evaluation.fsd import fsd_score
+from cpcsv_tpu_torch.evaluation.inception import make_inception_extractor
+from cpcsv_tpu_torch.evaluation.r2plus1d import make_fsd_extractor
+from cpcsv_tpu_torch.evaluation.ssim import ssim_score
 from cpcsv_tpu_torch.models.factory import generator_from_config
-from cpcsv_tpu_torch.utils.image import save_png
+from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+from cpcsv_tpu_torch.utils.image import save_all_img, save_png
 
 
 def _batch_motion_content(cfg: Config, batch):
@@ -29,37 +60,69 @@ def _batch_motion_content(cfg: Config, batch):
     return np.concatenate([desc, labels], axis=2), desc
 
 
-class Infer:
-    """Eval-mode story generation on one device.
+def _append_row(path: str, row: list) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "a", newline="") as f:
+        csv.writer(f).writerow(row)
 
-    `state_dict` is the generator's, in the reference torch layout (a
-    `netG_epoch_E.pth`, or JAX variables converted by
-    `utils.weights.generator_state_dict_from_jax`); it is loaded strictly.
-    Noise comes from a `torch.Generator` on the device, seeded with `seed`.
-    """
+
+class Infer:
+    """Eval-mode story generation and the checkpoint walks on one device."""
 
     def __init__(
         self,
         cfg: Config,
-        state_dict: dict[str, torch.Tensor],
+        state_dict: Optional[dict[str, torch.Tensor]] = None,
         device: str | torch.device = "cuda",
         output_dir: str = "output",
         seed: int = 0,
+        load_ckpt: Optional[int] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.output_dir = output_dir
+        self.model_dir = os.path.join(output_dir, "Model")
         self.eval_dir = os.path.join(output_dir, "Evaluation", cfg.CONFIG_NAME or "eval")
         self.net_g = generator_from_config(cfg)
-        self.net_g.load_state_dict(state_dict, strict=True)
+        self.loaded = state_dict is not None
+        if self.loaded:
+            self.net_g.load_state_dict(state_dict, strict=True)
         self.net_g.to(self.device).eval().requires_grad_(False)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        if load_ckpt is not None:
+            self.load_epoch(int(load_ckpt))
+
+    @functools.cached_property
+    def ckpt(self) -> CheckpointManager:
+        return CheckpointManager(self.model_dir)
+
+    def load_epoch(self, epoch: int) -> None:
+        """The generator of the run's netG_epoch_{epoch}.pth, its BN statistics
+        included (reference inference.py:82-89). A missing snapshot raises
+        FileNotFoundError naming the run's Model directory: scores of an
+        untrained generator must never pass for a checkpoint's."""
+        self.net_g.load_state_dict(self.ckpt.restore_generator(epoch), strict=True)
+        self.loaded = True
+
+    def _epochs(self, walk: str, epochs: Optional[list[int]]) -> list[int]:
+        """The epochs a walk covers: `epochs`, or every snapshot newest first."""
+        epochs = epochs or sorted(self.ckpt.available_generator_epochs(), reverse=True)
+        if not epochs:
+            raise FileNotFoundError(
+                f"{walk}: no generator checkpoints under {self.model_dir}: wrong output "
+                "directory, or training never saved a snapshot")
+        return epochs
 
     @torch.no_grad()
     def sample_videos_np(self, batch, seg: bool = False):
         """Story batch -> (video (B, T, 64, 64, 3), mask (B*T, 64, 64, 1) or
         None), numpy float32, computed in float32 whatever the global TF32
         flags say."""
+        if not self.loaded:
+            raise RuntimeError(
+                "no generator weights: pass a state_dict, or load_ckpt=E or load_epoch(E) "
+                f"for a snapshot of {self.model_dir}")
         motion, content = _batch_motion_content(self.cfg, batch)
         with float32_math():
             out = self.net_g.sample_videos(
@@ -71,6 +134,7 @@ class Infer:
         mask = out.seg.cpu().numpy() if out.seg is not None else None
         return out.image.cpu().numpy(), mask
 
+    # ------------------------------------------------------------------ dumps
     def generate_story(self, storyloader, dirname: str = ""):
         """original/ and generate/ folder trees (reference inference.py:147-199).
         Both trees are cleared first, so a smaller walk leaves no stale stories."""
@@ -91,3 +155,86 @@ class Infer:
                         save_png(frames[b, t], os.path.join(d, f"{t}.png"))
                 story_id += 1
         return orig_dir, gen_dir
+
+    def inference_samples(self, storyloader, save_path: str):
+        """The --load_ckpt dump (reference miscc/utils.py:402): the generated
+        frames as numbered PNGs in `save_path`, the real ones in
+        <run>/Evaluation/ref. Both directories are cleared of PNGs first: a
+        larger earlier dump would otherwise mix two models' frames."""
+        ref_dir = os.path.join(self.output_dir, "Evaluation", "ref")
+        for d in (save_path, ref_dir):
+            if os.path.isdir(d):
+                for f in os.listdir(d):
+                    if f.endswith(".png"):
+                        os.remove(os.path.join(d, f))
+        cnt_gen = cnt_ref = 0
+        for batch in storyloader:
+            fake, _ = self.sample_videos_np(batch)
+            cnt_gen = save_all_img(fake, cnt_gen, save_path)
+            cnt_ref = save_all_img(np.asarray(batch["images"], np.float32), cnt_ref, ref_dir)
+        return save_path, ref_dir
+
+    # ------------------------------------------------------------------ walks
+    def eval_fid2(self, testloader, epochs: Optional[list[int]] = None, batch_size: int = 50):
+        """FID and FSD of each snapshot, newest first (reference
+        inference.py:201-230): the test stories regenerated into
+        epoch_{E}/{original,generate}, read back, scored, and appended to
+        fid_score2.csv. The extractors are built once a walk, from the weights
+        files of the search directories (`weights.resolve_weights`); every row
+        says whether they ran from random init."""
+        cfg = self.cfg
+        epochs = self._epochs("eval_fid2", epochs)
+        csv_path = os.path.join(self.eval_dir, "fid_score2.csv")
+        fid_ex = make_inception_extractor(None, self.device)
+        fsd_ex = make_fsd_extractor(None, self.device)
+        results = []
+        for epoch in epochs:
+            self.load_epoch(epoch)
+            orig_dir, gen_dir = self.generate_story(testloader, f"epoch_{epoch}")
+            stories = len(os.listdir(orig_dir))
+            fsd = fsd_score(
+                FolderStoryDataset(orig_dir, cfg.VIDEO_LEN, cfg.IMSIZE),
+                FolderStoryDataset(gen_dir, cfg.VIDEO_LEN, cfg.IMSIZE),
+                batch_size=min(batch_size, stories), extractor=fsd_ex)
+            fid = fid_score(
+                FolderImageDataset(orig_dir, cfg.IMSIZE), FolderImageDataset(gen_dir, cfg.IMSIZE),
+                batch_size=min(batch_size, stories * cfg.VIDEO_LEN), normalize=True,
+                extractor=fid_ex)
+            _append_row(csv_path, [epoch, fid, fsd])
+            results.append({"epoch": epoch, "fid": fid, "vfid": fsd,
+                            "fid_random_init": fid_ex.random_init,
+                            "fsd_random_init": fsd_ex.random_init})
+            tag = (" [RANDOM-INIT extractors!]"
+                   if fid_ex.random_init or fsd_ex.random_init else "")
+            print(f"epoch {epoch}: fid={fid:.3f} vfid/fsd={fsd:.3f}{tag}")
+        return results
+
+    def eval_fid(self, testloader, epochs: Optional[list[int]] = None, batch_size: int = 50):
+        """The reference's name for the same walk (inference.py:114-126)."""
+        return self.eval_fid2(testloader, epochs=epochs, batch_size=batch_size)
+
+    def eval_ssim(self, testdataset, n: Optional[int] = None) -> float:
+        """Mean SSIM of the loaded generator's stories against the real ones
+        they were generated from, over the first `n` items (default all)."""
+        if not self.loaded:
+            raise RuntimeError(f"eval_ssim: no generator loaded (snapshots in {self.model_dir})")
+        ds = StoryGANSSIMDataset(self.net_g, testdataset, self.generator,
+                                 text_dim=self.cfg.TEXT.DIMENSION)
+        n = n or len(ds)
+        return ssim_score((ds[i] for i in range(n)), device=self.device)
+
+    def eval_ssim_walk(self, testloader, epochs: Optional[list[int]] = None,
+                       n: Optional[int] = None):
+        """SSIM of each snapshot, newest first, appended to ssim_score.csv.
+        The reference ships the SSIM scorer (ssim_score.py:13-28) and wires
+        no walk; this one walks as eval_fid2 does."""
+        epochs = self._epochs("eval_ssim", epochs)
+        csv_path = os.path.join(self.eval_dir, "ssim_score.csv")
+        results = []
+        for epoch in epochs:
+            self.load_epoch(epoch)
+            val = self.eval_ssim(testloader.dataset, n=n)
+            _append_row(csv_path, [epoch, val])
+            results.append({"epoch": epoch, "ssim": val})
+            print(f"epoch {epoch}: ssim={val:.4f}")
+        return results

@@ -77,3 +77,15 @@ def save_png(img_float_hwc: np.ndarray, path: str) -> None:
     if arr.shape[-1] == 1:
         arr = arr[:, :, 0]
     Image.fromarray(arr).save(path)
+
+
+def save_all_img(videos: np.ndarray, count: int, image_dir: str) -> int:
+    """Every frame of (B, T, H, W, C) videos in [-1, 1] as {count}.png,
+    counting on from `count`; returns the last number written (reference
+    save_all_img, miscc/utils.py:303-311, the numbered-PNG protocol)."""
+    os.makedirs(image_dir, exist_ok=True)
+    for b in range(videos.shape[0]):
+        for t in range(videos.shape[1]):
+            count += 1
+            save_png(videos[b, t], os.path.join(image_dir, f"{count}.png"))
+    return count

@@ -9,6 +9,7 @@ the CLI refuses. After the JAX package's `tests/test_e2e_training.py` and
 `tests/test_cli_e2e.py`.
 """
 
+import csv
 import dataclasses
 import json
 import os
@@ -27,10 +28,13 @@ from cpcsv_tpu.utils.port_torch import port_generator_file
 from cpcsv_tpu_torch.cli import main_pororo
 from cpcsv_tpu_torch.cli.main_pororo import synthetic_loaders
 from cpcsv_tpu_torch.config import GanConfig, config_from_file
+from cpcsv_tpu_torch.data.procedural import write_procedural_pororo
+from cpcsv_tpu_torch.evaluation import drivers
 from cpcsv_tpu_torch.train import checkpoint
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.train.trainer import GANTrainer
 from cpcsv_tpu_torch.utils.weights import generator_state_dict_from_jax
+from test_torch_evaluation import StandIn
 from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 # narrower than the parity tests' widths: these tests check the driver, not the maths
@@ -59,16 +63,16 @@ def cfg_file(tmp_path_factory):
     return str(path)
 
 
-def cli(workdir, *argv):
-    """The CLI's main in `workdir` on the CPU: (the trainer's final state,
-    its run directory)."""
+def cli(workdir, *argv, data=("--synthetic", SYNTHETIC)):
+    """The CLI's main in `workdir` on the CPU, on the synthetic data unless
+    `data` says otherwise: (what main returns, the run directory)."""
     here = os.getcwd()
     os.chdir(workdir)
     try:
-        state = main_pororo.main(list(argv) + ["--synthetic", SYNTHETIC, "--device", "cpu"])
+        out = main_pororo.main(list(argv) + list(data) + ["--device", "cpu"])
     finally:
         os.chdir(here)
-    return state, os.path.join(workdir, "output", "torch", "tiny_cascade")
+    return out, os.path.join(workdir, "output", "torch", "tiny_cascade")
 
 
 @pytest.fixture(scope="module")
@@ -236,13 +240,85 @@ def test_jax_package_reads_the_run_snapshot(straight):
             assert torch.equal(ported[key], value), key
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--eval_fid", "1", "--synthetic", "2"], "evaluation slice"),
-    (["--load_ckpt", "3", "--synthetic", "2"], "evaluation slice"),
-    ([], "Pororo dataset loader"),
-])
-def test_cli_refuses_what_the_port_does_not_do(argv, match, cfg_file, tmp_path, monkeypatch):
+@pytest.mark.parametrize("argv,error,match", [
+    (["--eval_fvd", "1", "--synthetic", "2"], NotImplementedError, "next evaluation slice"),
+    (["--eval_is", "1", "--synthetic", "2"], NotImplementedError, "next evaluation slice"),
+    ([], ValueError, "--data_dir DIR .* Pororo dataset loader, or --synthetic N"),
+], ids=["argv0-evaluation slice", "argv1-evaluation slice", "argv2-Pororo dataset loader"])
+def test_cli_refuses_what_the_port_does_not_do(argv, error, match, cfg_file, tmp_path,
+                                               monkeypatch):
+    """FVD and IS wait for the next evaluation slice; without data the CLI
+    names both of its sources."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         main_pororo.main(["--cfg", cfg_file, "--device", "cpu"] + argv)
     assert not (tmp_path / "output").exists()
+
+
+# ------------------------------------------------------------------ from disk
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    """A procedural Pororo tree of 3 episodes of 7 frames written by the
+    port: 9 clips, 5 for training (2 story steps an epoch at ST_BATCH 2, one
+    image batch at 4 that wraps) and 4 for the test loader."""
+    root = str(tmp_path_factory.mktemp("pororo"))
+    write_procedural_pororo(root, n_episodes=3, frames_per_episode=7, test_frac=0.45)
+    return root
+
+
+@pytest.fixture(scope="module")
+def disk_straight(tmp_path_factory, cfg_file, data_dir):
+    """Two epochs straight through the CLI with --data_dir: (run directory,
+    final state)."""
+    state, run_dir = cli(tmp_path_factory.mktemp("disk"), "--cfg", cfg_file,
+                         data=("--data_dir", data_dir))
+    return run_dir, state
+
+
+def test_data_dir_trains_and_resumes_exactly(disk_straight, cfg_file, data_dir, tmp_path):
+    """--data_dir: 2 story steps an epoch, the run's artifacts, and one
+    epoch then --continue_ckpt auto equal to two straight, bitwise (the
+    datasets' crops and description picks come from (seed, epoch))."""
+    run_dir, state = disk_straight
+    assert state.step == 4
+    assert os.path.isfile(os.path.join(data_dir, "img_cache4.npy"))
+    records = metric_records(run_dir)
+    assert {r["tag"] for r in records} == set(chip_smoke.CASCADE_TAGS)
+    assert all(np.isfinite(r["value"]) for r in records)
+    data = ("--data_dir", data_dir)
+    cli(tmp_path, "--cfg", cfg_file, "--max_epoch", "1", data=data)
+    resumed, _ = cli(tmp_path, "--cfg", cfg_file, "--continue_ckpt", "auto", data=data)
+    a, b = tensors(state), tensors(resumed)
+    assert set(a) == set(b)
+    for key in a:
+        assert torch.equal(a[key], b[key]), key
+
+
+def test_walks_through_the_cli(disk_straight, cfg_file, data_dir, monkeypatch, capsys):
+    """--eval_fid 1, --eval_ssim 1 and --load_ckpt 2 on the run: one CSV
+    row a snapshot, newest first, finite and tagged; the numbered PNGs of
+    the test stories. Stand-in extractors keep the Frechet distances small
+    (`tests/test_torch_evaluation.py`)."""
+    run_dir, _ = disk_straight
+    workdir = os.path.dirname(os.path.dirname(os.path.dirname(run_dir)))
+    data = ("--data_dir", data_dir)
+    stand_in = StandIn()
+    monkeypatch.setattr(drivers, "make_inception_extractor", lambda path, device: stand_in)
+    monkeypatch.setattr(drivers, "make_fsd_extractor", lambda path, device: stand_in)
+    rows, _ = cli(workdir, "--cfg", cfg_file, "--eval_fid", "1", data=data)
+    assert [r["epoch"] for r in rows] == [2, 1, 0]
+    assert all(np.isfinite([r["fid"], r["vfid"]]).all() and r["fid_random_init"]
+               and r["fsd_random_init"] for r in rows)
+    assert capsys.readouterr().out.count("[RANDOM-INIT extractors!]") == 3
+    eval_dir = os.path.join(run_dir, "Evaluation", "tiny_cascade")
+    with open(os.path.join(eval_dir, "fid_score2.csv")) as f:
+        assert [float(row[0]) for row in csv.reader(f)] == [2, 1, 0]
+    rows, _ = cli(workdir, "--cfg", cfg_file, "--eval_ssim", "1", data=data)
+    assert [r["epoch"] for r in rows] == [2, 1, 0] and np.isfinite([r["ssim"] for r in rows]).all()
+    with open(os.path.join(eval_dir, "ssim_score.csv")) as f:
+        assert [float(row[1]) for row in csv.reader(f)] == [r["ssim"] for r in rows]
+    (gen_dir, ref_dir), _ = cli(workdir, "--cfg", cfg_file, "--load_ckpt", "2", data=data)
+    assert gen_dir == os.path.join(".", "output", "torch", "tiny_cascade", "Evaluation", "samples")
+    pngs = sorted(f"{i}.png" for i in range(1, 4 * 5 + 1))  # 4 test stories of 5 frames
+    assert sorted(os.listdir(os.path.join(run_dir, "Evaluation", "samples"))) == pngs
+    assert sorted(os.listdir(os.path.join(run_dir, "Evaluation", "ref"))) == pngs
