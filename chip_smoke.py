@@ -61,7 +61,21 @@ Phases, each of which exits non-zero on failure:
      the numbered PNGs; the DFN launches; TF32 off inside the extractors;
      each backbone on the card against the CPU; seconds a checkpoint by part
      (generation and PNG writing, PNG reading, Inception, R(2+1)D, the host
-     statistics and Frechet).
+     statistics and Frechet);
+ 13. --eval_fvd 1 twice and --eval_is 1 through the CLI on that run: FVD
+     first with no I3D weights (the R(2+1)D fallback), then with a seeded
+     random I3D state_dict written as i3d_kinetics400.pth where
+     $CPCSV_METRIC_WEIGHTS_DIR points (I3D at 224 x 224 x 10 through the
+     file loader): a CSV row a snapshot, newest first, the backbone and the
+     tags, the warnings, the DFN launches, TF32 off; I3D and the IS
+     classifier on the card against the CPU; seconds a checkpoint by part;
+ 14. rehearsal.yml (cascade.yml's widths, the in-training FID/FSD every
+     epoch) --synthetic 36 --max_epoch 2 through the CLI in a temporary
+     working directory: finite Evaluation/fid and Evaluation/vfid each
+     epoch, the extractors built once, the real side's .cache/ statistics
+     written in epoch 0 and read in epoch 1, a snapshot every epoch, the
+     launches; the hook's seconds and share of the epoch, the host Frechet
+     apart.
 The line before the last is a JSON object of the kernels; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -107,6 +121,7 @@ TRAIN_CONFIGS = ("final.yml", "cascade.yml")  # phases 6-7, in this order
 CLI_SYNTHETIC = 36  # phase 10's --synthetic: 2 story steps an epoch, one image batch
 DISK_TRACED = (10, 5)  # phase 11: the first of epoch 1's steps under the profiler, and how many
 LOADER_ALONE = 4  # phase 11: batches of each loader timed with nothing else running
+FVD_FRAMES = 10  # calculate_fvd's frames a clip (phase 13)
 # the cascade G step's own metrics, and every tag the JAX package's trainer
 # logs for cascade.yml (cpcsv_tpu/train/steps.py, trainer.py)
 CASCADE_G_TAGS = ("G/image_vae_loss", "G/video_vae_loss", "G/reconstruct_loss")
@@ -1183,7 +1198,8 @@ class TimedExtractor:
 
     def __init__(self, ex, key: str, host: dict):
         self.ex, self.key, self.host = ex, key, host
-        self.random_init, self.fingerprint = ex.random_init, ex.fingerprint
+        self.random_init, self.fingerprint, self.backbone = (ex.random_init, ex.fingerprint,
+                                                             ex.backbone)
 
     def __call__(self, x):
         import numpy as np
@@ -1201,7 +1217,7 @@ def timed_extractor(make, key: str, host: dict, inside: set, built: dict):
     import torch
 
     def build(path, device):
-        ex = make(path, device)
+        ex = make(path, device=device)
         ex.net.register_forward_pre_hook(lambda *_: inside.add(
             (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
         built[key] = ex
@@ -1380,6 +1396,308 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
         print(f"{key} forward, BN calibrated, card against CPU, 4 inputs, float32: relative "
               f"L2 {errs['raw']:.3e} raw, {errs['centred']:.3e} less the mean over the inputs "
               f"(tol 1e-3); the centred features are {share:.3e} of the raw ones")
+    return counts
+
+
+def fvd_is_walks(card: str, run_dir: Path, data_dir: Path, seed: int, root: Path) -> dict[str, int]:
+    """Phase 13: --eval_fvd 1 twice and --eval_is 1 through the CLI on phase
+    11's run. The first FVD walk finds no I3D weights and takes the R(2+1)D
+    backbone ("FVD-R"); the second finds a seeded random I3D state_dict
+    written as i3d_kinetics400.pth into a directory that
+    $CPCSV_METRIC_WEIGHTS_DIR names, and runs I3D at 224 x 224 x 10 through
+    the file loader. Checks one CSV row a snapshot, newest first, finite and
+    tagged; the backbone each walk took and the warnings; the numbered PNGs;
+    the DFN launches; TF32 off inside the backbones; I3D and the IS
+    classifier on the card against the CPU, BN calibrated. Prints each walk's
+    seconds a checkpoint by part. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.cli import main_pororo
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.evaluation import datasets, drivers, fvd, inception_score
+    from cpcsv_tpu_torch.evaluation.i3d import I3D
+    from cpcsv_tpu_torch.evaluation.weights import RandomInitMetricWarning, random_init_
+
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "cascade.yml")
+    cfg = config_from_file(cfg_file)
+    args = ["--cfg", cfg_file, "--data_dir", str(data_dir), "--manualSeed", str(seed)]
+    epochs = [2, 0]  # phase 11's snapshots, newest first
+    test_stories = (len(np.load(data_dir / "train_test_ids.npy", allow_pickle=True)[1])
+                    // cfg.TRAIN.ST_BATCH_SIZE * cfg.TRAIN.ST_BATCH_SIZE)
+    frames = test_stories * cfg.VIDEO_LEN
+    clips = frames // FVD_FRAMES // 16 * 16  # calculate_fvd's batches of 16
+    no_weights, i3d_weights = root / "no_weights", root / "i3d_weights"
+    no_weights.mkdir()
+    i3d_weights.mkdir()
+    torch.save(random_init_(I3D(), seed).state_dict(), i3d_weights / "i3d_kinetics400.pth")
+
+    extractors, inside = {}, set()
+    walks = (("FVD-R", "--eval_fvd", no_weights, "default_embedder"),
+             ("FVD, I3D", "--eval_fvd", i3d_weights, "default_embedder"),
+             ("IS", "--eval_is", no_weights, "make_inception_classifier"))
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(run_dir.parent.parent.parent)  # the CLI reads ./output/torch/<config>
+    try:
+        for name, flag, weights, factory in walks:
+            host: dict[str, list] = {}
+            patches = [
+                mock.patch.dict(os.environ, {"CPCSV_METRIC_WEIGHTS_DIR": str(weights)}),
+                mock.patch.object(drivers, factory, timed_extractor(
+                    getattr(drivers, factory), name, host, inside, extractors)),
+                mock.patch.object(fvd, "calculate_activation_statistics", timing(
+                    host, "statistics", fvd.calculate_activation_statistics)),
+                mock.patch.object(fvd, "calculate_frechet_distance", timing(
+                    host, "Frechet", fvd.calculate_frechet_distance)),
+                mock.patch.object(inception_score, "inception_score_from_probs", timing(
+                    host, "statistics", inception_score.inception_score_from_probs)),
+            ]
+            for obj, attr, key in (
+                    (drivers.Infer, "inference_samples", "generation and PNG writing"),
+                    (drivers.Infer, "generate_story", "generation and PNG writing"),
+                    (fvd.VideoGenerateDataset, "__getitem__", "PNG reading"),
+                    (datasets.FolderImageDataset, "__getitem__", "PNG reading")):
+                patches.append(mock.patch.object(obj, attr, timing(host, key, getattr(obj, attr))))
+            printed = io.StringIO()
+            with contextlib.ExitStack() as stack, contextlib.redirect_stdout(printed), \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for p in patches:
+                    stack.enter_context(p)
+                reset_counts()  # the main path: the CLI's walk only
+                t = time.perf_counter()
+                rows = main_pororo.main(args + [flag, "1"])
+                seconds = time.perf_counter() - t
+                counts = read_counts()
+            out[name] = types.SimpleNamespace(rows=rows, host=host, seconds=seconds,
+                                              counts=counts, caught=caught,
+                                              printed=printed.getvalue())
+    finally:
+        os.chdir(cwd)
+
+    eval_dir = run_dir / "Evaluation" / cfg.CONFIG_NAME
+    with open(eval_dir / "fvd_score.csv") as f:
+        fvd_csv = [[float(v) for v in row] for row in csv.reader(f)]
+    with open(eval_dir / "is_score.csv") as f:
+        is_csv = [[float(v) for v in row] for row in csv.reader(f)]
+    batches = test_stories // cfg.TRAIN.ST_BATCH_SIZE
+    expected = {"dfn_forward": len(epochs) * batches, "dfn_backward": 0, "bn_stats": 0,
+                "bn_grad_reduce": 0}
+    for name, (backbone, random_init, warned) in {
+            "FVD-R": ("r2plus1d_18", True, ["r2plus1d_18"]), "FVD, I3D": ("i3d", False, []),
+            "IS": ("inception_fid", True, ["inception_fid"])}.items():
+        w = out[name]
+        check([r["epoch"] for r in w.rows] == epochs,
+              f"{name} walk rows {w.rows}: expected epochs {epochs}, newest first")
+        check(w.counts == expected, f"{name} walk: launches {w.counts}, expected {expected}: one "
+                                    "dfn_forward a story batch a checkpoint")
+        names = [str(c.message).split(":")[0] for c in w.caught
+                 if issubclass(c.category, RandomInitMetricWarning)]
+        check(names == warned, f"{name} walk: random-init warnings for {names}, expected {warned}")
+        if name == "IS":
+            check(all(r["is_random_init"] and np.isfinite([r["is_mean"], r["is_std"]]).all()
+                      for r in w.rows), f"IS walk rows {w.rows}: expected finite, tagged random")
+            check(w.printed.count("[RANDOM-INIT classifier!]") == len(epochs),
+                  "the --eval_is lines lack the random-init tag")
+            continue
+        check(extractors[name].backbone == backbone
+              and all(r["fvd_random_init"] == random_init and np.isfinite(r["fvd"])
+                      for r in w.rows),
+              f"{name} walk: backbone {extractors[name].backbone}, rows {w.rows}: expected "
+              f"backbone {backbone}, finite, random-init {random_init}")
+        rounded = [c for c in w.caught if "not divisible by 16" in str(c.message)]
+        check(len(rounded) == len(epochs) and f"first {clips} clips" in str(rounded[0].message),
+              f"{name} walk: {len(rounded)} round-down warnings, expected one a checkpoint "
+              f"({frames // FVD_FRAMES} clips to {clips})")
+    check(fvd_csv == [[r["epoch"], r["fvd"]] for name in ("FVD-R", "FVD, I3D")
+                      for r in out[name].rows],
+          f"fvd_score.csv {fvd_csv} differs from the two walks' rows")
+    check(is_csv == [[r["epoch"], r["is_mean"], r["is_std"]] for r in out["IS"].rows],
+          f"is_score.csv {is_csv} differs from the rows {out['IS'].rows}")
+    pngs = {d: len([f for f in os.listdir(run_dir / "Evaluation" / d) if f.endswith(".png")])
+            for d in ("ref", os.path.join(cfg.CONFIG_NAME, "fvd_epoch_0"))}
+    check(set(pngs.values()) == {frames}, f"the FVD dumps hold {pngs} PNGs, expected {frames}")
+    check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32,
+          f"TF32 flags (cudnn, matmul) inside the backbones {inside}")
+    print(f"FVD and IS walks: launches {expected} each; TF32 flags (cudnn, matmul) inside the "
+          f"backbones {sorted(inside)}")
+    for name in ("FVD-R", "FVD, I3D"):
+        backbone = extractors[name].backbone
+        note = ("; the I3D file holds seeded random weights (random_init_, seed "
+                f"{seed}), not Kinetics-400's" if backbone == "i3d" else "")
+        for r in out[name].rows:
+            print(f"--eval_fvd [{card}]: epoch {r['epoch']} fvd {r['fvd']!r} "
+                  f"({backbone}, random-init tag {r['fvd_random_init']}){note}")
+    for r in out["IS"].rows:
+        print(f"--eval_is [{card}]: epoch {r['epoch']} IS {r['is_mean']!r} +- {r['is_std']!r} "
+              f"(random-init classifier: {r['is_random_init']})")
+
+    n = len(epochs)
+    for name, w in out.items():
+        unit, per = ("frames", 1) if name == "IS" else ("clips", FVD_FRAMES)
+        parts = ("generation and PNG writing", "PNG reading", name, "statistics", "Frechet")
+        done = sum(w.host[f"{name} frames"]) // per
+        print(f"{name} walk [{card}]: {w.seconds:.2f} s for {n} checkpoints of {test_stories} "
+              "stories, the backbone's construction included; a checkpoint: "
+              + ", ".join(f"{'backbone' if k == name else k} {sum(w.host.get(k, [])) / n:.2f} s"
+                          for k in parts)
+              + f"; the rest {(w.seconds - sum(sum(w.host.get(k, [])) for k in parts)) / n:.2f} s;"
+              f" the backbone {done} {unit} in {sum(w.host[name]):.2f} s, "
+              f"{done / sum(w.host[name]):.1f} {unit}/s (host clock around the calls, "
+              "host-to-card copies included)")
+
+    # I3D and the IS classifier on the card against the same weights on the
+    # CPU, BN calibrated first (calibrated_copy), raw and less the inputs'
+    # mean, at 1e-3, as phase 12 holds the other two backbones
+    gen = np.random.default_rng(seed)
+    for key, shape in (("FVD, I3D", (4, 3, FVD_FRAMES, 64, 64)), ("IS", (4, 3, 64, 64))):
+        calib, x = (torch.from_numpy(gen.uniform(0, 1, shape).astype(np.float32))
+                    for _ in range(2))
+        cpu_net = calibrated_copy(extractors[key].net, calib, seed)
+        card_net = copy.deepcopy(cpu_net).cuda()
+        with torch.no_grad(), float32_math():
+            card_out = card_net(x.cuda()).cpu().numpy()
+            cpu_out = cpu_net(x).numpy()
+        errs = {part: float(np.linalg.norm(a - b) / np.linalg.norm(b)) for part, a, b in (
+            ("raw", card_out, cpu_out),
+            ("centred", card_out - card_out.mean(0), cpu_out - cpu_out.mean(0)))}
+        share = float(np.linalg.norm(cpu_out - cpu_out.mean(0)) / np.linalg.norm(cpu_out))
+        label = "I3D" if key == "FVD, I3D" else "IS classifier"
+        check(max(errs.values()) <= 1e-3 and share > 5e-2,
+              f"{label} on the card against the CPU: relative L2 {errs} (tol 1e-3), the "
+              f"input-dependent share of the outputs {share:.3e} (expected > 5e-2)")
+        print(f"{label} forward, BN calibrated, card against CPU, 4 inputs {list(shape)}, "
+              f"float32: relative L2 {errs['raw']:.3e} raw, {errs['centred']:.3e} less the mean "
+              f"over the inputs (tol 1e-3); the centred outputs are {share:.3e} of the raw ones")
+    return {k: sum(w.counts[k] for w in out.values()) for k in expected}
+
+
+def rehearsal_trainer(card: str, per_step: dict[str, int], seed: int, root: Path) -> dict[str, int]:
+    """Phase 14: rehearsal.yml (cascade.yml's widths, EVALUATE_FID_SCORE on,
+    a snapshot every epoch) with --synthetic CLI_SYNTHETIC --max_epoch 2
+    through the CLI in this process, from a working directory under `root`
+    so that its .cache/ lands there. Checks finite Evaluation/fid and
+    Evaluation/vfid for both epochs, the extractors built once (one
+    random-init warning a backbone), the real side's statistics written in
+    epoch 0 and read back in epoch 1, a snapshot every epoch, the launches;
+    prints the hook's seconds an epoch and its share of the epoch, the host
+    Frechet apart. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.cli import main_pororo
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.evaluation import features, fid, fsd
+    from cpcsv_tpu_torch.evaluation.weights import RandomInitMetricWarning
+    from cpcsv_tpu_torch.train import trainer as trainer_module
+
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "rehearsal.yml")
+    cfg = config_from_file(cfg_file)
+    check(cfg.EVALUATE_FID_SCORE and cfg.TRAIN.SNAPSHOT_INTERVAL == 1,
+          f"{cfg_file}: EVALUATE_FID_SCORE {cfg.EVALUATE_FID_SCORE}, SNAPSHOT_INTERVAL "
+          f"{cfg.TRAIN.SNAPSHOT_INTERVAL}")
+    run_root = root / "rehearsal"
+    run_root.mkdir()
+    cache = run_root / ".cache"
+    host: dict[str, list] = {}
+    hooks, built = [], []
+    real_vfid = trainer_module.GANTrainer.calculate_vfid
+    real_make = trainer_module.make_in_memory_extractors
+
+    def listing():
+        return {p.name: p.stat().st_mtime_ns for p in cache.glob("*.npz")}
+
+    def timed_vfid(self, state, epoch, testloader):
+        before, marks = listing(), {k: len(host.get(k, [])) for k in ("Frechet", "extraction")}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        scores = real_vfid(self, state, epoch, testloader)
+        torch.cuda.synchronize()
+        hooks.append(types.SimpleNamespace(
+            epoch=epoch, seconds=time.perf_counter() - t, before=before, after=listing(),
+            frechet=sum(host.get("Frechet", [])[marks["Frechet"]:]),
+            extractions=len(host.get("extraction", [])) - marks["extraction"]))
+        return scores
+
+    def counted_make(device):
+        built.append(device)
+        return real_make(device)
+
+    args = ["--cfg", cfg_file, "--synthetic", str(CLI_SYNTHETIC), "--max_epoch", "2",
+            "--manualSeed", str(seed)]
+    printed = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(run_root)  # the CLI writes under ./output/torch/, the hook under ./.cache/
+    try:
+        with mock.patch.object(trainer_module.GANTrainer, "calculate_vfid", timed_vfid), \
+                mock.patch.object(trainer_module, "make_in_memory_extractors", counted_make), \
+                mock.patch.object(features, "extract_activations", timing(
+                    host, "extraction", features.extract_activations)), \
+                mock.patch.object(fid, "calculate_frechet_distance", timing(
+                    host, "Frechet", fid.calculate_frechet_distance)), \
+                mock.patch.object(fsd, "calculate_frechet_distance", timing(
+                    host, "Frechet", fsd.calculate_frechet_distance)), \
+                contextlib.redirect_stdout(printed), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            reset_counts()  # the main path: the CLI only
+            t = time.perf_counter()
+            main_pororo.main(args)
+            run_s = time.perf_counter() - t
+            counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    lines = [line for line in printed.getvalue().splitlines() if line.startswith("----[")]
+    print(f"CLI output [{card}]:\n  " + "\n  ".join(lines))
+    run_dir = run_root / "output" / "torch" / cfg.CONFIG_NAME
+    for e in (0, 1, 2):
+        check((run_dir / "Model" / f"netG_epoch_{e}.pth").is_file(),
+              f"rehearsal.yml wrote no netG_epoch_{e}.pth: a snapshot every epoch and the last")
+    records = [json.loads(line) for line in (run_dir / "log" / "metrics.jsonl").open()]
+    tags = {r["tag"] for r in records}
+    check(all(np.isfinite(r["value"]) for r in records), "metrics.jsonl holds a non-finite value")
+    want = set(CASCADE_TAGS) | {"Evaluation/fid", "Evaluation/vfid"}
+    check(tags == want, f"metrics.jsonl tags: missing {want - tags}, extra {tags - want}")
+    scores = {(r["tag"], r["step"]): r["value"] for r in records
+              if r["tag"].startswith("Evaluation/")}
+    check(sorted(scores) == [(t, e) for t in ("Evaluation/fid", "Evaluation/vfid")
+                             for e in (0, 1)],
+          f"Evaluation/* records {sorted(scores)}, expected fid and vfid at epochs 0 and 1")
+    warned = sorted(str(c.message).split(":")[0] for c in caught
+                    if issubclass(c.category, RandomInitMetricWarning))
+    check(len(built) == 1 and warned == ["inception_fid", "r2plus1d_18"],
+          f"the extractors built {len(built)} times, random-init warnings {warned}: expected "
+          "once, one a backbone")
+    check([h.epoch for h in hooks] == [0, 1], f"the hook ran at epochs {[h.epoch for h in hooks]}")
+    check(not hooks[0].before and len(hooks[0].after) == 2 and hooks[0].extractions == 4,
+          f"epoch 0's hook: .cache {hooks[0].before} -> {hooks[0].after}, "
+          f"{hooks[0].extractions} feature extractions (expected none -> 2 files, 4)")
+    check(hooks[1].before == hooks[1].after == hooks[0].after and hooks[1].extractions == 2,
+          f"epoch 1's hook: .cache {hooks[1].before} -> {hooks[1].after}, "
+          f"{hooks[1].extractions} extractions (expected the epoch 0 files read back, 2)")
+    steps_an_epoch = max(CLI_SYNTHETIC, cfg.TRAIN.ST_BATCH_SIZE) // cfg.TRAIN.ST_BATCH_SIZE
+    test_stories = max(CLI_SYNTHETIC // 4, cfg.TRAIN.ST_BATCH_SIZE)  # synthetic_loaders' test set
+    steps = 2 * steps_an_epoch
+    expected = {k: v * steps for k, v in per_step.items()}
+    expected["dfn_forward"] += 2 + 2 * -(-test_stories // 64)  # the grids; a hook's chunks
+    check(counts == expected, f"rehearsal run: launches {counts}, expected {expected} for "
+                              f"{steps} steps, 2 sample grids and 2 hooks")
+    print(f"rehearsal run: {steps} D+G steps, 2 sample grids and 2 hooks launched {counts} = "
+          f"{per_step} a step, plus one dfn_forward a grid and a hook's chunk of "
+          f"{test_stories} test stories; .cache {sorted(hooks[0].after)} written in epoch 0, "
+          f"read in epoch 1")
+    epoch_s = {r["step"]: r["value"] for r in records if r["tag"] == "perf/epoch_seconds"}
+    fps = {r["step"]: r["value"] for r in records if r["tag"] == "perf/frames_per_sec"}
+    for h in hooks:
+        print(f"rehearsal epoch {h.epoch} [{card}]: fid {scores[('Evaluation/fid', h.epoch)]!r} "
+              f"vfid {scores[('Evaluation/vfid', h.epoch)]!r} (random-init extractors); epoch "
+              f"{epoch_s[h.epoch]:.2f} s, {fps[h.epoch]:.1f} frames/s; the hook {h.seconds:.2f} s "
+              f"({h.seconds / epoch_s[h.epoch]:.3f} of the epoch), of which the host Frechet "
+              f"{h.frechet:.2f} s and the rest {h.seconds - h.frechet:.2f} s")
+    print(f"rehearsal run [{card}]: {run_s:.2f} s in all, state init and 3 checkpoint saves "
+          "included")
     return counts
 
 
@@ -1824,11 +2142,17 @@ def main() -> int:
                                                       runs["cascade.yml"], args.seed, Path(tmp))
         phase("12. the checkpoint walks: --eval_fid, --eval_ssim, --load_ckpt")
         walk_counts = walks(card, run_dir, data_dir, args.seed)
+        phase("13. the FVD and IS walks: --eval_fvd (R(2+1)D, then a seeded I3D file), --eval_is")
+        fvd_is_counts = fvd_is_walks(card, run_dir, data_dir, args.seed, Path(tmp))
+        phase("14. rehearsal.yml through the CLI, 2 epochs with the in-training FID/FSD")
+        rehearsal_counts = rehearsal_trainer(card, runs["cascade.yml"].expected, args.seed,
+                                             Path(tmp))
     for name in kernels:
-        kernels[name]["launches"] += disk_counts[name] + walk_counts[name]
+        kernels[name]["launches"] += (disk_counts[name] + walk_counts[name]
+                                      + fvd_is_counts[name] + rehearsal_counts[name])
     print(f"launches on the main paths: serving {launches} dfn_forward; the steps of "
           f"{', '.join(runs)} {train_counts}; the CLI {cli_counts}; from disk {disk_counts}; "
-          f"the walks {walk_counts}")
+          f"the walks {walk_counts}; FVD and IS {fvd_is_counts}; rehearsal {rehearsal_counts}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -3,8 +3,9 @@ for (counterpart of `cpcsv_tpu/cli/dispatch.py`; reference
 `main_pororo.py:152-171`).
 
 The ladder keeps the reference's order, eval flags before --load_ckpt before
-training. --eval_fvd and --eval_is raise until the next evaluation slice
-brings FVD and the Inception Score.
+training: --eval_fid, --eval_fvd, --eval_is, --eval_ssim, the first given
+wins. --eval_is and --eval_ssim are the JAX package's: the reference ships
+both scores and wires neither to its CLI.
 """
 
 from __future__ import annotations
@@ -54,17 +55,15 @@ def add_device_flag(parser):
 def dispatch(cfg, args, output_dir, imageloader, storyloader, testloader):
     """The reference's ladder: an evaluation walk, else --load_ckpt's sample
     dump, else training; the walks run on args.device as training does."""
-    if not args.eval_fid and (args.eval_fvd or args.eval_is):
-        raise NotImplementedError(
-            "--eval_fvd / --eval_is: FVD (I3D) and the Inception Score come with the next "
-            "evaluation slice; the port walks --eval_fid and --eval_ssim")
-    if args.eval_fid or args.eval_ssim or args.load_ckpt is not None:
+    walks = (("eval_fid", "eval_fid2"), ("eval_fvd", "eval_fvd"), ("eval_is", "eval_is"),
+             ("eval_ssim", "eval_ssim_walk"))
+    walk = next((method for flag, method in walks if getattr(args, flag)), None)
+    if walk or args.load_ckpt is not None:
         from cpcsv_tpu_torch.evaluation.drivers import Infer
 
-        if args.eval_fid or args.eval_ssim:
+        if walk:
             infer = Infer(cfg, output_dir=output_dir, device=args.device)
-            walk = infer.eval_fid2 if args.eval_fid else infer.eval_ssim_walk
-            return walk(testloader)
+            return getattr(infer, walk)(testloader)
         infer = Infer(cfg, output_dir=output_dir, device=args.device, load_ckpt=args.load_ckpt)
         return infer.inference_samples(
             testloader, os.path.join(output_dir, "Evaluation", "samples"))

@@ -5,7 +5,8 @@ plus --device:
   python -m cpcsv_tpu_torch.cli.main_pororo --cfg CFG.yml
       (--data_dir DIR | --synthetic N)
       [--max_epoch E] [--continue_ckpt auto|E] [--debug] [--manualSeed S]
-      [--eval_fid 1 | --eval_ssim 1 | --load_ckpt E] [--device cuda|cpu]
+      [--eval_fid 1 | --eval_fvd 1 | --eval_is 1 | --eval_ssim 1 | --load_ckpt E]
+      [--device cuda|cpu]
 
 --data_dir (or the config's DATA_DIR) reads a Pororo-protocol dataset from
 disk (`data/pororo.py`; `python -m cpcsv_tpu_torch.data.procedural DIR`

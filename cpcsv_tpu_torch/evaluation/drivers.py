@@ -10,7 +10,15 @@ the reference's file protocol:
     regenerating the test stories and appending "epoch,fid,fsd" to
     Evaluation/{name}/fid_score2.csv (inference.py:201-230);
   * `eval_ssim_walk`: the same walk, appending "epoch,ssim" to
-    Evaluation/{name}/ssim_score.csv.
+    Evaluation/{name}/ssim_score.csv;
+  * `eval_is`: the same walk over is_epoch_{E}/generate, appending
+    "epoch,mean,std" of the Inception Score to Evaluation/{name}/is_score.csv;
+  * `eval_fvd`: each snapshot's numbered dump in fvd_epoch_{E}/ beside
+    <run>/Evaluation/ref, appending "epoch,fvd" to
+    Evaluation/{name}/fvd_score.csv (inference.py:128-141);
+  * `evaluate_fid_fsd_in_memory`: the trainer's per-epoch FID and FSD
+    (reference trainer.py:160-174), no PNGs, the real side's statistics
+    cached under ./.cache/.
 
 `Infer` holds an eval-mode generator on one device. It takes the weights
 either as a `state_dict` (a `netG_epoch_E.pth`, or JAX variables converted
@@ -21,7 +29,6 @@ from one `torch.Generator` on the device, seeded with `seed`.
 One process runs a walk: the JAX package's multi-host barrier around the
 walks (`@_centralized`) comes with the DDP slice, and the port never wrote
 the JAX package's legacy params-only snapshots, so it does not read them.
-FVD and the Inception Score come with the next evaluation slice.
 """
 
 from __future__ import annotations
@@ -40,16 +47,23 @@ from cpcsv_tpu_torch.device import float32_math, resolve_device
 from cpcsv_tpu_torch.evaluation.datasets import (
     FolderImageDataset,
     FolderStoryDataset,
+    IgnoreLabelDataset,
+    StoryGANDataset,
     StoryGANSSIMDataset,
 )
 from cpcsv_tpu_torch.evaluation.fid import fid_score
 from cpcsv_tpu_torch.evaluation.fsd import fsd_score
-from cpcsv_tpu_torch.evaluation.inception import make_inception_extractor
+from cpcsv_tpu_torch.evaluation.fvd import calculate_fvd, default_embedder
+from cpcsv_tpu_torch.evaluation.inception import (
+    make_inception_classifier,
+    make_inception_extractor,
+)
+from cpcsv_tpu_torch.evaluation.inception_score import inception_score
 from cpcsv_tpu_torch.evaluation.r2plus1d import make_fsd_extractor
 from cpcsv_tpu_torch.evaluation.ssim import ssim_score
 from cpcsv_tpu_torch.models.factory import generator_from_config
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
-from cpcsv_tpu_torch.utils.image import save_all_img, save_png
+from cpcsv_tpu_torch.utils.image import save_all_img, save_png, save_story_results
 
 
 def _batch_motion_content(cfg: Config, batch):
@@ -135,9 +149,10 @@ class Infer:
         return out.image.cpu().numpy(), mask
 
     # ------------------------------------------------------------------ dumps
-    def generate_story(self, storyloader, dirname: str = ""):
+    def generate_story(self, storyloader, dirname: str = "", skip_original: bool = False):
         """original/ and generate/ folder trees (reference inference.py:147-199).
-        Both trees are cleared first, so a smaller walk leaves no stale stories."""
+        Both trees are cleared first, so a smaller walk leaves no stale stories.
+        `skip_original` writes no original/ (eval_is reads generated frames only)."""
         orig_dir = os.path.join(self.eval_dir, dirname, "original")
         gen_dir = os.path.join(self.eval_dir, dirname, "generate")
         for d in (orig_dir, gen_dir):
@@ -147,8 +162,9 @@ class Infer:
         for batch in storyloader:
             fake, _ = self.sample_videos_np(batch)
             real = np.asarray(batch["images"], np.float32)
+            trees = ((gen_dir, fake),) if skip_original else ((gen_dir, fake), (orig_dir, real))
             for b in range(fake.shape[0]):
-                for root, frames in ((gen_dir, fake), (orig_dir, real)):
+                for root, frames in trees:
                     d = os.path.join(root, str(story_id))
                     os.makedirs(d, exist_ok=True)
                     for t in range(fake.shape[1]):
@@ -209,6 +225,73 @@ class Infer:
             print(f"epoch {epoch}: fid={fid:.3f} vfid/fsd={fsd:.3f}{tag}")
         return results
 
+    def eval_is(self, testloader, epochs: Optional[list[int]] = None, batch_size: int = 32,
+                splits: int = 10):
+        """Inception Score of each snapshot, newest first: the test stories
+        regenerated into is_epoch_{E}/generate (its own directory, so an
+        eval_fid2 walk's original/ trees stay), their frames scored, and
+        [epoch, mean, std] appended to is_score.csv. The reference ships the
+        score (fid/inception_score.py:10-68) and wires no walk. One classifier
+        for the walk; every row says whether it is random."""
+        epochs = self._epochs("eval_is", epochs)
+        csv_path = os.path.join(self.eval_dir, "is_score.csv")
+        classifier = make_inception_classifier(None, device=self.device)
+        results = []
+        for epoch in epochs:
+            self.load_epoch(epoch)
+            _, gen_dir = self.generate_story(testloader, f"is_epoch_{epoch}", skip_original=True)
+            mean, std = inception_score(FolderImageDataset(gen_dir, self.cfg.IMSIZE), classifier,
+                                        batch_size=batch_size, splits=splits, normalize=True)
+            _append_row(csv_path, [epoch, mean, std])
+            results.append({"epoch": epoch, "is_mean": mean, "is_std": std,
+                            "is_random_init": classifier.random_init})
+            tag = " [RANDOM-INIT classifier!]" if classifier.random_init else ""
+            print(f"epoch {epoch}: IS={mean:.3f}+-{std:.3f}{tag}")
+        return results
+
+    def eval_fvd(self, storyloader, epochs: Optional[list[int]] = None,
+                 num_of_video: int = 272):
+        """FVD of each snapshot, newest first (reference inference.py:128-141):
+        the numbered dump of the test stories in fvd_epoch_{E}/ against the
+        real frames in <run>/Evaluation/ref, [epoch, fvd] appended to
+        fvd_score.csv. One embedder for the walk (`fvd.default_embedder`: I3D
+        when its weights resolve, else R(2+1)D); every row says whether it is
+        random."""
+        epochs = self._epochs("eval_fvd", epochs)
+        csv_path = os.path.join(self.eval_dir, "fvd_score.csv")
+        embedder = default_embedder(None, self.device)
+        results = []
+        for epoch in epochs:
+            self.load_epoch(epoch)
+            gen_dir, ref_dir = self.inference_samples(
+                storyloader, os.path.join(self.eval_dir, f"fvd_epoch_{epoch}"))
+            fvd = calculate_fvd(gen_dir, ref_dir, num_of_video=num_of_video, embedder=embedder)
+            _append_row(csv_path, [epoch, fvd])
+            results.append({"epoch": epoch, "fvd": fvd, "fvd_random_init": embedder.random_init})
+            tag = " [RANDOM-INIT embedder!]" if embedder.random_init else ""
+            print(f"epoch {epoch}: fvd={fvd:.3f}{tag}")
+        return results
+
+    def save_test_samples(self, storyloader, save_path: str):
+        """Each batch's texts (fake_samples_{i}.txt), and images.npy /
+        labels.npy of every generated story (reference miscc/utils.py:343-399)."""
+        os.makedirs(save_path, exist_ok=True)
+        images, labels = [], []
+        for i, batch in enumerate(storyloader):
+            fake, _ = self.sample_videos_np(batch)
+            save_story_results(np.asarray(batch["images"], np.float32), fake,
+                               batch.get("text"), f"{i:03d}", save_path)
+            images.append(fake)
+            labels.append(np.asarray(batch["labels"], np.float32))
+        np.save(os.path.join(save_path, "images.npy"), np.concatenate(images, 0))
+        np.save(os.path.join(save_path, "labels.npy"), np.concatenate(labels, 0))
+
+    def inference(self, imageloader=None, storyloader=None, testloader=None, stage: int = 1):
+        """The reference's Infer.inference surface (inference.py:91-145): the
+        loaded snapshot's numbered dump in Evaluation/{name}/samples."""
+        return self.inference_samples(testloader or storyloader,
+                                      os.path.join(self.eval_dir, "samples"))
+
     def eval_fid(self, testloader, epochs: Optional[list[int]] = None, batch_size: int = 50):
         """The reference's name for the same walk (inference.py:114-126)."""
         return self.eval_fid2(testloader, epochs=epochs, batch_size=batch_size)
@@ -238,3 +321,38 @@ class Infer:
             results.append({"epoch": epoch, "ssim": val})
             print(f"epoch {epoch}: ssim={val:.4f}")
         return results
+
+
+# ------------------------------------------------------------------ in training
+def make_in_memory_extractors(device: str | torch.device = "cuda"):
+    """(FID's Inception, FSD's R(2+1)D) on `device`, built once a run: the
+    trainer holds them across epochs, so their random-init warnings come
+    once."""
+    return make_inception_extractor(None, device), make_fsd_extractor(None, device)
+
+
+def evaluate_fid_fsd_in_memory(cfg: Config, net_g, testloader, generator: torch.Generator,
+                               extractors=None) -> dict:
+    """The trainer's per-epoch FID and FSD (reference trainer.py:160-174):
+    `net_g` (in eval mode, on its device) regenerates the test stories with
+    noise from `generator`, and the stories are scored in memory, no PNGs.
+
+    The real side's statistics are cached in ./.cache/ (as the reference's),
+    each file keyed by the extractor's weights fingerprint
+    (`features.activation_statistics`) and by a tag of the test set (its
+    directory's name, its size, the frame size and the story length): the
+    reference's unkeyed files would hand one dataset's statistics to
+    another's run from the same directory."""
+    testdataset = testloader.dataset
+    gen_ds = StoryGANDataset(net_g, testdataset, generator, cfg.TEXT.DIMENSION)
+    real_ds = IgnoreLabelDataset(testdataset)
+    fid_ex, fsd_ex = extractors or make_in_memory_extractors(next(net_g.parameters()).device)
+    tag = "{}_{}_{}x{}".format(os.path.basename(str(cfg.DATA_DIR).rstrip("/")) or "data",
+                               len(testdataset), cfg.IMSIZE, cfg.VIDEO_LEN)
+    fsd = fsd_score(real_ds, gen_ds, batch_size=min(50, len(testdataset)),
+                    r_cache=f".cache/seg_story_vfid_reference_score.{tag}.npz", extractor=fsd_ex)
+    fid = fid_score(real_ds, gen_ds, batch_size=min(50, len(testdataset) * cfg.VIDEO_LEN),
+                    normalize=True, r_cache=f".cache/seg_story_fid_reference_score.{tag}.npz",
+                    extractor=fid_ex)
+    return {"fid": fid, "fsd": fsd, "fid_random_init": fid_ex.random_init,
+            "fsd_random_init": fsd_ex.random_init}

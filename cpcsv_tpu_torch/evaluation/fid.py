@@ -31,16 +31,18 @@ def fid_score(
     g_imgs,
     batch_size: int = 50,
     normalize: bool = False,
+    r_cache: str | None = None,
     *,
     extractor,
 ) -> float:
     """FID of `g_imgs` against `r_imgs` (reference fid/fid_score.py:161-183)
     in the features of `extractor`, built once by the caller
-    (`inception.make_inception_extractor`)."""
+    (`inception.make_inception_extractor`); `r_cache` caches the real side's
+    statistics (`features.activation_statistics`)."""
     if np.asarray(r_imgs[0]).ndim == 4:
         r_imgs = FlattenStories(r_imgs)
     if np.asarray(g_imgs[0]).ndim == 4:
         g_imgs = FlattenStories(g_imgs)
-    m1, s1 = activation_statistics(r_imgs, extractor, batch_size, normalize)
+    m1, s1 = activation_statistics(r_imgs, extractor, batch_size, normalize, r_cache)
     m2, s2 = activation_statistics(g_imgs, extractor, batch_size, normalize)
     return calculate_frechet_distance(m1, s1, m2, s2)

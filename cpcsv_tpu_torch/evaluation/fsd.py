@@ -14,16 +14,18 @@ def fsd_score(
     g_stories,
     batch_size: int = 50,
     normalize: bool = False,
+    r_cache: str | None = None,
     *,
     extractor,
 ) -> float:
     """FSD of `g_stories` against `r_stories`, items (T, H, W, 3) float, in
-    the features of `extractor` (`r2plus1d.make_fsd_extractor`).
+    the features of `extractor` (`r2plus1d.make_fsd_extractor`); `r_cache`
+    caches the real side's statistics (`features.activation_statistics`).
 
     The reference's vFID loop takes a `normalize` flag and never applies it
     (fid/vfid_score.py:88-90), so the features come from the [-1, 1]
     stories; the argument is accepted and ignored as there."""
     del normalize
-    m1, s1 = activation_statistics(r_stories, extractor, batch_size, False)
+    m1, s1 = activation_statistics(r_stories, extractor, batch_size, False, r_cache)
     m2, s2 = activation_statistics(g_stories, extractor, batch_size, False)
     return calculate_frechet_distance(m1, s1, m2, s2)

@@ -12,16 +12,21 @@ pytorch-fid network with the `pt_inception-2015-12-05` weights):
 The parameter names and NCHW kernels are torchvision's, so a pytorch-fid
 state_dict loads as it is, and the JAX package's
 `load_torch_inception_state_dict` converts this module's.
-`make_inception_extractor` returns the metric's callable.
+`make_inception_extractor` returns FID's callable, and
+`make_inception_classifier` the Inception Score's: the features through the
+weight file's 1008-way `fc`.
 """
 
 from __future__ import annotations
 
+import warnings
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cpcsv_tpu_torch.evaluation.weights import Extractor
+from cpcsv_tpu_torch.evaluation.weights import Extractor, load_state_dict
 
 
 def _avg_pool_3x3_exclude_pad(x: torch.Tensor) -> torch.Tensor:
@@ -179,3 +184,47 @@ def make_inception_extractor(weights_path: str | None = None,
     weights resolve through `evaluation.weights`; without a file the network
     runs from random init, warns, and is tagged `random_init=True`."""
     return Extractor(InceptionV3FID(), "inception_fid", weights_path, device)
+
+
+class InceptionV3Logits(InceptionV3FID):
+    """(N, 3, H, W) in [0, 1] -> (N, num_classes) logits: the pool3 features
+    through `fc` (pytorch-fid's 1008-way head, `fc.weight` (classes, 2048))."""
+
+    def __init__(self, num_classes: int = 1008):
+        super().__init__()
+        self.fc = nn.Linear(2048, num_classes)
+
+    def forward(self, x):
+        return self.fc(super().forward(x))
+
+
+def make_inception_classifier(weights_path: str | None = None, num_classes: int = 1008,
+                              device: str | torch.device = "cuda") -> Extractor:
+    """images (N, H, W, 3) in [0, 1] -> (N, num_classes) logits on `device`,
+    for the Inception Score (reference fid/inception_score.py). The trunk's
+    weights resolve as FID's; the head is the file's `fc` when it has one,
+    else 0.02 N(0, 1) from `np.random.default_rng(0)`, drawn (2048, classes)
+    as the JAX package draws it, with a zero bias and a warning. Tagged
+    `random_init=True` when the trunk or the head is random: a trunk-only
+    file gives no real score."""
+    net = InceptionV3Logits(num_classes)
+    w = np.random.default_rng(0).standard_normal((2048, num_classes)) * 0.02
+    seeded = {"fc.weight": w.astype(np.float32).T, "fc.bias": np.zeros(num_classes, np.float32)}
+    with torch.no_grad():  # random init (no file) leaves the head as it is
+        net.fc.weight.copy_(torch.from_numpy(seeded["fc.weight"]))
+        net.fc.bias.zero_()
+    trunk_only = []
+
+    def read(path):
+        state = load_state_dict(path)
+        if "fc.weight" not in state:
+            warnings.warn(
+                f"weights file {path} has no fc.weight: the Inception-Score classification "
+                "head is RANDOM; the result is tagged random_init=True", stacklevel=4)
+            trunk_only.append(path)
+            state.update(seeded)
+        return state
+
+    classifier = Extractor(net, "inception_fid", weights_path, device, read)
+    classifier.random_init = classifier.random_init or bool(trunk_only)
+    return classifier

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cpcsv_tpu_torch.device import float32_math
+from cpcsv_tpu_torch.device import float32_math, resolve_device
 
 
 def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
@@ -43,9 +43,10 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch
     return ssim_map.mean()
 
 
-def ssim_score(pairs_iter, device: str | torch.device = "cpu") -> float:
+def ssim_score(pairs_iter, device: str | torch.device = "cuda") -> float:
     """The mean SSIM over (fake, real) pairs of (N, H, W, C) numpy arrays,
-    each pair weighted by its N (reference ssim_score.py:13-28)."""
+    each pair weighted by its N (reference ssim_score.py:13-28), on `device`."""
+    device = resolve_device(device)
     vals, n = 0.0, 0
     for fake, real in pairs_iter:
         vals += float(ssim(torch.as_tensor(fake, device=device),

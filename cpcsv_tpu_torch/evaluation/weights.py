@@ -16,8 +16,9 @@ a real score:
     tagged `random_init = True`, and every walk's row carries the tag;
   * `weights_fingerprint()` names the file an extractor loaded.
 
-The files hold the torch layout (pytorch-fid / torchvision names, NCHW and
-NCTHW kernels), as .pth or as .npz of the same arrays.
+The files hold the torch layout (pytorch-fid / torchvision / pytorch-i3d
+names, NCHW and NCTHW kernels), as .pth or as .npz of the same arrays; I3D
+also reads the TF-Hub module's variable map (`i3d.load_i3d_weights`).
 """
 
 from __future__ import annotations
@@ -48,6 +49,12 @@ REGISTRY: dict[str, tuple[str, ...]] = {
         "r2plus1d_18.npz",
         "r2plus1d_18-91a641e6.npz",
         "r2plus1d_18-91a641e6.pth",
+    ),
+    "i3d_kinetics400": (
+        "i3d_kinetics400.npz",
+        "i3d_rgb_kinetics400.npz",
+        "i3d_tfhub_kinetics400.npz",  # the TF-Hub module's variable map (`i3d.load_i3d_weights`)
+        "i3d_kinetics400.pth",
     ),
 }
 
@@ -89,9 +96,12 @@ def load_state_dict(path: str) -> dict[str, np.ndarray]:
 
 
 def weights_fingerprint(path: str | None) -> str:
-    """A short stable id of a weights file; 'random-init' without one."""
+    """A short stable id of a weights file; without one, 'random-init-torch':
+    the port's random init is not the JAX package's 'random-init', and the
+    real-side statistics cached under a fingerprint (`features.
+    activation_statistics`) must never pass from one to the other."""
     if not path:
-        return "random-init"
+        return "random-init-torch"
     h = hashlib.sha256()
     h.update(os.path.basename(path).encode())
     h.update(str(os.path.getsize(path)).encode())
@@ -103,7 +113,7 @@ def weights_fingerprint(path: str | None) -> str:
 def warn_random_init(name: str) -> None:
     warnings.warn(
         f"{name}: no pretrained weights found: the extractor runs RANDOM "
-        f"initialization, so any FID/FSD computed with it is NOT comparable to "
+        f"initialization, so any FID/FSD/FVD/IS computed with it is NOT comparable to "
         f"published numbers. Provide weights through the factory's weights_path "
         f"argument, $CPCSV_METRIC_WEIGHTS_DIR, or ~/.cache/cpcsv_tpu/weights "
         f"(accepted file names: {', '.join(REGISTRY.get(name, ()))}).",
@@ -143,15 +153,17 @@ class Extractor:
     """A backbone on a device behind the metrics' numpy interface: a batch
     (N, ..., 3) channel-last float in, (N, features) float32 out. The
     backbone runs in eval mode, without gradients, in float32 with TF32 off
-    (`device.float32_math`). `random_init`, `fingerprint` and `backbone`
+    (`device.float32_math`). Its weights are the file of REGISTRY[`backbone`]
+    that `resolve_weights` finds, read by `read` (a state dict in the net's
+    names), else random init. `random_init`, `fingerprint` and `backbone`
     (its name) tag what it computes."""
 
     def __init__(self, net: torch.nn.Module, backbone: str, weights_path: str | None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", read=load_state_dict):
         self.device = resolve_device(device)
         path = resolve_weights(backbone, weights_path)
         if path:
-            load_into(net, load_state_dict(path))
+            load_into(net, read(path))
         else:
             warn_random_init(backbone)
             random_init_(net)

@@ -17,17 +17,22 @@ thread and a side stream while the card runs the current step
 (`data/prefetch.py`). A D+G pair's metrics come back in one copy, as in the
 JAX package.
 
+With EVALUATE_FID_SCORE, each epoch ends with the test set's FID and FSD
+(`calculate_vfid`, reference trainer.py:160-174), logged as Evaluation/fid
+and Evaluation/vfid; their seconds count in the epoch's, as in the JAX
+package. The extractors are built at the first epoch's hook and kept.
+
 The run directory archives itself (reference trainer.py:55-61): the YAML
 config and the port's generator and trainer sources are copied into it.
 
 SCAN_STEPS, the JAX package's K updates in one dispatch, is the same sequence
 of updates; the port runs it one D+G pair at a time. Refused, naming the
-slice that brings each: a MESH_SHAPE, EVALUATE_FID_SCORE and
-CPCSV_PROFILE_DIR.
+slice that brings each: a MESH_SHAPE and CPCSV_PROFILE_DIR.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import shutil
 import time
@@ -41,6 +46,12 @@ from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.data.loader import DataLoader, WrapAroundIterator
 from cpcsv_tpu_torch.data.prefetch import BatchCopier, device_prefetch
 from cpcsv_tpu_torch.device import float32_math, resolve_device
+from cpcsv_tpu_torch.evaluation.datasets import StoryGANSSIMDataset
+from cpcsv_tpu_torch.evaluation.drivers import (
+    evaluate_fid_fsd_in_memory,
+    make_in_memory_extractors,
+)
+from cpcsv_tpu_torch.evaluation.ssim import ssim_score
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.train.state import TrainState, create_train_state
 from cpcsv_tpu_torch.train.steps import make_train_steps
@@ -76,10 +87,6 @@ def refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             f"MESH_SHAPE={cfg.MESH_SHAPE!r}: multi-device training comes with the DDP slice "
             "(torch.distributed); the port trains on one device")
-    if cfg.EVALUATE_FID_SCORE:
-        raise NotImplementedError(
-            "EVALUATE_FID_SCORE=True: the in-training FID/FSD hook comes with the evaluation "
-            "slice")
     if os.environ.get("CPCSV_PROFILE_DIR"):
         raise NotImplementedError(
             "CPCSV_PROFILE_DIR: the trainer's profile capture comes with the tools slice; "
@@ -122,6 +129,7 @@ class GANTrainer:
         self.d_step, self.g_step = make_train_steps(cfg)
         self.ckpt = CheckpointManager(self.model_dir)
         self.logger = MetricsLogger(self.log_dir)
+        self._eval_extractors = None  # the in-training FID/FSD's, built at its first call
 
     # ------------------------------------------------------------------
     def _warm_start_generator(self, state: TrainState) -> None:
@@ -211,6 +219,9 @@ class GANTrainer:
             self.logger.add_scalar("learning/st_discriminator", lr_d, epoch)
             self.logger.add_scalar("learning/im_discriminator", lr_d, epoch)
 
+            if cfg.EVALUATE_FID_SCORE and testloader is not None:
+                self.calculate_vfid(state, epoch, testloader)
+
             epoch_time = time.time() - start_t
             total_mins = int((time.time() - c_time) / 60)
             frames_per_step = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
@@ -235,19 +246,51 @@ class GANTrainer:
         cfg, gen = self.cfg, state.gen
         generator = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch, 1))
         motion = np.concatenate([st_host["description"], st_host["labels"]], axis=2)
-        gen.eval()
-        try:
-            with torch.no_grad(), float32_math():
-                out = gen.sample_videos(
-                    torch.as_tensor(motion, dtype=torch.float32, device=self.device),
-                    torch.as_tensor(st_host["description"], dtype=torch.float32,
-                                    device=self.device),
-                    seg=cfg.SEGMENT_LEARNING, generator=generator)
-        finally:
-            gen.train()
+        with self._eval_mode(state), torch.no_grad(), float32_math():
+            out = gen.sample_videos(
+                torch.as_tensor(motion, dtype=torch.float32, device=self.device),
+                torch.as_tensor(st_host["description"], dtype=torch.float32, device=self.device),
+                seg=cfg.SEGMENT_LEARNING, generator=generator)
         grid = save_story_results(st_host["images"], out.image.cpu().numpy(), st_host.get("text"),
                                   f"{epoch:03d}", self.image_dir)
         self.logger.add_image("pororo", grid, epoch)
         if out.seg is not None:
             self.logger.add_image("segment", save_image_results(None, out.seg.cpu().numpy(),
                                                                 cfg.VIDEO_LEN), epoch)
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _eval_mode(self, state: TrainState):
+        """The generator in eval mode while the block runs, in train mode after."""
+        state.gen.eval()
+        try:
+            yield state.gen
+        finally:
+            state.gen.train()
+
+    def calculate_ssim(self, state: TrainState, epoch: int, testloader) -> float:
+        """SSIM of the test stories regenerated by the eval-mode generator,
+        noise seeded 5678 + epoch, logged as Evaluation/ssim (reference
+        trainer.py:176-185, whose call is commented out at :472: called on
+        demand, not by `train`)."""
+        generator = torch.Generator(device=self.device).manual_seed(5678 + epoch)
+        with self._eval_mode(state) as gen:
+            ds = StoryGANSSIMDataset(gen, testloader.dataset, generator,
+                                     text_dim=self.cfg.TEXT.DIMENSION)
+            value = ssim_score((ds[i] for i in range(len(ds))), device=self.device)
+        self.logger.add_scalar("Evaluation/ssim", value, epoch)
+        return value
+
+    def calculate_vfid(self, state: TrainState, epoch: int, testloader) -> dict:
+        """The epoch's FID and FSD over the test set, the eval-mode generator's
+        noise seeded 1234 + epoch (`drivers.evaluate_fid_fsd_in_memory`),
+        logged as Evaluation/vfid and Evaluation/fid."""
+        if self._eval_extractors is None:
+            self._eval_extractors = make_in_memory_extractors(self.device)
+        generator = torch.Generator(device=self.device).manual_seed(1234 + epoch)
+        with self._eval_mode(state) as gen:
+            scores = evaluate_fid_fsd_in_memory(self.cfg, gen, testloader, generator,
+                                                extractors=self._eval_extractors)
+        self.logger.add_scalar("Evaluation/vfid", scores["fsd"], epoch)
+        self.logger.add_scalar("Evaluation/fid", scores["fid"], epoch)
+        return scores

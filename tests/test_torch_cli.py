@@ -241,14 +241,11 @@ def test_jax_package_reads_the_run_snapshot(straight):
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["--eval_fvd", "1", "--synthetic", "2"], NotImplementedError, "next evaluation slice"),
-    (["--eval_is", "1", "--synthetic", "2"], NotImplementedError, "next evaluation slice"),
     ([], ValueError, "--data_dir DIR .* Pororo dataset loader, or --synthetic N"),
-], ids=["argv0-evaluation slice", "argv1-evaluation slice", "argv2-Pororo dataset loader"])
+], ids=["argv2-Pororo dataset loader"])
 def test_cli_refuses_what_the_port_does_not_do(argv, error, match, cfg_file, tmp_path,
                                                monkeypatch):
-    """FVD and IS wait for the next evaluation slice; without data the CLI
-    names both of its sources."""
+    """Without data the CLI names both of its sources."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(error, match=match):
         main_pororo.main(["--cfg", cfg_file, "--device", "cpu"] + argv)

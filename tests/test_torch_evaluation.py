@@ -51,6 +51,7 @@ from cpcsv_tpu_torch.evaluation.r2plus1d import R2Plus1D18, make_fsd_extractor
 from cpcsv_tpu_torch.evaluation.weights import Extractor, RandomInitMetricWarning, random_init_
 from cpcsv_tpu_torch.models.factory import generator_from_config
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+from torch_cpu import calibrated_backbone
 from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
 TINY = GanConfig(CONDITION_DIM=124, Z_DIM=100, DF_DIM=8, GF_DIM=4, GF_SEG_DIM=16)
@@ -60,25 +61,6 @@ SMALL = 32  # R(2+1)D reads the trees' stories at 32 x 32 here, 4x cheaper than 
 
 def relative_l2(a, b):
     return float(np.linalg.norm(np.asarray(a) - np.asarray(b)) / np.linalg.norm(b))
-
-
-def calibrated_backbone(net, x, seed):
-    """The port's random init, then BN statistics from one train-mode pass
-    over `x` and affines drawn away from identity: a random net's features
-    otherwise barely depend on the input (covariances ~1e-8 of the squared
-    means), and no statistic could be compared."""
-    random_init_(net, seed)
-    gen = torch.Generator().manual_seed(seed)
-    bns = [m for m in net.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
-    with torch.no_grad():
-        for m in bns:
-            m.momentum = None  # the running statistics become the pass's
-            m.weight.uniform_(0.8, 1.2, generator=gen)
-            m.bias.normal_(0.0, 0.05, generator=gen)
-        net.train()(torch.from_numpy(x).movedim(-1, 1))
-    for m in bns:
-        m.momentum = 0.1
-    return net.eval()
 
 
 @pytest.fixture(scope="module")
@@ -159,7 +141,7 @@ def test_random_init_warns_and_tags(monkeypatch, tmp_path):
     monkeypatch.setenv("HOME", str(tmp_path))
     with pytest.warns(RandomInitMetricWarning, match="r2plus1d_18"):
         ex = Extractor(torch.nn.Conv3d(3, 8, 3), "r2plus1d_18", None, "cpu")
-    assert ex.random_init and ex.fingerprint == "random-init"
+    assert ex.random_init and ex.fingerprint == "random-init-torch"
     w = ex.net.weight
     assert w.std().item() == pytest.approx(81 ** -0.5, rel=0.1)
     assert torch.equal(w, random_init_(torch.nn.Conv3d(3, 8, 3)).weight)
@@ -175,7 +157,8 @@ def test_ssim_matches_jax():
     ours = float(ssim.ssim(torch.from_numpy(fake), torch.from_numpy(real)))
     np.testing.assert_allclose(ours, float(jax_ssim(fake, real)), rtol=1e-5)
     pairs = [(fake, real), (real[:3], fake[:3]), (fake[:2], fake[:2])]
-    np.testing.assert_allclose(ssim.ssim_score(iter(pairs)), jax_ssim_score(iter(pairs)),
+    np.testing.assert_allclose(ssim.ssim_score(iter(pairs), device="cpu"),
+                               jax_ssim_score(iter(pairs)),
                                rtol=1e-5)
 
 
@@ -316,7 +299,7 @@ def test_walks_score_the_trees_they_write(run_dir, monkeypatch, capsys):
     items = [loader.dataset[i] for i in range(STORIES)]
     fake, _ = infer.sample_videos_np(
         {k: np.stack([it[k] for it in items]) for k in ("description", "labels")})
-    expected = ssim.ssim_score(zip(fake[:3], [it["images"] for it in items[:3]]))
+    expected = ssim.ssim_score(zip(fake[:3], [it["images"] for it in items[:3]]), device="cpu")
     np.testing.assert_allclose(walk[0]["ssim"], expected, rtol=1e-6)
     infer.eval_ssim_walk(loader, epochs=[0], n=3)
     with open(os.path.join(infer.eval_dir, "ssim_score.csv")) as f:

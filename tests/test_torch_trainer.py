@@ -101,7 +101,6 @@ def test_sample_grids_match_jax(tmp_path):
 
 @pytest.mark.parametrize("update,match", [
     ({"MESH_SHAPE": "data:4"}, "DDP slice"),
-    ({"EVALUATE_FID_SCORE": True}, "evaluation slice"),
     ("CPCSV_PROFILE_DIR", "tools slice"),
 ])
 def test_trainer_refuses_what_it_does_not_do(update, match, tmp_path, monkeypatch):
