@@ -95,12 +95,15 @@ class Config:
     TEXT: TextConfig = field(default_factory=TextConfig)
 
     # --- extensions of the JAX package (optional keys, same defaults) ---
-    COMPUTE_DTYPE: str = "float32"  # the port runs "float32" only so far
+    # "float32" | "bfloat16": the compute dtype of the convolutions, matmuls
+    # and GRUs (models/factory.py); parameters, BN statistics, losses and Adam
+    # stay float32
+    COMPUTE_DTYPE: str = "float32"
     MESH_SHAPE: str = ""
     USE_PALLAS: bool = False
     REMAT: bool = False
     # nearest-2x upsample + conv3x3 lowering in the generator trunks:
-    # "off" | "deconv" in the port ("parity4" | "parity1" raise)
+    # "off" | "parity4" | "parity1" | "deconv" (ops/fused_upsample.py)
     FUSED_UPSAMPLE: str = "deconv"
     SCAN_STEPS: int = 20
     USE_INFONCE: bool = False

@@ -13,8 +13,11 @@
 //   dfilt[b, 0, c, k] = sum_x dout[b, x] * pad(img)[b, c, x + k]
 //   dimg[b, c, j]     = sum_k dout[b, j + pad - k] * filt[b, 0, c, k]
 //
-// The generator calls them with C = 3, L = 124, K = 21, pad = 10 and B = 90
-// (360 in the larger serving call). Bound: bytes, 0.06 us (forward) and
+// Both take float32 or bfloat16 (one type for all of a call's tensors, as
+// the JAX package runs the op at COMPUTE_DTYPE), sum in float32 and round
+// each output once. The generator calls them with C = 3, L = 124, K = 21,
+// pad = 10 and B = 90 (360 at throughput.yml's IM_BATCH, 1440 in the largest
+// serving call). Bound: bytes, 0.06 us (forward) and
 // 0.11 us (backward) at B = 90 over 3.35 TB/s, far below the card's cost of
 // one launch (chip_smoke.py measures it: an empty kernel in a CUDA graph).
 // So both kernels are latency- and launch-bound: what counts is the critical
@@ -309,12 +312,11 @@ __global__ void dfn_forward_kernel(const T* __restrict__ img, const T* __restric
     }
 }
 
-// One warp a (sample, channel), float32.
-template <int KT, int CT>
-__global__ void dfn_backward_kernel(const float* __restrict__ img,
-                                    const float* __restrict__ filt,
-                                    const float* __restrict__ dout, float* __restrict__ dimg,
-                                    float* __restrict__ dfilt, int B, int C_, int L, int K_,
+// One warp a (sample, channel).
+template <typename T, int KT, int CT>
+__global__ void dfn_backward_kernel(const T* __restrict__ img, const T* __restrict__ filt,
+                                    const T* __restrict__ dout, T* __restrict__ dimg,
+                                    T* __restrict__ dfilt, int B, int C_, int L, int K_,
                                     int pad, long long dout_stride, int vec) {
     const int C = CT > 0 ? CT : C_;
     const int K = KT > 0 ? KT : K_;
@@ -327,21 +329,21 @@ __global__ void dfn_backward_kernel(const float* __restrict__ img,
     float* row = smem + (size_t)warp * lay.warp_floats;
     float* g = row + lay.row;
     float* fr = g + lay.g;  // the taps reversed
-    const float* img_i = img + item * L;
-    const float* filt_i = filt + item * K;
-    const float* d = dout + b * dout_stride;
+    const T* img_i = img + item * L;
+    const T* filt_i = filt + item * K;
+    const T* d = dout + b * dout_stride;
     // the row, dout and the taps: all loads in flight before any store
     float v[1][4], gv[4], fv[kHead];
-    load_heads<float, 1>(img_i, L, vec == 4, lane, v);
+    load_heads<T, 1>(img_i, L, vec == 4, lane, v);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
         const int x = lane + u * kLanes;
-        gv[u] = x < lay.L_out ? d[x] : 0.0f;
+        gv[u] = x < lay.L_out ? to_float(d[x]) : 0.0f;
     }
 #pragma unroll
     for (int u = 0; u < kHead; ++u) {
         const int k = lane + u * kLanes;
-        fv[u] = k < K ? filt_i[k] : 0.0f;
+        fv[u] = k < K ? to_float(filt_i[k]) : 0.0f;
     }
     zero_pads(row, lay.row, 1, L, pad, lane);
     zero_pads(g, lay.g, 1, lay.L_out, lay.og, lane);
@@ -353,8 +355,8 @@ __global__ void dfn_backward_kernel(const float* __restrict__ img,
     for (int u = 0; u < kHead; ++u)
         if (lane + u * kLanes < K) fr[K - 1 - lane - u * kLanes] = fv[u];
     stage_tails(row, lay.row, img_i, 1, L, pad, lane);
-    for (int x = kChunk + lane; x < lay.L_out; x += kLanes) g[lay.og + x] = d[x];
-    for (int k = kHead * kLanes + lane; k < K; k += kLanes) fr[K - 1 - k] = filt_i[k];
+    for (int x = kChunk + lane; x < lay.L_out; x += kLanes) g[lay.og + x] = to_float(d[x]);
+    for (int k = kHead * kLanes + lane; k < K; k += kLanes) fr[K - 1 - k] = to_float(filt_i[k]);
     __syncwarp();
 
     // dimg[j] = sum_k' g[db + j + k'] * fr[k']
@@ -386,7 +388,7 @@ __global__ void dfn_backward_kernel(const float* __restrict__ img,
                 for (int r = 0; r < kR; ++r) acc[k] = fmaf(gx[r], w[r + k], acc[k]);
         }
         reduce_scatter<kLanes / 2, NP>(acc, lane);
-        if (lane < KT) dfilt[item * K + lane] = acc[0];
+        if (lane < KT) dfilt[item * K + lane] = from_float<T>(acc[0]);
     } else {
         for (int k = 0; k < K; ++k) {
             float p = 0.0f;
@@ -395,7 +397,7 @@ __global__ void dfn_backward_kernel(const float* __restrict__ img,
                 for (int r = 0; r < kR; ++r) p = fmaf(g[lay.og + x0 + r], row[x0 + r + k], p);
 #pragma unroll
             for (int o = kLanes / 2; o >= 1; o /= 2) p += __shfl_xor_sync(0xffffffffu, p, o);
-            if (lane == 0) dfilt[item * K + k] = p;
+            if (lane == 0) dfilt[item * K + k] = from_float<T>(p);
         }
     }
 }
@@ -440,17 +442,35 @@ cudaError_t dispatch_forward(const void* img, const void* filt, void* out, int B
     return launch_forward<T, 0, 0>(img, filt, out, B, C, L, K, pad, warps, grid, vec, s);
 }
 
-template <int KT, int CT>
-cudaError_t launch_backward(const float* img, const float* filt, const float* dout, float* dimg,
-                            float* dfilt, int B, int C, int L, int K, int pad,
+template <typename T, int KT, int CT>
+cudaError_t launch_backward(const void* img, const void* filt, const void* dout, void* dimg,
+                            void* dfilt, int B, int C, int L, int K, int pad,
                             long long dout_stride, int warps, int grid, int vec,
                             cudaStream_t stream) {
     const size_t smem = sizeof(float) * (size_t)layout(C, L, K, pad, true).warp_floats * warps;
-    const cudaError_t err = reserve_smem(dfn_backward_kernel<KT, CT>, smem);
+    const cudaError_t err = reserve_smem(dfn_backward_kernel<T, KT, CT>, smem);
     if (err != cudaSuccess) return err;
-    dfn_backward_kernel<KT, CT><<<grid, warps * kLanes, smem, stream>>>(
-        img, filt, dout, dimg, dfilt, B, C, L, K, pad, dout_stride, vec);
+    dfn_backward_kernel<T, KT, CT><<<grid, warps * kLanes, smem, stream>>>(
+        static_cast<const T*>(img), static_cast<const T*>(filt), static_cast<const T*>(dout),
+        static_cast<T*>(dimg), static_cast<T*>(dfilt), B, C, L, K, pad, dout_stride, vec);
     return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_backward(const void* img, const void* filt, const void* dout, void* dimg,
+                              void* dfilt, int B, int C, int L, int K, int pad,
+                              long long dout_stride, int warps, int grid, int vec, int taps,
+                              cudaStream_t s) {
+    if (!plan_fits((long long)B * C, C, L, K, warps, grid, vec, taps, img, 4 * sizeof(T)))
+        return cudaErrorInvalidValue;
+    if (taps == 21)
+        return launch_backward<T, 21, 3>(img, filt, dout, dimg, dfilt, B, C, L, K, pad,
+                                          dout_stride, warps, grid, vec, s);
+    if (taps == 7)
+        return launch_backward<T, 7, 3>(img, filt, dout, dimg, dfilt, B, C, L, K, pad,
+                                         dout_stride, warps, grid, vec, s);
+    return launch_backward<T, 0, 0>(img, filt, dout, dimg, dfilt, B, C, L, K, pad, dout_stride,
+                                    warps, grid, vec, s);
 }
 
 }  // namespace
@@ -470,27 +490,20 @@ extern "C" int dfn_forward(const void* img, const void* filt, void* out, int B, 
     return (int)cudaErrorInvalidValue;
 }
 
-// float32 only: img (B, C, L), filt (B, 1, C, K), dout (B, 1, L_out) with
-// unit stride along x and rows dout_stride elements apart -> dimg (B, C, L),
-// dfilt (B, 1, C, K). Returns the cudaError_t of the launch.
+// dtype as dfn_forward's, for every tensor: img (B, C, L), filt (B, 1, C, K),
+// dout (B, 1, L_out) with unit stride along x and rows dout_stride elements
+// apart -> dimg (B, C, L), dfilt (B, 1, C, K). Returns the cudaError_t of
+// the launch.
 extern "C" int dfn_backward(const void* img, const void* filt, const void* dout, void* dimg,
                             void* dfilt, int B, int C, int L, int K, int pad,
-                            long long dout_stride, int warps, int grid, int vec, int taps,
-                            void* stream) {
-    if (!plan_fits((long long)B * C, C, L, K, warps, grid, vec, taps, img, 16))
-        return (int)cudaErrorInvalidValue;
-    const float* i = static_cast<const float*>(img);
-    const float* f = static_cast<const float*>(filt);
-    const float* d = static_cast<const float*>(dout);
-    float* di = static_cast<float*>(dimg);
-    float* df = static_cast<float*>(dfilt);
+                            long long dout_stride, int dtype, int warps, int grid, int vec,
+                            int taps, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (taps == 21)
-        return (int)launch_backward<21, 3>(i, f, d, di, df, B, C, L, K, pad, dout_stride, warps,
-                                           grid, vec, s);
-    if (taps == 7)
-        return (int)launch_backward<7, 3>(i, f, d, di, df, B, C, L, K, pad, dout_stride, warps,
-                                          grid, vec, s);
-    return (int)launch_backward<0, 0>(i, f, d, di, df, B, C, L, K, pad, dout_stride, warps, grid,
-                                      vec, s);
+    if (dtype == 0)
+        return (int)dispatch_backward<float>(img, filt, dout, dimg, dfilt, B, C, L, K, pad,
+                                             dout_stride, warps, grid, vec, taps, s);
+    if (dtype == 1)
+        return (int)dispatch_backward<__nv_bfloat16>(img, filt, dout, dimg, dfilt, B, C, L, K,
+                                                     pad, dout_stride, warps, grid, vec, taps, s);
+    return (int)cudaErrorInvalidValue;
 }

@@ -112,7 +112,7 @@ class StoryGANDataset:
             fake = self.net_g.sample_videos(
                 torch.from_numpy(np.stack(motions)).to(self.device),
                 torch.from_numpy(np.stack(contents)).to(self.device),
-                generator=self.generator).image.cpu().numpy()
+                generator=self.generator).image.float().cpu().numpy()
         for j, i in enumerate(idxs):
             self._cache[i] = fake[j]
 

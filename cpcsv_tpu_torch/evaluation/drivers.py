@@ -131,8 +131,8 @@ class Infer:
     @torch.no_grad()
     def sample_videos_np(self, batch, seg: bool = False):
         """Story batch -> (video (B, T, 64, 64, 3), mask (B*T, 64, 64, 1) or
-        None), numpy float32, computed in float32 whatever the global TF32
-        flags say."""
+        None), numpy float32, computed in cfg.COMPUTE_DTYPE (float32 whatever
+        the global TF32 flags say, or bfloat16)."""
         if not self.loaded:
             raise RuntimeError(
                 "no generator weights: pass a state_dict, or load_ckpt=E or load_epoch(E) "
@@ -145,8 +145,8 @@ class Infer:
                 seg=seg,
                 generator=self.generator,
             )
-        mask = out.seg.cpu().numpy() if out.seg is not None else None
-        return out.image.cpu().numpy(), mask
+        mask = out.seg.float().cpu().numpy() if out.seg is not None else None
+        return out.image.float().cpu().numpy(), mask
 
     # ------------------------------------------------------------------ dumps
     def generate_story(self, storyloader, dirname: str = "", skip_original: bool = False):

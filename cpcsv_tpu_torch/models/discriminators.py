@@ -21,14 +21,20 @@ package's layouts: images (N, H, W, C), stories (B, T, H, W, C).
 which sets how the BN running statistics and the SN vectors evolve. There is
 no VideoEncoder and no InfoNCE method yet (`models/factory.py` refuses
 both).
+
+`dtype` is the compute dtype (cfg.COMPUTE_DTYPE; None = float32): every conv
+runs in it, with float32 parameters, so the features and logits come out in
+it; the losses take the logits to float32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
-from cpcsv_tpu_torch.ops.blocks import BatchNorm2d, Conv4x4s2
+from cpcsv_tpu_torch.ops.blocks import BatchNorm2d, Conv2d, Conv4x4s2
 from cpcsv_tpu_torch.ops.spectral_norm import SNConv2d
 
 LEAK = 0.2
@@ -38,14 +44,16 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
-def encoder64(in_channels: int, ndf: int, sn_first: bool) -> nn.Sequential:
+def encoder64(in_channels: int, ndf: int, sn_first: bool,
+              dtype: Optional[torch.dtype] = None) -> nn.Sequential:
     """64x64 -> 4x4x(ndf*8): four 4x4 stride-2 convs with LeakyReLU(0.2);
     spectral norm on layers 2-4 (and on layer 1 for the story D)."""
-    first = SNConv2d(in_channels, ndf, 4, 2, 1) if sn_first else Conv4x4s2(in_channels, ndf)
+    first = (SNConv2d(in_channels, ndf, 4, 2, 1, dtype=dtype) if sn_first
+             else Conv4x4s2(in_channels, ndf, dtype))
     layers = [first, nn.LeakyReLU(LEAK)]
     for m_in, m_out in ((1, 2), (2, 4), (4, 8)):
-        layers += [SNConv2d(ndf * m_in, ndf * m_out, 4, 2, 1), BatchNorm2d(ndf * m_out),
-                   nn.LeakyReLU(LEAK)]
+        layers += [SNConv2d(ndf * m_in, ndf * m_out, 4, 2, 1, dtype=dtype),
+                   BatchNorm2d(ndf * m_out), nn.LeakyReLU(LEAK)]
     return nn.Sequential(*layers)
 
 
@@ -53,14 +61,14 @@ class DGetLogits(nn.Module):
     """Conditional logit head: features (N, ndf*8, 4, 4) and conditions
     (N, nef) -> logits (N,)."""
 
-    def __init__(self, ndf: int, nef: int):
+    def __init__(self, ndf: int, nef: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.ef_dim = nef
         self.outlogits = nn.Sequential(
-            SNConv2d(ndf * 8 + nef, ndf * 8, 3, 1, 1),
+            SNConv2d(ndf * 8 + nef, ndf * 8, 3, 1, 1, dtype=dtype),
             BatchNorm2d(ndf * 8),
             nn.LeakyReLU(LEAK),
-            SNConv2d(ndf * 8, 1, 4, 4, 0, bias=True),
+            SNConv2d(ndf * 8, 1, 4, 4, 0, bias=True, dtype=dtype),
         )
 
     def forward(self, h_code: torch.Tensor, c_code: torch.Tensor) -> torch.Tensor:
@@ -76,12 +84,13 @@ class ImageDiscriminator(nn.Module):
     a multi-label character head."""
 
     def __init__(self, ndf: int = 124, nef: int = 124, text_dim: int = 356,
-                 label_num: int = 9, use_categories: bool = True, in_channels: int = 3):
+                 label_num: int = 9, use_categories: bool = True, in_channels: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_channels, self.label_num = in_channels, label_num
-        self.encode_img = encoder64(in_channels, ndf, sn_first=False)
-        self.get_cond_logits = DGetLogits(ndf, nef + text_dim + label_num)
-        self.cate_classify = (nn.Conv2d(ndf * 8, label_num, 4, 4, 1, bias=False)
+        self.encode_img = encoder64(in_channels, ndf, sn_first=False, dtype=dtype)
+        self.get_cond_logits = DGetLogits(ndf, nef + text_dim + label_num, dtype)
+        self.cate_classify = (Conv2d(ndf * 8, label_num, 4, 4, 1, bias=False, dtype=dtype)
                               if use_categories else None)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
@@ -122,8 +131,9 @@ class SegDiscriminator(ImageDiscriminator):
     """STAGE1_D_SEG: the same on 1-channel masks."""
 
     def __init__(self, ndf: int = 124, nef: int = 124, text_dim: int = 356,
-                 label_num: int = 9, use_categories: bool = True, in_channels: int = 1):
-        super().__init__(ndf, nef, text_dim, label_num, use_categories, in_channels)
+                 label_num: int = 9, use_categories: bool = True, in_channels: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(ndf, nef, text_dim, label_num, use_categories, in_channels, dtype)
 
 
 class StoryDiscriminator(nn.Module):
@@ -131,10 +141,10 @@ class StoryDiscriminator(nn.Module):
     features averaged over the frames, a conditional head, no character head."""
 
     def __init__(self, ndf: int = 124, nef: int = 124, text_dim: int = 356,
-                 label_num: int = 9):
+                 label_num: int = 9, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.encode_img = encoder64(3, ndf, sn_first=True)
-        self.get_cond_logits = DGetLogits(ndf, nef + text_dim + label_num)
+        self.encode_img = encoder64(3, ndf, sn_first=True, dtype=dtype)
+        self.get_cond_logits = DGetLogits(ndf, nef + text_dim + label_num, dtype)
 
     def forward(self, story: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, 3) -> frame-mean features (B, ndf*8, 4, 4)."""

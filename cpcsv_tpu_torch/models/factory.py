@@ -3,6 +3,10 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.models.discriminators import (
     ImageDiscriminator,
@@ -20,13 +24,22 @@ UNSUPPORTED_KEYS = (
 )
 
 
+# cfg.COMPUTE_DTYPE -> the modules' compute dtype (None: no casts, the
+# parameters' float32)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
+    if cfg.COMPUTE_DTYPE not in COMPUTE_DTYPES:
+        raise ValueError(f"COMPUTE_DTYPE={cfg.COMPUTE_DTYPE!r} invalid; one of "
+                         f"{tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[cfg.COMPUTE_DTYPE]
+
+
 def generator_from_config(cfg: Config) -> StoryGenerator:
-    """The StoryGenerator of `cfg`, on the CPU, in float32. On a CUDA device
-    its DFN always runs the CUDA kernel."""
-    if cfg.COMPUTE_DTYPE != "float32":
-        raise NotImplementedError(
-            f"COMPUTE_DTYPE={cfg.COMPUTE_DTYPE!r}: the port's generator runs float32 only"
-        )
+    """The StoryGenerator of `cfg`, on the CPU, its parameters float32, its
+    compute in cfg.COMPUTE_DTYPE. On a CUDA device its DFN always runs the
+    CUDA kernel."""
     default = Config()
     for key in UNSUPPORTED_KEYS:
         if getattr(cfg, key) != getattr(default, key):
@@ -46,6 +59,7 @@ def generator_from_config(cfg: Config) -> StoryGenerator:
         cascade=cfg.CASCADE_MODEL,
         torch_repeat_quirk=cfg.TORCH_REPEAT_QUIRK,
         fused_upsample=cfg.FUSED_UPSAMPLE,
+        dtype=compute_dtype(cfg),
     )
 
 
@@ -61,11 +75,12 @@ NOT_TRAINED_YET = {
 
 
 def build_models(cfg: Config):
-    """(G, D_im, D_st, D_se) for training, on the CPU, in float32."""
+    """(G, D_im, D_st, D_se) for training, on the CPU, their parameters
+    float32, their compute in cfg.COMPUTE_DTYPE."""
     for key, (refused, why) in NOT_TRAINED_YET.items():
         if getattr(cfg, key) == refused:
             raise NotImplementedError(f"{key}={refused!r}: {why}")
     net_g = generator_from_config(cfg)
     kw = dict(ndf=cfg.GAN.DF_DIM, nef=cfg.GAN.CONDITION_DIM, text_dim=cfg.TEXT.DIMENSION,
-              label_num=cfg.LABEL_NUM)
+              label_num=cfg.LABEL_NUM, dtype=compute_dtype(cfg))
     return net_g, ImageDiscriminator(**kw), StoryDiscriminator(**kw), SegDiscriminator(**kw)

@@ -25,6 +25,13 @@ The module's mode picks the BatchNorm statistics: eval mode serves with the
 running ones; train mode normalises with the batch's and updates each BN's
 running statistics in call order, and on the card the DFN's gradient comes
 from its backward kernel (`ops/dynamic_filter.py`).
+
+`dtype` is the compute dtype (cfg.COMPUTE_DTYPE; None = float32), threaded
+as the JAX package threads it: the parameters stay float32, and CANet, the
+dense heads, both GRUs, the DFN, both trunks and the cascade re-encoder run
+in it, so the frames, masks, latents and CA codes come out in it. The noise
+is drawn in float32, the inputs' dtype; the CA eps is cast to the CA codes'
+dtype, as JAX draws it in that dtype.
 """
 
 from __future__ import annotations
@@ -34,7 +41,14 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from cpcsv_tpu_torch.ops.blocks import BatchNorm2d, Conv3x3, DenseBN, DownBlock, UpBlock
+from cpcsv_tpu_torch.ops.blocks import (
+    BatchNorm2d,
+    Conv3x3,
+    DenseBN,
+    DownBlock,
+    Linear,
+    UpBlock,
+)
 from cpcsv_tpu_torch.ops.dynamic_filter import dynamic_filter_conv1d
 from cpcsv_tpu_torch.ops.gru import gru_unroll
 
@@ -57,15 +71,15 @@ class CANet(nn.Module):
     """Conditioning augmentation (reference `model.py:37-65`). The ReLU comes
     before the mu / logvar split."""
 
-    def __init__(self, in_features: int, c_dim: int):
+    def __init__(self, in_features: int, c_dim: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.c_dim = c_dim
-        self.fc = nn.Linear(in_features, c_dim * 2)
+        self.fc = Linear(in_features, c_dim * 2, dtype=dtype)
 
     def forward(self, text_embedding: torch.Tensor, eps: torch.Tensor):
         x = torch.relu(self.fc(text_embedding))
         mu, logvar = x[:, : self.c_dim], x[:, self.c_dim :]
-        return mu + torch.exp(0.5 * logvar) * eps, mu, logvar
+        return mu + torch.exp(0.5 * logvar) * eps.to(mu.dtype), mu, logvar
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -91,6 +105,7 @@ class StoryGenerator(nn.Module):
         out_num: int = 1,
         torch_repeat_quirk: bool = False,
         fused_upsample: str = "off",
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.video_len = video_len
@@ -101,40 +116,41 @@ class StoryGenerator(nn.Module):
         self.filter_num, self.filter_size = filter_num, filter_size
         self.image_size, self.out_num = image_size, out_num
         self.torch_repeat_quirk = torch_repeat_quirk
+        self.dtype = dt = dtype
         ngf, ngf_seg, fu = gf_dim, gf_dim_seg, fused_upsample
         ninput = motion_dim + content_dim + image_size  # 613
 
-        self.ca_net = CANet(text_dim * video_len, content_dim)
-        self.filter_net = DenseBN(content_dim, filter_size * filter_num * out_num)
-        self.image_net = DenseBN(motion_dim, image_size * filter_num, nn.Tanh())
-        self.fc = DenseBN(ninput, ngf * 16, nn.ReLU(), bias=False)
-        self.upsample1 = UpBlock(ngf, ngf // 2, fu)
-        self.upsample2 = UpBlock(ngf // 2, ngf // 4, fu)
-        self.upsample3 = UpBlock(ngf // 4, ngf // 8, fu)
-        self.upsample4 = UpBlock(ngf // 8, ngf // 16, fu)
-        self.img = nn.Sequential(Conv3x3(ngf // 16, n_channels), nn.Tanh())
+        self.ca_net = CANet(text_dim * video_len, content_dim, dt)
+        self.filter_net = DenseBN(content_dim, filter_size * filter_num * out_num, dtype=dt)
+        self.image_net = DenseBN(motion_dim, image_size * filter_num, nn.Tanh(), dtype=dt)
+        self.fc = DenseBN(ninput, ngf * 16, nn.ReLU(), bias=False, dtype=dt)
+        self.upsample1 = UpBlock(ngf, ngf // 2, fu, dt)
+        self.upsample2 = UpBlock(ngf // 2, ngf // 4, fu, dt)
+        self.upsample3 = UpBlock(ngf // 4, ngf // 8, fu, dt)
+        self.upsample4 = UpBlock(ngf // 8, ngf // 16, fu, dt)
+        self.img = nn.Sequential(Conv3x3(ngf // 16, n_channels, dt), nn.Tanh())
 
         if use_segment:
-            self.seg_c = Conv3x3(ngf_seg, ngf)
-            self.seg_c1 = Conv3x3(ngf_seg // 2, ngf // 2)
-            self.fc_seg = DenseBN(ninput, ngf_seg * 16, nn.ReLU(), bias=False)
-            self.upsample1_seg = UpBlock(ngf_seg, ngf_seg // 2, fu)
-            self.upsample2_seg = UpBlock(ngf_seg // 2, ngf_seg // 4, fu)
-            self.upsample3_seg = UpBlock(ngf_seg // 4, ngf_seg // 8, fu)
-            self.upsample4_seg = UpBlock(ngf_seg // 8, ngf_seg // 16, fu)
-            self.img_seg = nn.Sequential(Conv3x3(ngf_seg // 16, 1), nn.Tanh())
+            self.seg_c = Conv3x3(ngf_seg, ngf, dt)
+            self.seg_c1 = Conv3x3(ngf_seg // 2, ngf // 2, dt)
+            self.fc_seg = DenseBN(ninput, ngf_seg * 16, nn.ReLU(), bias=False, dtype=dt)
+            self.upsample1_seg = UpBlock(ngf_seg, ngf_seg // 2, fu, dt)
+            self.upsample2_seg = UpBlock(ngf_seg // 2, ngf_seg // 4, fu, dt)
+            self.upsample3_seg = UpBlock(ngf_seg // 4, ngf_seg // 8, fu, dt)
+            self.upsample4_seg = UpBlock(ngf_seg // 8, ngf_seg // 16, fu, dt)
+            self.img_seg = nn.Sequential(Conv3x3(ngf_seg // 16, 1, dt), nn.Tanh())
             if cascade:
                 # mask re-encoder (reference cascade_model.py:312-320)
                 self.presample = nn.Sequential(
-                    Conv3x3(1, ngf_seg // 16), BatchNorm2d(ngf_seg // 16), nn.ReLU()
+                    Conv3x3(1, ngf_seg // 16, dt), BatchNorm2d(ngf_seg // 16), nn.ReLU()
                 )
-                self.downsample1_seg = DownBlock(ngf_seg // 16, ngf_seg // 8)
-                self.downsample2_seg = DownBlock(ngf_seg // 8, ngf_seg // 4)
-                self.downsample3_seg = DownBlock(ngf_seg // 4, ngf_seg // 2)
-                self.downsample4_seg = DownBlock(ngf_seg // 2, ngf_seg)
+                self.downsample1_seg = DownBlock(ngf_seg // 16, ngf_seg // 8, dt)
+                self.downsample2_seg = DownBlock(ngf_seg // 8, ngf_seg // 4, dt)
+                self.downsample3_seg = DownBlock(ngf_seg // 4, ngf_seg // 2, dt)
+                self.downsample4_seg = DownBlock(ngf_seg // 2, ngf_seg, dt)
 
-        self.m_net = DenseBN(motion_dim, motion_dim)
-        self.c_net = DenseBN(content_dim, content_dim)
+        self.m_net = DenseBN(motion_dim, motion_dim, dtype=dt)
+        self.c_net = DenseBN(content_dim, content_dim, dtype=dt)
         self.recurrent = nn.GRUCell(noise_dim + motion_dim, motion_dim)
         self.mocornn = nn.GRUCell(motion_dim, content_dim)
 
@@ -156,14 +172,14 @@ class StoryGenerator(nn.Module):
         if m_code.dim() == 2:
             m_code = m_code[:, None, :].expand(-1, steps, -1)
         xs = torch.cat([step_noise, m_code[:, :steps]], dim=-1)
-        hs = gru_unroll(self.recurrent, self.m_net(h0_noise), xs)
+        hs = gru_unroll(self.recurrent, self.m_net(h0_noise), xs, self.dtype)
         return hs.reshape(-1, self.motion_dim)
 
     def motion_content_rnn(self, motion_input, content_code) -> torch.Tensor:
         """Context GRU (reference `model.py:336-346`)."""
         if motion_input.dim() == 2:
             motion_input = motion_input[:, None, :]
-        hs = gru_unroll(self.mocornn, self.c_net(content_code), motion_input)
+        hs = gru_unroll(self.mocornn, self.c_net(content_code), motion_input, self.dtype)
         return hs.reshape(-1, self.content_dim)
 
     # ------------------------------------------------------------- DFN fusion

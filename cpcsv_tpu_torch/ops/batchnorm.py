@@ -5,17 +5,29 @@ Counterpart of `cpcsv_tpu/ops/batchnorm.py` (`bn_train_core`, `_bn_fwd`,
 
   * forward: (s, q) = bn_stats(x); mean = s/M, var = max(0, q/M − mean²)
     (flax's fast variance); y = (x − mean)·(rsqrt(var + eps)·scale) + bias,
-    in float32;
+    in float32, cast to x's dtype at the end;
   * backward: (sdy, sdyx) = bn_grad_reduce(x, dy, mean, invstd);
-    dx = scale·invstd·(dy − sdy/M − xhat·sdyx/M), dscale = sdyx, dbias = sdy.
-    No gradient flows through the returned mean and var: they only feed the
-    running update, which nothing differentiates;
+    dx = scale·invstd·(dy − sdy/M − xhat·sdyx/M), dscale = sdyx, dbias = sdy,
+    in float32, dx cast to x's dtype. No gradient flows through the returned
+    mean and var: they only feed the running update, which nothing
+    differentiates;
   * running update (`update_running_stats`): momentum 0.1 (flax 0.9), with
     torch's unbiased variance, var·M/(M−1).
 
-M = N·H·W. A CUDA tensor goes to the kernels (`ops/cuda/bn.py`), a CPU
+M = N·H·W. x is float32 or bfloat16; the reductions read it as it is and
+sum in float32. A CUDA tensor goes to the kernels (`ops/cuda/bn.py`), a CPU
 tensor to their plain versions; the normalize and dx passes are plain
 PyTorch on both, as the JAX package computes them outside Pallas too.
+
+At bfloat16 this is the arithmetic of the JAX package's Pallas arm
+(`cpcsv_tpu/ops/batchnorm.py`, BN_BACKEND "pallas"): statistics and
+normalize in float32, only the output rounded. Its default flax arm
+(BN_BACKEND "xla", which the bfloat16 configs run) computes the same
+formula with the statistics summed in another order, so the two differ
+by float32 rounding, which later bfloat16 roundings can carry further.
+The output's cast is inside the autograd Function, so the backward reads
+a bfloat16 dy: the values of JAX's float32 cotangent of the cast, at half
+the bytes.
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ def bn_grad_reduce(x3, dy3, mean, invstd) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 class _BatchNormTrain(torch.autograd.Function):
-    """(x (N, C, ...), scale [C], bias [C]) -> (y, mean, var), float32."""
+    """(x (N, C, ...), scale [C], bias [C]) -> (y in x's dtype, mean, var)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
@@ -58,10 +70,10 @@ class _BatchNormTrain(torch.autograd.Function):
         mean = s / M
         var = torch.clamp(q / M - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
-        y = (x3 - mean[:, None]) * (inv * scale)[:, None] + bias[:, None]
+        y = (bn_cuda.upcast(x3) - mean[:, None]) * (inv * scale)[:, None] + bias[:, None]
         ctx.save_for_backward(x3, scale, mean, inv)
         ctx.mark_non_differentiable(mean, var)
-        return y.view(x.shape), mean, var
+        return y.to(x.dtype).view(x.shape), mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
@@ -69,16 +81,18 @@ class _BatchNormTrain(torch.autograd.Function):
         dy3 = dy.reshape(x3.shape).contiguous()
         M = x3.shape[0] * x3.shape[2]
         sdy, sdyx = bn_grad_reduce(x3, dy3, mean, inv)
-        xhat = (x3 - mean[:, None]) * inv[:, None]
-        dx = (scale * inv)[:, None] * (dy3 - (sdy / M)[:, None] - xhat * (sdyx / M)[:, None])
-        return dx.view(dy.shape), sdyx, sdy, None
+        xhat = (bn_cuda.upcast(x3) - mean[:, None]) * inv[:, None]
+        dx = (scale * inv)[:, None] * (bn_cuda.upcast(dy3) - (sdy / M)[:, None]
+                                       - xhat * (sdyx / M)[:, None])
+        return dx.to(x3.dtype).view(dy.shape), sdyx, sdy, None
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float):
-    """Train-mode BN of float32 x (N, C) or (N, C, H, W) with batch statistics:
-    (y, batch mean, biased batch var)."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"train-mode BatchNorm runs in float32, got {x.dtype}")
+    """Train-mode BN of float32 or bfloat16 x (N, C) or (N, C, H, W) with
+    batch statistics: (y in x's dtype, batch mean, biased batch var), the
+    statistics float32."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"train-mode BatchNorm takes float32 or bfloat16, got {x.dtype}")
     return _BatchNormTrain.apply(x, scale, bias, eps)
 
 

@@ -96,7 +96,7 @@ def _library() -> ctypes.CDLL:
         lib.dfn_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         lib.dfn_forward.restype = ctypes.c_int
         lib.dfn_backward.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                                     + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                                     + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.dfn_backward.restype = ctypes.c_int
     return lib
 
@@ -165,14 +165,15 @@ def dfn_backward(
     image: torch.Tensor, filters: torch.Tensor, dout: torch.Tensor, pad: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gradients of `dfn_forward` at (image, filters) for the output gradient
-    dout (B, 1, L_out): (d image (B, C, L), d filters (B, 1, C, K)), float32.
-    dout's rows may lie any distance apart (a column slice of a wider
-    buffer), with unit stride along L_out."""
-    L_out = _check(image, filters, pad, "dfn_backward", (torch.float32,))
+    dout (B, 1, L_out): (d image (B, C, L), d filters (B, 1, C, K)), all of
+    one dtype, float32 or bfloat16, summed in float32. dout's rows may lie
+    any distance apart (a column slice of a wider buffer), with unit stride
+    along L_out."""
+    L_out = _check(image, filters, pad, "dfn_backward", tuple(_DTYPES))
     B = image.shape[0]
-    if dout.shape != (B, 1, L_out) or dout.dtype != torch.float32 or dout.device != image.device:
-        raise ValueError(f"dfn_backward: dout must be float32 {(B, 1, L_out)} on {image.device}, "
-                         f"got {dout.dtype} {tuple(dout.shape)} on {dout.device}")
+    if dout.shape != (B, 1, L_out) or dout.dtype != image.dtype or dout.device != image.device:
+        raise ValueError(f"dfn_backward: dout must be {image.dtype} {(B, 1, L_out)} on "
+                         f"{image.device}, got {dout.dtype} {tuple(dout.shape)} on {dout.device}")
     if dout.stride(-1) != 1:
         raise ValueError(f"dfn_backward takes dout with unit stride along L_out, got strides "
                          f"{dout.stride()}")
@@ -188,7 +189,7 @@ def launch_backward(p: Plan, image: torch.Tensor, filters: torch.Tensor, dout: t
     dfilters = torch.empty_like(filters)
     err = _call(_library().dfn_backward, image.device, image.data_ptr(), filters.data_ptr(),
                 dout.data_ptr(), dimage.data_ptr(), dfilters.data_ptr(), B, C, L,
-                filters.shape[-1], pad, dout.stride(0), *p)
+                filters.shape[-1], pad, dout.stride(0), _DTYPES[image.dtype], *p)
     if err != 0:
         raise RuntimeError(f"dfn_backward launch failed with CUDA error {err} ({p})")
     launches["dfn_backward"] += 1

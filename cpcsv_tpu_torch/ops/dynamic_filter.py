@@ -9,6 +9,11 @@ A CUDA tensor always goes to the hand-written kernels (`ops/cuda/dfn.py`):
 the forward kernel, and the backward kernel when autograd asks for the
 gradients. They raise for what they do not take (O != 1, other dtypes). The
 plain version below serves CPU tensors only; autograd differentiates it.
+
+Both take float32 or bfloat16 (COMPUTE_DTYPE; the JAX package runs the op on
+bfloat16 image and filters, `cpcsv_tpu/models/generator.py:_dfn_fuse`), sum
+in float32 and round each output, and each gradient, to the input's dtype
+once.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ def dynamic_filter_conv1d_plain(
     image: torch.Tensor, filters: torch.Tensor, pad: int
 ) -> torch.Tensor:
     """image (B, C, L), filters (B, O, C, K) -> (B, O, L + 2*pad - K + 1):
-    pad, unfold the K taps, one einsum. Any O."""
+    pad, unfold the K taps, one einsum in float32 (or wider), the result in
+    the input's dtype. Any O."""
     K = filters.shape[-1]
-    taps = F.pad(image, (pad, pad)).unfold(2, K, 1)  # (B, C, L_out, K)
-    return torch.einsum("bcxk,bock->box", taps, filters)
+    acc = torch.promote_types(image.dtype, torch.float32)
+    taps = F.pad(image.to(acc), (pad, pad)).unfold(2, K, 1)  # (B, C, L_out, K)
+    return torch.einsum("bcxk,bock->box", taps, filters.to(acc)).to(image.dtype)
 
 
 def dynamic_filter_conv1d_backward_plain(

@@ -30,6 +30,12 @@ each, `StoryGenerator.draw_noise`), or those draws themselves as a pair
 (st_noise, im_noise). Each step holds float32 itself (`device.float32_math`),
 returns the state it updated in place and its metrics as 0-d tensors under
 the JAX tag names, and leaves each stepped parameter's gradient in `.grad`.
+
+At COMPUTE_DTYPE bfloat16 the nets compute in bfloat16 (`models/`), while the
+batches enter as float32, every loss (the cascade MSEs included, as
+`cpcsv_tpu/train/steps.py:_mse`) is taken in float32, and the parameters,
+their gradients, the Adam moments and the BN running statistics stay
+float32.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ def build_conditions(st_batch, im_batch, c_mu, cim_mu):
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.square(a - b))
+    return torch.mean(torch.square(a.float() - b.float()))
 
 
 def _latent_loss(latents) -> torch.Tensor:

@@ -251,12 +251,12 @@ class GANTrainer:
                 torch.as_tensor(motion, dtype=torch.float32, device=self.device),
                 torch.as_tensor(st_host["description"], dtype=torch.float32, device=self.device),
                 seg=cfg.SEGMENT_LEARNING, generator=generator)
-        grid = save_story_results(st_host["images"], out.image.cpu().numpy(), st_host.get("text"),
-                                  f"{epoch:03d}", self.image_dir)
+        grid = save_story_results(st_host["images"], out.image.float().cpu().numpy(),
+                                  st_host.get("text"), f"{epoch:03d}", self.image_dir)
         self.logger.add_image("pororo", grid, epoch)
         if out.seg is not None:
-            self.logger.add_image("segment", save_image_results(None, out.seg.cpu().numpy(),
-                                                                cfg.VIDEO_LEN), epoch)
+            seg = out.seg.float().cpu().numpy()
+            self.logger.add_image("segment", save_image_results(None, seg, cfg.VIDEO_LEN), epoch)
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager

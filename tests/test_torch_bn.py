@@ -256,6 +256,42 @@ def test_plan_covers_every_element_once(shape, aligned):
     assert (_walk_maps(p, N, C, S) == 1).all()
 
 
+# the same widths at throughput.yml's batches (IM_BATCH 360, ST_BATCH 72),
+# bfloat16, beside the edge shapes
+BF16_PLAN_SHAPES = ([({17: 71, 18: 72, 89: 359, 90: 360}[n], c, s) for n, c, s in STEP_SHAPES]
+                    + PLAN_SHAPES[len(STEP_SHAPES):])
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("shape", BF16_PLAN_SHAPES, ids=str)
+def test_bf16_plan_covers_every_element_once(shape, aligned):
+    """bfloat16: 16-byte loads are 8 elements, so a load covers twice the
+    elements it does in float32; every element is still read once."""
+    N, C, S = shape
+    p = bn_cuda.plan(N, C, S, H100_SMS, aligned, itemsize=2)
+    assert p.vec in (1, 8)
+    if p.vec == 8:
+        assert aligned and (C if S == 1 else S) % 8 == 0
+    if S == 1:
+        reads, written = _walk_rows(p, N, C)
+        assert (reads == 1).all() and (written == np.arange(C)).all()
+        return
+    assert p.grid == -(-C // p.channels) * p.cluster
+    assert (_walk_maps(p, N, C, S) == 1).all()
+
+
+def test_bf16_plan_sizes_work_in_16_byte_loads():
+    # the largest bfloat16 map of a throughput.yml step reads as many 16-byte
+    # loads as the float32 one of final.yml at a quarter of the batch
+    bf16 = bn_cuda.plan(360, 128, 4096, H100_SMS, True, itemsize=2)
+    assert bf16 == bn_cuda.Plan(8, 256, 2, 1)
+    assert bf16._replace(vec=4) == bn_cuda.plan(180, 128, 4096, H100_SMS, True)
+    assert bn_cuda.plan(360, 32768, 1, H100_SMS, True, itemsize=2) == bn_cuda.Plan(8, 1024, 1, 32)
+    assert bn_cuda.plan(360, 124, 1, H100_SMS, True, itemsize=2).vec == 1  # 124 % 8 != 0
+    with pytest.raises(ValueError):
+        bn_cuda.plan(4, 4, 4, H100_SMS, True, itemsize=8)
+
+
 def test_plan_follows_the_card_and_the_alignment():
     # the largest maps of the step: a cluster of 2 blocks a channel, float4
     assert bn_cuda.plan(90, 128, 4096, H100_SMS, True) == bn_cuda.Plan(4, 256, 2, 1)
@@ -331,3 +367,42 @@ def test_cuda_kernels_match_plain():
                                          ("maps", 4, False), ("maps", 4, True),
                                          ("maps", 1, False), ("maps", 1, True)}
     assert {v[3] for v in variants if v[0] == "maps"} == {1, 2, 4, 8}
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_bf16():
+    """bfloat16 x and dy at the throughput.yml step's shapes (IM_BATCH 360,
+    ST_BATCH 72) and odd ones, each 16-byte aligned and one element off, so
+    that every load width runs: 8 bfloat16s and one. The float32 sums of the
+    kernels against the plain versions on the upcast inputs in float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    shapes = [(360, 32768, 1), (72, 992, 16), (359, 992, 16), (360, 248, 256),
+              (360, 1024, 64), (360, 128, 4096), (7, 128, 4096), (1, 64, 4096), (360, 1, 1024),
+              (7, 37, 5), (3, 5, 18), (360, 9, 1), (360, 124, 1), (1, 5, 1)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    variants = set()
+    for (N, C, S), offset in ((sh, off) for sh in shapes for off in (0, 1)):
+        gen = torch.Generator(device="cuda").manual_seed(N * C + S)
+        buf = torch.randn(2, N * C * S + 8, generator=gen, device="cuda").to(torch.bfloat16)
+        x, dy = (row[offset:offset + N * C * S].view(N, C, S) for row in buf)
+        x += 0.5
+        mean = torch.randn(C, generator=gen, device="cuda")
+        inv = torch.rand(C, generator=gen, device="cuda") + 0.5
+        p = bn_cuda.plan(N, C, S, sms, offset == 0, itemsize=2)
+        variants.add(("rows" if S == 1 else "maps", p.vec, p.cluster > 1))
+        got = bn_cuda.bn_stats(x) + bn_cuda.bn_grad_reduce(x, dy, mean, inv)
+        again = bn_cuda.bn_stats(x) + bn_cuda.bn_grad_reduce(x, dy, mean, inv)
+        torch.cuda.synchronize()
+        xd, dyd = x.double(), dy.double()
+        ref = bn_cuda.bn_stats_plain(xd) + bn_cuda.bn_grad_reduce_plain(
+            xd, dyd, mean.double(), inv.double())
+        xhat = (xd - mean.double()[:, None]) * inv.double()[:, None]
+        magnitude = [t.abs().sum(dim=(0, 2)) for t in (xd, xd * xd, dyd, dyd * xhat)]
+        for a, b, r, m in zip(got, again, ref, magnitude):
+            assert a.dtype == torch.float32 and torch.equal(a, b)
+            # float32 sums of up to 1.5M bfloat16 terms against float64, where
+            # the terms cancel: within 1e-5 of the sum of their magnitudes
+            assert ((a.double() - r).abs() <= 1e-5 * m + 1e-6).all()
+    assert variants >= {("rows", 8, False), ("rows", 1, False), ("maps", 8, False),
+                        ("maps", 8, True), ("maps", 1, False), ("maps", 1, True)}

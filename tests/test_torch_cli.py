@@ -30,6 +30,7 @@ from cpcsv_tpu_torch.cli.main_pororo import synthetic_loaders
 from cpcsv_tpu_torch.config import GanConfig, config_from_file
 from cpcsv_tpu_torch.data.procedural import write_procedural_pororo
 from cpcsv_tpu_torch.evaluation import drivers
+from cpcsv_tpu_torch.ops import blocks
 from cpcsv_tpu_torch.train import checkpoint
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.train.trainer import GANTrainer
@@ -124,6 +125,31 @@ def test_cli_run_writes_the_artifacts(straight):
     assert {r["tag"] for r in records} == set(chip_smoke.CASCADE_TAGS)
     assert all(set(r) == {"tag", "value", "step", "ts"} and np.isfinite(r["value"])
                for r in records)
+
+
+def test_bf16_parity1_run_through_the_cli(cfg_file, tmp_path):
+    """One epoch of the tiny cascade at procedural.yml's compute,
+    COMPUTE_DTYPE bfloat16, with FUSED_UPSAMPLE parity1: the artifacts,
+    finite metrics under the cascade tags, and a float32 state and snapshot
+    (parameters, Adam moments and BN statistics stay float32); then the
+    SSIM walk of its snapshots, generated at bfloat16."""
+    cfg = config_from_file(cfg_file).with_updates(COMPUTE_DTYPE="bfloat16",
+                                                  FUSED_UPSAMPLE="parity1")
+    path = tmp_path / "tiny_bf16.yml"
+    path.write_text(yaml.safe_dump(dataclasses.asdict(cfg)))
+    state, run_dir = cli(tmp_path, "--cfg", str(path), "--max_epoch", "1")
+    assert state.step == 1 and state.gen.dtype == torch.bfloat16
+    assert {m.fused for m in state.gen.modules() if isinstance(m, blocks.UpBlock)} == {"parity1"}
+    for name in ("log/pororo_00000.png", "log/segment_00000.png", "Model/netG_epoch_1.pth"):
+        assert os.path.isfile(os.path.join(run_dir, name)), name
+    records = metric_records(run_dir)
+    assert {r["tag"] for r in records} == set(chip_smoke.CASCADE_TAGS)
+    assert all(np.isfinite(r["value"]) for r in records)
+    assert all(t.dtype == torch.float32 for t in tensors(state).values() if t.is_floating_point())
+    snapshot = torch.load(os.path.join(run_dir, "Model", "netG_epoch_1.pth"), weights_only=True)
+    assert all(t.dtype == torch.float32 for t in snapshot.values() if t.is_floating_point())
+    rows, _ = cli(tmp_path, "--cfg", str(path), "--eval_ssim", "1")
+    assert [r["epoch"] for r in rows] == [1, 0] and np.isfinite([r["ssim"] for r in rows]).all()
 
 
 def test_final_save_is_named_max_epoch_and_labelled_the_last_epoch(straight):

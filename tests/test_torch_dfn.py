@@ -209,9 +209,9 @@ def test_launch_passes_every_plan_field(monkeypatch):
     assert fn_f == "forward" and len(args_f) == 13
     assert args_f[3:9] == (B, C, L, K, pad, 0) and args_f[9:] == tuple(p)
     # dfn_backward(img, filt, dout, dimg, dfilt, B, C, L, K, pad, dout_stride,
-    # warps, grid, vec, taps, stream)
-    assert fn_b == "backward" and len(args_b) == 15 and args_b[2] == dout.data_ptr()
-    assert args_b[5:11] == (B, C, L, K, pad, 613) and args_b[11:] == tuple(p)
+    # dtype, warps, grid, vec, taps, stream)
+    assert fn_b == "backward" and len(args_b) == 16 and args_b[2] == dout.data_ptr()
+    assert args_b[5:12] == (B, C, L, K, pad, 613, 0) and args_b[12:] == tuple(p)
     assert dfn_cuda.launches == {"dfn_forward": 1, "dfn_backward": 1}
 
 
@@ -308,5 +308,39 @@ def test_cuda_backward_matches_plain():
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
         got = dfn_cuda.dfn_backward(image.detach(), filters.detach(), strided, pad)
         again = dfn_cuda.dfn_backward(image.detach(), filters.detach(), strided, pad)
+        for a, b, c in zip(got, again, (image.grad, filters.grad)):
+            assert torch.equal(a, b) and torch.equal(a, c)  # the same bits, strided or not
+
+
+@pytest.mark.cuda
+def test_cuda_backward_matches_plain_bf16():
+    """bfloat16 image, filters and row-strided dout, as the G step hands them
+    over at COMPUTE_DTYPE bfloat16: bfloat16 gradients, summed in float32
+    and rounded once, against the plain backward on the upcast inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for (K, pad), B, offset in itertools.product(TAPS, BATCHES, (0, 1)):
+        arrays = _inputs(B, K, seed=B + 2)
+        if offset:
+            image, filters = (_misaligned(a, torch.bfloat16) for a in arrays)
+        else:
+            image, filters = (torch.from_numpy(a).cuda().to(torch.bfloat16) for a in arrays)
+        image.requires_grad_()
+        filters.requires_grad_()
+        L_out = L + 2 * pad - K + 1
+        strided = torch.randn(B, 613, device="cuda").to(torch.bfloat16)[:, 613 - L_out:]
+        strided = strided.unsqueeze(1)
+        before = dfn_cuda.launches["dfn_backward"]
+        dynamic_filter.dynamic_filter_conv1d(image, filters, pad).backward(strided)
+        torch.cuda.synchronize()
+        assert dfn_cuda.launches["dfn_backward"] == before + 1
+        ref = dynamic_filter.dynamic_filter_conv1d_backward_plain(
+            image.detach().float(), filters.detach().float(), strided.float(), pad)
+        for got, want in zip((image.grad, filters.grad), ref):
+            assert got.dtype == torch.bfloat16
+            # one rounding to bfloat16 of float32 sums: 2^-8 relative
+            torch.testing.assert_close(got.float(), want, rtol=2**-8, atol=1e-3)
+        got = dfn_cuda.dfn_backward(image.detach(), filters.detach(), strided, pad)
+        again = dfn_cuda.dfn_backward(image.detach(), filters.detach(), strided.contiguous(), pad)
         for a, b, c in zip(got, again, (image.grad, filters.grad)):
             assert torch.equal(a, b) and torch.equal(a, c)  # the same bits, strided or not

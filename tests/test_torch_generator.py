@@ -181,6 +181,63 @@ def test_sample_images_matches_jax(variant):
     np.testing.assert_allclose(out.seg.numpy(), seg, **TOL)
 
 
+def rel_l2(a, ref) -> float:
+    return float(np.linalg.norm(np.asarray(a, np.float64) - ref) / np.linalg.norm(ref))
+
+
+# The JAX package's bfloat16 serving spread at test_sample_videos_at_bf16's
+# inputs: the relative L2 distance of its frames and masks under "parity1"
+# (and "parity4", the same) from those under the configs' "deconv", the same
+# function of the same weights rounded otherwise. (Its two BN arms give no
+# such yardstick in eval mode: there they compute the same.) Measured with
+# `jax_sample(cfg.with_updates(COMPUTE_DTYPE="bfloat16", FUSED_UPSAMPLE=...))`.
+JAX_BF16_SPREAD = {(False, "frames"): 5.89e-3, (False, "masks"): 4.38e-3,
+                   (True, "frames"): 8.17e-3, (True, "masks"): 5.49e-3}
+
+
+def test_sample_videos_at_bf16_matches_jax(variant):
+    """COMPUTE_DTYPE bfloat16 serving: the same weights, inputs and noise
+    through the port's and the JAX package's generators, in float32 and in
+    bfloat16. The bfloat16 frames lie far (0.33-0.53 relative L2) from the
+    float32 ones on both sides, mostly because JAX draws the CA eps in the
+    CA codes' dtype, so:
+      * the port's bfloat16 frames are as far from its float32 ones as the
+        JAX package's are from its own, within a factor of 2;
+      * the port's bfloat16 frames lie within twice JAX_BF16_SPREAD of the
+        JAX package's.
+    Masks alike."""
+    cascade, variables, net = variant
+    jcfg, tcfg = configs(cascade)
+    net.torch_repeat_quirk = False
+    rng = np.random.default_rng(60 + cascade)
+    motion = rng.standard_normal((B, T, MOTION)).astype(np.float32)
+    content = rng.standard_normal((B, T, TEXT)).astype(np.float32)
+    key = jax.random.PRNGKey(13)
+    jax_f32 = jax_sample(jcfg, variables, "sample_videos", motion, content, key)
+    jax_bf16 = jax_sample(jcfg.with_updates(COMPUTE_DTYPE="bfloat16"), variables,
+                          "sample_videos", motion, content, key)
+    net_bf16 = generator_from_config(tcfg.with_updates(COMPUTE_DTYPE="bfloat16"))
+    net_bf16.load_state_dict(net.state_dict(), strict=True)
+    outs = {}
+    # each with the noise JAX drew at its dtype: the CA eps in the CA codes'
+    # dtype, so bfloat16 draws differ from float32 ones
+    for name, g, ref in (("f32", net, jax_f32), ("bf16", net_bf16.eval(), jax_bf16)):
+        with torch.no_grad():
+            out = g.sample_videos(torch.from_numpy(motion), torch.from_numpy(content), seg=True,
+                                  noise=tuple(torch.from_numpy(d.astype(np.float32))
+                                              for d in ref[2]))
+        outs[name] = (out.image.float().numpy(), out.seg.float().numpy())
+        assert out.image.dtype == (torch.float32 if name == "f32" else torch.bfloat16)
+    for i, what in enumerate(("frames", "masks")):
+        ours, ref = outs["bf16"][i], np.asarray(jax_bf16[i], np.float32)
+        own, jax_own = rel_l2(ours, outs["f32"][i]), rel_l2(ref, np.asarray(jax_f32[i]))
+        print(f"{what}: bfloat16 vs float32, port {own:.4f}, JAX {jax_own:.4f}; port vs JAX "
+              f"{rel_l2(ours, ref):.2e}")
+        assert np.isfinite(ours).all() and np.abs(ours).max() <= 1
+        assert own <= 2 * jax_own, what
+        assert rel_l2(ours, ref) <= 2 * JAX_BF16_SPREAD[cascade, what], what
+
+
 def test_jax_package_samples_a_port_snapshot_as_the_port_does(variant, tmp_path):
     """A generator snapshot as the port's trainer writes it
     (`CheckpointManager.save_generator`, netG_epoch_0.pth) read by the JAX
@@ -210,7 +267,8 @@ def test_jax_package_samples_a_port_snapshot_as_the_port_does(variant, tmp_path)
     np.testing.assert_allclose(out.seg.numpy(), seg, **TOL)
 
 
-@pytest.mark.parametrize("kind", ["up_off", "up_deconv", "down", "dense"])
+@pytest.mark.parametrize("kind", ["up_off", "up_deconv", "up_parity4", "up_parity1", "down",
+                                  "dense"])
 def test_blocks_match_flax(kind):
     rng = np.random.default_rng(40)
     if kind == "dense":

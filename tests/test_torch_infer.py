@@ -87,7 +87,7 @@ def test_infer_without_a_card_raises(cascade_setup, monkeypatch):
         Infer(cfg, state)
 
 
-@pytest.mark.parametrize("name", ["final.yml", "cascade.yml"])
+@pytest.mark.parametrize("name", ["final.yml", "cascade.yml", "throughput.yml", "procedural.yml"])
 def test_config_matches_jax(name):
     jax_cfg = jax_config_from_file(str(ROOT / "cpcsv_tpu" / "configs" / name))
     assert dataclasses.asdict(config_from_file(name)) == dataclasses.asdict(jax_cfg)

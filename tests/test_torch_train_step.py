@@ -359,6 +359,100 @@ def test_cascade_g_gradients_hold_against_float64(runs):
     assert worst["jax"] <= GRAD_RTOL_CASCADE_G, worst
 
 
+# At COMPUTE_DTYPE bfloat16 a cascade step's gradients lie far from its
+# float32 ones (relative L2 over a net's parameters: 1.2 for the generator,
+# 0.09-0.62 for the discriminators), in the JAX package and in the port
+# alike: JAX draws the CA eps in the CA codes' dtype, and the tiny random nets
+# amplify rounding. The JAX package's two BN arms at bfloat16 (BN_BACKEND
+# "xla", which the bfloat16 configs run, and "pallas", whose arithmetic the
+# port follows) lie JAX_BF16_ARMS apart (measured with jax_bf16_step(runs,
+# which, "pallas") against "xla"). So a net's bfloat16 gradients are held, in
+# relative L2 over all its parameters:
+#   * against the port's own float32 step, within twice the JAX package's
+#     bfloat16-to-float32 distance;
+#   * against the JAX package's bfloat16 step, within twice JAX_BF16_ARMS.
+# The metrics are float32 losses of bfloat16 logits, features and frames:
+# within 1e-2 relative of the JAX package's (its arms differ by up to 1.5e-3
+# in the G step's), accuracies within 0.1 (a label or two of a few dozen
+# flipping at p = 0.5).
+JAX_BF16_ARMS = {"gen": 0.400, "d_im": 0.101, "d_st": 0.100, "d_se": 0.051}
+BF16_METRIC_TOL = dict(rtol=1e-2, atol=1e-3)
+BF16_STEPS = {}  # (step, BN arm) -> the JAX bfloat16 cascade step's (state, metrics, draws)
+
+
+def jax_bf16_step(runs, which, arm="xla"):
+    """The JAX cascade D or G step at COMPUTE_DTYPE bfloat16 from the state
+    and batches of `runs("cascade.yml")`, with BN_BACKEND `arm`."""
+    if (which, arm) not in BF16_STEPS:
+        state0, _, (st, im) = runs("cascade.yml")
+        jcfg = configs("cascade.yml")[0].with_updates(COMPUTE_DTYPE="bfloat16", BN_BACKEND=arm)
+        with mock.patch("cpcsv_tpu.train.steps.make_adam", lambda cfg=None: optax.identity()):
+            step = jax_make_train_steps(jcfg, jax_build_models(jcfg), jit=False)[which == "g"]
+        gc.disable()
+        try:
+            out = tapped(step)(state0, jax.random.PRNGKey(1 if which == "d" else 2), st, im, 1.0)
+        finally:
+            gc.enable()
+        BF16_STEPS[which, arm] = jax.tree.map(np.array, out)
+    return BF16_STEPS[which, arm]
+
+
+@pytest.mark.parametrize("which", ["d", "g"])
+def test_cascade_step_at_bf16_holds_against_jax(runs, which):
+    """procedural.yml's compute (cascade.yml's model at COMPUTE_DTYPE
+    bfloat16) for one D or G step from the same state, batches and noise as
+    the JAX package's: the metrics, each stepped net's gradients (see the
+    bounds above), and every parameter, gradient, Adam moment and BN running
+    statistic float32 and finite after it."""
+    state0, outs, (st, im) = runs("cascade.yml")
+    jax_f32 = jax_state_dicts(outs[which][0], grads_of=state0, cascade=True)
+    jax_bf16, jax_metrics, draws = jax_bf16_step(runs, which)
+    jax_bf16 = jax_state_dicts(jax_bf16, grads_of=state0, cascade=True)
+    ours_f32 = port_step(runs("cascade.yml"), "cascade.yml", which)[0]
+
+    _, tcfg = configs("procedural.yml")
+    assert tcfg.COMPUTE_DTYPE == "bfloat16" and tcfg.CASCADE_MODEL
+    state = create_train_state(tcfg, seed=0, device="cpu")
+    load_jax_train_state(state, state0)
+    noise = tuple(tuple(torch.from_numpy(d.astype(np.float32)) for d in draws[i:i + 3])
+                  for i in (0, 3))
+    d_step, g_step = make_train_steps(tcfg)
+    _, metrics = (d_step if which == "d" else g_step)(state, noise, st, im, 4e-4)
+
+    assert set(metrics) == set(jax_metrics)
+    print({tag: f"{float(metrics[tag]):.5f} / {float(v):.5f}" for tag, v in jax_metrics.items()})
+    for tag, value in jax_metrics.items():
+        tol = dict(rtol=0, atol=0.1) if tag.startswith("Accuracy/") else BF16_METRIC_TOL
+        np.testing.assert_allclose(float(metrics[tag]), float(value), **tol, err_msg=tag)
+
+    def distance(grads, ref):
+        keys = list(grads)
+        num = sum(float(np.sum((np.asarray(grads[k], np.float64) - ref[k].numpy()) ** 2))
+                  for k in keys)
+        return np.sqrt(num / sum(float(np.sum(ref[k].numpy().astype(np.float64) ** 2))
+                                 for k in keys))
+
+    stepped = ("gen",) if which == "g" else tuple(KINDS)
+    for name in stepped:
+        ours = {k: p.grad.numpy() for k, p in getattr(state, name).named_parameters()}
+        f32 = {k: p.grad for k, p in getattr(ours_f32, name).named_parameters()}
+        to_port = lambda sd: {k: sd[name][k] for k in ours}  # noqa: E731
+        own = distance(ours, f32)
+        jax_own = distance({k: v.numpy() for k, v in to_port(jax_bf16).items()}, to_port(jax_f32))
+        direct = distance(ours, to_port(jax_bf16))
+        print(f"{which} step, {name}: bfloat16 gradients vs float32: port {own:.3f}, JAX "
+              f"{jax_own:.3f}; port vs JAX {direct:.3f}, JAX's arms {JAX_BF16_ARMS[name]:.3f}")
+        assert own <= 2 * jax_own, (name, own, jax_own)
+        assert direct <= 2 * JAX_BF16_ARMS[name], (name, direct)
+    for name, net in state.nets().items():
+        tensors = [*net.parameters(), *(p.grad for p in net.parameters() if p.grad is not None),
+                   *(v for s in state.opts[name].state.values() for v in s.values()
+                     if v.dim() > 0),
+                   *(b for k, b in net.named_buffers() if k.endswith(("running_mean",
+                                                                      "running_var")))]
+        assert all(t.dtype == torch.float32 and torch.isfinite(t).all() for t in tensors), name
+
+
 def test_mutated_state_moves(run):
     """Sanity of the comparison above: the JAX steps did move BN statistics
     and SN u of every net they run, so matching them is not trivial."""
