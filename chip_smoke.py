@@ -98,6 +98,20 @@ Phases, each of which exits non-zero on failure:
      frames/s;
  20. (after 14) procedural.yml --data_dir on phase 11's tree through the
      CLI, one epoch: the same under the cascade tags.
+ 21. the training objectives no shipped config turns on, each written as a
+     YAML into a temporary directory (`VARIANTS`): final.yml with
+     USE_SEQ_CONSISTENCY (the VideoEncoder, the host shuffle), USE_INFONCE
+     (the B² pair head) and SEGMENT_LEARNING false, each as phases 6 and 7
+     at IM_BATCH 90 / ST_BATCH 18, with frames/s;
+ 22. throughput.yml with USE_SEQ_CONSISTENCY at bfloat16, 360 / 72, as
+     phases 16 and 17;
+ 23. the BN kernels at the variants' new largest maps (`NEW_BN_MAPS`)
+     against their plain versions, then L2-cold in one CUDA graph beside the
+     plain version, the library call and the bound;
+ 24. the seq-consistency variant through the CLI, 2 epochs straight, and 1
+     plus an auto-resumed one whose host shuffles and metrics equal the
+     straight run's; the SEGMENT_LEARNING false variant for one epoch (no
+     netD_se file) and its snapshot served by `Infer`.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -158,6 +172,20 @@ CASCADE_TAGS = (
     "learning/st_discriminator", "learning/im_discriminator", "perf/frames_per_sec",
     "perf/epoch_seconds")
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+GRAPH_KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
+# phases 21-24: the training objectives no shipped config turns on, each a
+# shipped config with the keys flipped, written as a YAML into a temporary
+# directory: (file, base config, keys)
+VARIANTS = (
+    ("final_seq.yml", "final.yml", {"USE_SEQ_CONSISTENCY": True}),
+    ("final_infonce.yml", "final.yml", {"USE_INFONCE": True}),
+    ("final_noseg.yml", "final.yml", {"SEGMENT_LEARNING": False}),
+    ("throughput_seq.yml", "throughput.yml", {"USE_SEQ_CONSISTENCY": True}),
+)
+# phase 23: the BN kernels at the largest maps the variants give them, the
+# InfoNCE head's B² rows and the VideoEncoder's stem, (N, C, S) and dtype
+NEW_BN_MAPS = (((8100, 992, 16), "float32"), ((18, 64, 7168), "float32"),
+               ((18, 64, 7168), "bfloat16"))
 COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
 GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
 # (N, C, S) beside the step's BN shapes: one row, one channel, S not a
@@ -355,6 +383,47 @@ def bn_cold_inputs(gen, name: str, N: int, C: int, S: int, dtype=None) -> list:
     mean = views[0].float().mean(dim=(0, 2))
     inv = torch.rsqrt(views[0].float().var(dim=(0, 2), correction=0) + 1e-5)
     return [(views[2 * k], views[2 * k + 1], mean, inv) for k in range(copies)]
+
+
+def bn_graph_nodes(step_calls: dict, dtype) -> dict:
+    """{(kernel, (N, C, S)): Counter of CUgraphNodeType} of one call of each BN
+    wrapper at each shape of `step_calls`, on inputs of `dtype`, captured in a
+    CUDA graph and read with CUDA's cuGraphGetNodes: what one call runs
+    on the card, without a profiler."""
+    import ctypes
+
+    import torch
+
+    from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    out = {}
+    for kernel, calls in step_calls.items():
+        for N, C, S in calls:
+            x, dy = (torch.randn(N, C, S, device="cuda").to(dtype) for _ in range(2))
+            mean, inv = torch.zeros(C, device="cuda"), torch.ones(C, device="cuda")
+            args = (x,) if kernel == "bn_stats" else (x, dy, mean, inv)
+            fn = getattr(bn_cuda, kernel)
+            fn(*args)  # outside the capture: the allocator then holds the blocks
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph):
+                fn(*args)
+            handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+            check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
+                  "cuGraphGetNodes failed")
+            nodes = (ctypes.c_void_p * count.value)()
+            check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
+                  "cuGraphGetNodes failed")
+            types = collections.Counter()
+            for node in nodes:
+                t = ctypes.c_int(-1)
+                check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
+                      "cuGraphNodeGetType failed")
+                types[t.value] += 1
+            out[kernel, (N, C, S)] = types
+            del graph
+    return out
 
 
 @contextlib.contextmanager
@@ -619,39 +688,48 @@ def bn_modules(net):
     return [m for m in net.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
 
 
-def per_step_launches(state) -> dict[str, int]:
+def per_step_launches(state, infonce: bool = False) -> dict[str, int]:
     """Each kernel's launches in one D+G step (batches > 1), counted from the
     code (`train/steps.py`, `models/`):
       D step: two generator calls without gradients, each running every G BN
-        and the DFN once; per D, `d_phase` encodes real and fake (every
-        encoder BN twice) and calls the head three times (real, wrong, fake);
-        the backward passes every D BN call.
+        and the DFN once; per D (no seg D without segment learning),
+        `d_phase` encodes real and fake (every encoder BN twice) and calls
+        the head three times (real, wrong, fake), or with InfoNCE twice
+        (the B² pairs, fake); with the order-consistency branch the story D
+        runs its VideoEncoder once, on the shuffled stories; the backward
+        passes every D BN call.
       G step: two generator calls; for the cascade, two `train_autoencoder`
         calls (the re-encoder's BNs and upsample1_seg to upsample4_seg); per
-        D, `g_phase` encodes the fakes once and calls the head once; the
-        backward passes every BN call on the loss's path, and both DFN
-        calls. That is every call but, in v1 `_decode`, the story call's
+        D, `g_phase` encodes the fakes once and calls the head once, and the
+        story D's VideoEncoder runs on the real stories (no gradient) and on
+        the fakes; the backward passes every BN call on the loss's path, and
+        both DFN calls. That is every call but the VideoEncoder's on the real
+        stories and, in v1 `_decode` with segment learning, the story call's
         upsample2_seg to upsample4_seg: they feed only the mask, and no loss
         reads the story call's mask. In the cascade the story mask feeds the
         re-encoder, which gates the image trunk and the latent loss, so every
         call is on the path."""
     gen = state.gen
     g = len(bn_modules(gen))
-    ds = (state.d_se, state.d_im, state.d_st)
+    ds = [d for d in (state.d_se, state.d_im, state.d_st) if d is not None]
     enc = sum(len(bn_modules(d.encode_img)) for d in ds)
     head = sum(len(bn_modules(d.get_cond_logits)) for d in ds)
-    d_phase, g_phase = 2 * enc + 3 * head, enc + head
+    video = (len(bn_modules(state.d_st.seq_consisten_model))
+             if state.d_st.seq_consisten_model is not None else 0)
+    d_phase = 2 * enc + (2 if infonce else 3) * head + video
+    g_phase = enc + head + 2 * video
     autoencoder = unread_mask_bns = 0
     if gen.cascade:
         autoencoder = sum(len(bn_modules(getattr(gen, m))) for m in (
             "presample", "downsample1_seg", "downsample2_seg", "downsample3_seg",
             "downsample4_seg", "upsample1_seg", "upsample2_seg", "upsample3_seg",
             "upsample4_seg"))
-    else:
+    elif gen.use_segment:
         unread_mask_bns = 3
     return {
         "bn_stats": 2 * g + d_phase + 2 * g + 2 * autoencoder + g_phase,
-        "bn_grad_reduce": d_phase + 2 * g - unread_mask_bns + 2 * autoencoder + g_phase,
+        "bn_grad_reduce": (d_phase + 2 * g - unread_mask_bns + 2 * autoencoder + g_phase
+                           - video),
         **DFN_STEP_LAUNCHES,
     }
 
@@ -673,24 +751,32 @@ def read_counts() -> dict[str, int]:
 
 
 def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespace:
-    """Phase 6 for one config: WARMUP_STEPS + TIMED_STEPS D+G steps at the
+    """Phase 6 for one config (a shipped config's name, or a variant's YAML
+    path, phases 21-22): WARMUP_STEPS + TIMED_STEPS D+G steps at the
     config's batches from `create_train_state` through `make_train_steps`,
-    with every check of the phase; returns what phases 7-9 read."""
+    with every check of the phase; with USE_SEQ_CONSISTENCY the story batch
+    carries the trainer's host shuffle. Returns what phases 7-9 read."""
     import numpy as np
     import torch
 
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.losses.shuffle import create_random_shuffle
     from cpcsv_tpu_torch.train.state import create_train_state
     from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
 
     cfg = config_from_file(name)
+    name = Path(name).name
     b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE
     t0 = time.perf_counter()
     state = create_train_state(cfg, seed)
     nets = state.nets()
-    st_batch, im_batch = (batch_to_device(b, torch.device("cuda"))
-                          for b in synthetic_batches(cfg, b_st, b_im, seed))
+    st_host, im_host = synthetic_batches(cfg, b_st, b_im, seed)
+    if cfg.USE_SEQ_CONSISTENCY:
+        shuffled, order_labels = create_random_shuffle(st_host["images"],
+                                                       rng=np.random.default_rng(seed))
+        st_host = {**st_host, "shuffled": shuffled, "order_labels": order_labels}
+    st_batch, im_batch = (batch_to_device(b, torch.device("cuda")) for b in (st_host, im_host))
     d_step, g_step = make_train_steps(cfg)
     rng = torch.Generator(device="cuda").manual_seed(seed)
     print(f"{name}, ST_BATCH {b_st} ({b_st * cfg.VIDEO_LEN} frames), IM_BATCH {b_im}: "
@@ -703,7 +789,7 @@ def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespac
     flags = [mod.register_forward_pre_hook(lambda *_: inside.add(
         (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
         for mod in (state.gen.upsample1, state.d_st.get_cond_logits)]
-    expected = per_step_launches(state)
+    expected = per_step_launches(state, cfg.USE_INFONCE)
     steps = WARMUP_STEPS + TIMED_STEPS
     times, metrics = [], []
     torch.cuda.synchronize()
@@ -790,28 +876,39 @@ def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespac
         g_step(state, rng, st_batch, im_batch, LR_G)
 
     bn_calls_per_step = expected["bn_stats"] + expected["bn_grad_reduce"]
-    # now and then a trace loses a device event (one of the ~16,000 of two
-    # steps): a trace that counts other than one BN kernel a call is taken
-    # again, up to 3 times, and the last one is checked
+    # one call of each BN wrapper at each shape of the step, captured in a CUDA
+    # graph: one kernel node and nothing else (no finish kernel, no memset)
+    dtype = torch.bfloat16 if cfg.COMPUTE_DTYPE == "bfloat16" else torch.float32
+    nodes = bn_graph_nodes(step_calls, dtype)
+    check(all(n == {GRAPH_KERNEL_NODE: 1} for n in nodes.values()),
+          f"{name}: a BN call's CUDA graph holds other than one kernel node: "
+          f"{ {k: dict(n) for k, n in nodes.items() if n != {GRAPH_KERNEL_NODE: 1}} }")
+    print(f"  one call of each BN wrapper at each of the step's {len(nodes)} (kernel, shape)s, "
+          f"{dtype}, captured in a CUDA graph: one kernel node each")
+    # the trace, for the busy time; now and then it loses device events (one
+    # to ~110 of the 9,000-16,000 of two steps; in some runs one BN kernel in
+    # every trace), so it is taken again, up to 3 times, until it holds one
+    # BN kernel a call. A lost event only lowers the count: no trace may hold
+    # more, or a finish kernel
     for _ in range(3):
         dev_events, _ = trace(train_step, 2)
         bn_kernels = {}  # BN device kernels in the 2 traced steps, by name
         for e in dev_events:
             if any(f in e.name for f in ("reduce_maps", "reduce_rows", "finish(")):
                 bn_kernels[e.name] = bn_kernels.get(e.name, 0) + 1
-        if sum(bn_kernels.values()) == 2 * bn_calls_per_step:
+        traced = sum(bn_kernels.values())
+        check(traced <= 2 * bn_calls_per_step and not any("finish(" in k for k in bn_kernels),
+              f"{name}: 2 traced steps ran the BN device kernels {bn_kernels}: more than one "
+              f"per call ({bn_calls_per_step} a step), or a finish")
+        if traced == 2 * bn_calls_per_step:
             break
-        print(f"  a trace of 2 steps counted {sum(bn_kernels.values())} BN device kernels, "
-              f"{bn_calls_per_step} a step launched: traced again")
+        print(f"  a trace of 2 steps holds {traced} BN device kernels in {len(dev_events)} "
+              f"device events, {bn_calls_per_step} a step launched: traced again")
     names = by_name(dev_events, 2)
     busy = sum(names.values()) / 1e3
     ours = {k: v for k, v in names.items()
             if any(f in k for f in ("reduce_maps", "reduce_rows", "finish(", "dfn_"))}
-    check(sum(bn_kernels.values()) == 2 * bn_calls_per_step
-          and not any("finish(" in k for k in bn_kernels),
-          f"{name}: 2 traced steps ran the BN device kernels {bn_kernels}: expected one per "
-          f"call, {bn_calls_per_step} a step, and no finish")
-    print(f"  BN device kernels a step: {sum(bn_kernels.values()) / 2:g}, one per call ("
+    print(f"  BN device kernels a step in the trace: {traced / 2:g} of {bn_calls_per_step} ("
           + "; ".join(f"{k[:60]} x{v / 2:g}" for k, v in bn_kernels.items()) + ")")
     print(f"{name} trace of 2 steps [{card}]: device busy {busy:.3f} ms a step in "
           f"{len(dev_events) / 2:.0f} ops, idle share {1 - busy / (med * 1e3):.3f}; top: "
@@ -833,7 +930,12 @@ def twin_step(run: types.SimpleNamespace, seed: int) -> None:
     steps whose BN sums run over the batch, then over the map, in reverse
     order (as the JAX package's two BN arms differ), and the kernels may
     differ from the plain versions by three times the larger spread, or by
-    the float32 tolerances."""
+    the float32 tolerances. So in float32 too where the story D's
+    VideoEncoder is in the step (phase 21): the consistency MSE carries the
+    last-bit differences through its eleven train-mode BNs into the
+    generator's gradients, which then lie ~1e-2 apart (0.65-0.93 of the
+    float32 gradient tolerance in two runs on an H100; on the CPU the port's own
+    float32 seq-consistency G gradients lie up to 8e-3 from float64)."""
     import torch
 
     from cpcsv_tpu_torch.models import generator as generator_module
@@ -911,9 +1013,10 @@ def twin_step(run: types.SimpleNamespace, seed: int) -> None:
     saved_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # cuDNN's backward would add its own spread
     bf16 = cfg.COMPUTE_DTYPE == "bfloat16"
+    yard = bf16 or cfg.USE_SEQ_CONSISTENCY
     try:
         kern, kern_again, ref = twin(()), twin(()), twin(plain_patches())
-        reordered = [twin(plain_patches(dim)) for dim in (0, 2)] if bf16 else []
+        reordered = [twin(plain_patches(dim)) for dim in (0, 2)] if yard else []
     finally:
         torch.backends.cudnn.deterministic = saved_det
     (self_spread, _), (twin_spread, worst) = spread(kern_again, kern), spread(kern, ref)
@@ -925,10 +1028,11 @@ def twin_step(run: types.SimpleNamespace, seed: int) -> None:
     # counts labels: 0.01 is two of the ~240 positive labels of IM_BATCH 90
     # flipping at p = 0.5.
     tols = (1e-4, 1e-2, 1e-2, 1e-5, 1e-4)
-    if bf16:
+    if yard:
         yardstick = [max(ys) for ys in zip(*(spread(r, ref)[0] for r in reordered))]
         tols = tuple(max(t, 3 * y) for t, y in zip(tols, yardstick))
-        print(f"{run.name}: bfloat16 yardstick, two plain steps with the BN sums over the batch, "
+        print(f"{run.name}: {'bfloat16' if bf16 else 'VideoEncoder'} yardstick, two plain steps "
+              "with the BN sums over the batch, "
               "then over the map, in reverse order against the plain step, the larger spread: "
               + ", ".join(f"{y:.3e}" for y in yardstick)
               + "; tolerances three times that or the float32 ones")
@@ -1115,21 +1219,24 @@ def lowering_steps(run: types.SimpleNamespace, card: str) -> dict:
 
 
 def cli_epoch(card: str, name: str, data: list, per_step: dict[str, int], steps,
-              tags: set, seed: int, root: Path) -> dict[str, int]:
-    """Phases 19-20: one epoch of config `name` through the port's CLI in
-    this process, in a working directory under `root`, on `data` (the CLI's
-    --synthetic or --data_dir arguments): the launches against the D+G steps
-    (`steps`, or as many as the story-D metrics logged, one a step) and the
-    sample grid, finite metrics under `tags`, the snapshots of epochs 0 and 1
-    and the full state, float32; frames/s and the epoch's seconds. Returns
-    the launches."""
+              tags: set, seed: int, root: Path) -> tuple[dict[str, int], Path]:
+    """Phases 19-20 and 24: one epoch of config `name` (a shipped config, or
+    a variant's YAML path) through the port's CLI in this process, in a
+    working directory under `root`, on `data` (the CLI's --synthetic or
+    --data_dir arguments): the launches against the D+G steps (`steps`, or
+    as many as the story-D metrics logged, one a step) and the sample grid,
+    finite metrics under `tags`, the snapshots of epochs 0 and 1 and the full
+    state, float32, and netD_se only with a seg D; frames/s and the epoch's
+    seconds. Returns the launches and the run directory, which the caller's
+    temporary `root` holds."""
     import numpy as np
     import torch
 
     from cpcsv_tpu_torch.cli import main_pororo
     from cpcsv_tpu_torch.config import config_from_file
 
-    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / name)
+    cfg_file = name if os.path.isabs(name) else str(REPO / "cpcsv_tpu_torch" / "configs" / name)
+    name = Path(name).name
     cfg = config_from_file(cfg_file)
     run_root = root / f"cli_{cfg.CONFIG_NAME}"
     run_root.mkdir(parents=True)
@@ -1152,7 +1259,9 @@ def cli_epoch(card: str, name: str, data: list, per_step: dict[str, int], steps,
     model = run_dir / "Model"
     for f in ("netG_epoch_0.pth", "netG_epoch_1.pth", "train_state_last.pth",
               "netD_im_epoch_last.pth", "netD_st_epoch_last.pth", "netD_se_epoch_last.pth"):
-        check((model / f).is_file(), f"the {name} run wrote no {model / f}")
+        wanted = f != "netD_se_epoch_last.pth" or cfg.SEGMENT_LEARNING
+        check((model / f).is_file() == wanted,
+              f"the {name} run wrote {model / f}: {(model / f).is_file()}, expected {wanted}")
     snapshot = torch.load(model / "netG_epoch_1.pth", weights_only=True)
     check(all(v.dtype == torch.float32 for v in snapshot.values() if v.is_floating_point()),
           f"{name}: the snapshot holds other than float32")
@@ -1174,8 +1283,7 @@ def cli_epoch(card: str, name: str, data: list, per_step: dict[str, int], steps,
     print(f"{name} CLI epoch 0 [{card}]: {steps} D+G steps and a sample grid launched {counts}; "
           f"{fps:.1f} frames/s (perf/frames_per_sec), {epoch_s:.2f} s; {run_s:.2f} s in all, "
           "state init and checkpoints included")
-    shutil.rmtree(run_root)
-    return counts
+    return counts, run_dir
 
 
 def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int]:
@@ -2195,6 +2303,213 @@ def bn_largest(gen, card: str, runs: dict, per_shape: dict, dtype) -> dict:
     return out
 
 
+def write_variants(root: Path) -> dict[str, str]:
+    """Each of VARIANTS as a YAML file in `root`: the base config's keys with
+    the variant's flipped, under a CONFIG_NAME of its own. Returns {file:
+    path}."""
+    import yaml
+
+    paths = {}
+    for fname, base, keys in VARIANTS:
+        raw = yaml.safe_load((REPO / "cpcsv_tpu_torch" / "configs" / base).read_text())
+        raw.update(keys, CONFIG_NAME=f"{raw['CONFIG_NAME']}_{Path(fname).stem}")
+        paths[fname] = str(root / fname)
+        Path(paths[fname]).write_text(yaml.safe_dump(raw))
+    return paths
+
+
+def bn_new_maps(gen, card: str) -> dict:
+    """Phase 23: the BN kernels at NEW_BN_MAPS, held against their plain
+    versions (each input 16-byte aligned and one element off, two launches),
+    then in one CUDA graph each with L2-cold inputs as phase 9: kernel,
+    plain version and library call against the bound. Returns {kernel:
+    [{shape, dtype, max_abs_err, ms, plain_ms, library_ms, bound_ms,
+    bound_by}]}."""
+    import torch
+
+    from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
+
+    out = {"bn_stats": [], "bn_grad_reduce": []}
+    for shape, dtype_name in NEW_BN_MAPS:
+        dtype = getattr(torch, dtype_name)
+        err, plans = bn_vs_plain(gen, [shape], dtype)
+        for name in out:
+            inputs = bn_cold_inputs(gen, name, *shape, dtype)
+            kernel_ms = cold_graph_ms(getattr(bn_cuda, name), inputs)
+            plain_ms = cold_graph_ms(getattr(bn_cuda, f"{name}_plain"), inputs)
+            library_ms = cold_graph_ms(bn_library(name), inputs)
+            bound, bound_by = bn_bound(name, *shape, torch.empty(0, dtype=dtype).element_size())
+            del inputs
+            check(bound <= kernel_ms, f"{name} {shape} {dtype_name}: {kernel_ms * 1e3:.2f} us is "
+                  f"under its bound {bound * 1e3:.3f} us: the inputs were not L2-cold")
+            print(f"{name} (N, C, S)={shape} {dtype_name} [{card}]: kernel vs plain max abs error "
+                  f"{err[name]:.3e} (tol 1e-5 of the terms' magnitude + 1e-6), plans {sorted(plans)}; "
+                  f"us a call in one CUDA graph, L2-cold: kernel {kernel_ms * 1e3:.2f}, plain "
+                  f"{plain_ms * 1e3:.2f}, library {library_ms * 1e3:.2f}, bound "
+                  f"{bound * 1e3:.3f} ({bound_by}), share {bound / kernel_ms:.3f}")
+            out[name].append({"shape": list(shape), "dtype": dtype_name,
+                              "max_abs_err": err[name], "ms": kernel_ms, "plain_ms": plain_ms,
+                              "library_ms": library_ms, "bound_ms": bound, "bound_by": bound_by})
+        torch.cuda.empty_cache()
+    return out
+
+
+def seq_cli(card: str, cfg_file: str, per_step: dict[str, int], seed: int,
+            root: Path) -> dict[str, int]:
+    """Phase 24, the seq-consistency variant through the port's CLI in this
+    process: --synthetic CLI_SYNTHETIC for 2 epochs straight, then in
+    another working directory 1 epoch and a --continue_ckpt auto epoch. The
+    resumed epoch's host shuffles equal the straight run's epoch 1 bit for
+    bit, and its metrics equal them within 1e-4 (cuDNN held deterministic);
+    the launches against the steps and grids run. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.cli import main_pororo
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.train import trainer as trainer_module
+
+    cfg = config_from_file(cfg_file)
+    args = ["--cfg", cfg_file, "--synthetic", str(CLI_SYNTHETIC), "--manualSeed", str(seed)]
+    steps_an_epoch = max(CLI_SYNTHETIC, cfg.TRAIN.ST_BATCH_SIZE) // cfg.TRAIN.ST_BATCH_SIZE
+    shuffles = []  # (shuffled stories, labels) bytes of every host shuffle, in order
+    real_shuffle = trainer_module.create_random_shuffle
+
+    def recorded(stories, **kwargs):
+        shuffled, labels = real_shuffle(stories, **kwargs)
+        shuffles.append((shuffled.tobytes(), labels.tobytes(), labels.sum()))
+        return shuffled, labels
+
+    runs, printed = {}, io.StringIO()
+    cwd = os.getcwd()
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reset_counts()  # the main path: the CLI only
+    t = time.perf_counter()
+    try:
+        with mock.patch.object(trainer_module, "create_random_shuffle", recorded), \
+                contextlib.redirect_stdout(printed):
+            for label, invocations in (("straight", (["--max_epoch", "2"],)),
+                                       ("resumed", (["--max_epoch", "1"],
+                                                    ["--max_epoch", "2", "--continue_ckpt",
+                                                     "auto"]))):
+                work = root / f"seq_cli_{label}"
+                work.mkdir()
+                os.chdir(work)
+                first = len(shuffles)
+                for extra in invocations:
+                    main_pororo.main(args + extra)
+                runs[label] = (work / "output" / "torch" / cfg.CONFIG_NAME, shuffles[first:])
+        counts = read_counts()
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.deterministic = saved_det
+    seconds = time.perf_counter() - t
+    lines = [line for line in printed.getvalue().splitlines()
+             if line.startswith(("----[", "Auto-resume"))]
+    print(f"{Path(cfg_file).name} CLI output [{card}]:\n  " + "\n  ".join(lines))
+    check("Auto-resume from epoch 1" in lines, "the resumed run did not auto-resume at epoch 1")
+    (a_dir, a_shuffles), (b_dir, b_shuffles) = runs["straight"], runs["resumed"]
+    check(len(a_shuffles) == len(b_shuffles) == 2 * steps_an_epoch,
+          f"{len(a_shuffles)} and {len(b_shuffles)} host shuffles, expected "
+          f"{2 * steps_an_epoch} each")
+    check(a_shuffles == b_shuffles, "the resumed run's host shuffles differ from the straight "
+                                    "run's")
+    shuffled_a_batch = [float(n) for _, _, n in a_shuffles]
+    check(0 < sum(shuffled_a_batch) < len(a_shuffles) * cfg.TRAIN.ST_BATCH_SIZE,
+          f"shuffled stories a batch {shuffled_a_batch}: all or none")
+    records = {}
+    for label, run_dir in (("straight", a_dir), ("resumed", b_dir)):
+        rows = [json.loads(line) for line in (run_dir / "log" / "metrics.jsonl").open()]
+        records[label] = {(r["tag"], r["step"]): r["value"] for r in rows
+                          if not r["tag"].startswith("perf/")}
+    a, b = records["straight"], records["resumed"]
+    tags = {tag for tag, _ in a}
+    want = set(CASCADE_TAGS) - set(CASCADE_G_TAGS) - {"perf/frames_per_sec", "perf/epoch_seconds"}
+    check(tags == want, f"seq CLI tags: missing {want - tags}, extra {tags - want}")
+    check(set(a) == set(b), "the straight and resumed runs logged different (tag, step)s")
+    check(all(np.isfinite(v) for v in a.values()), "the seq CLI logged a non-finite value")
+    order = [v for (tag, _), v in a.items() if tag == "st_D/order"]
+    check(len(order) == 2 * steps_an_epoch and all(v > 0 for v in order),
+          f"st_D/order {order}: expected one positive order BCE a step")
+    worst = max(abs(a[k] - b[k]) / (abs(a[k]) + 1e-6) for k in a)
+    check(worst <= 1e-4, f"the resumed epoch's metrics differ from the straight run's by {worst}")
+    steps = 4 * steps_an_epoch  # 2 epochs in each run
+    expected = {k: v * steps for k, v in per_step.items()}
+    expected["dfn_forward"] += 4  # a sample grid an epoch
+    check(counts == expected, f"seq CLI: launches {counts}, expected {expected}")
+    print(f"seq CLI [{card}]: 2 epochs straight, and 1 + an auto-resumed 1: {len(a_shuffles)} host "
+          f"shuffles each, the same bits, {shuffled_a_batch} stories shuffled; metrics (tag, step) {len(a)}, largest relative "
+          f"difference {worst:.3e} ({'bitwise' if a == b else 'not bitwise'}); st_D/order "
+          + ", ".join(f"{v:.4f}" for v in order) + f"; launches {counts}; {seconds:.2f} s in all")
+    for label in runs:
+        shutil.rmtree(root / f"seq_cli_{label}")
+    return counts
+
+
+def variant_phases(card: str, gen, seed: int, build_dir: Path) -> types.SimpleNamespace:
+    """Phases 21-24 (the module docstring), in a temporary directory under
+    `build_dir`. Returns the variants' phase 6 records (`runs`, by file),
+    phase 23's `new_maps`, and the launches of the seq CLI, the no-seg CLI
+    and its serving."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
+    from cpcsv_tpu_torch.evaluation.drivers import Infer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_variants_", dir=build_dir) as tmp:
+        variants = write_variants(Path(tmp))
+        runs_var = {}
+        for fname in ("final_seq.yml", "final_infonce.yml", "final_noseg.yml", "throughput_seq.yml"):
+            bf16 = fname == "throughput_seq.yml"
+            phase(f"{22 if bf16 else 21}. training at full width{' at bfloat16' if bf16 else ''}, "
+                  f"{fname}: {dict(next(v[2] for v in VARIANTS if v[0] == fname))}")
+            run = train_at_full_width(variants[fname], seed, card)
+            frames = run.cfg.TRAIN.ST_BATCH_SIZE * run.cfg.VIDEO_LEN + run.cfg.TRAIN.IM_BATCH_SIZE
+            print(f"{fname} D+G step [{card}]: {run.step_ms:.2f} ms median, "
+                  f"{frames / run.step_ms * 1e3:.1f} frames/s ({frames} frames a step); launches a "
+                  f"step {run.expected}")
+            phase(f"{22 if bf16 else 21}. one D+G step of {fname}, kernels vs plain versions")
+            twin_step(run, seed)
+            runs_var[fname] = types.SimpleNamespace(
+                cfg=run.cfg, expected=run.expected, step_calls=run.step_calls,
+                train_counts=run.train_counts, step_ms=run.step_ms, busy_ms=run.busy_ms)
+            del run
+            torch.cuda.empty_cache()
+        phase("23. BN kernels at the variants' new largest maps: the InfoNCE head's B² rows, "
+              "the VideoEncoder's stem")
+        new_maps = bn_new_maps(gen, card)
+        phase(f"24. the variants through the CLI: final_seq.yml --synthetic {CLI_SYNTHETIC}, 2 "
+              "epochs and an auto-resumed epoch; final_noseg.yml, one epoch, served")
+        seq_counts = seq_cli(card, variants["final_seq.yml"], runs_var["final_seq.yml"].expected,
+                             seed, Path(tmp))
+        noseg = runs_var["final_noseg.yml"]
+        noseg_tags = (set(CASCADE_TAGS) - set(CASCADE_G_TAGS)
+                      - {"seg_D/loss", "seg_D/real", "seg_D/fake", "Accuracy/se_D"})
+        noseg_counts, noseg_dir = cli_epoch(
+            card, variants["final_noseg.yml"], ["--synthetic", str(CLI_SYNTHETIC)],
+            noseg.expected, None, noseg_tags, seed, Path(tmp))
+        infer = Infer(noseg.cfg, device="cuda", output_dir=str(noseg_dir), seed=seed,
+                      load_ckpt=1)
+        batch = next(story_batches(SyntheticStoryDataset(STORY_SIZES[0], seed=seed),
+                                   STORY_SIZES[0]))
+        reset_counts()  # the main path: the entry point only
+        video, mask = infer.sample_videos_np(batch, seg=True)
+        served = read_counts()
+        check(video.shape == (STORY_SIZES[0], noseg.cfg.VIDEO_LEN, 64, 64, 3) and mask is None
+              and bool(np.isfinite(video).all() and (np.abs(video) <= 1).all()),
+              f"final_noseg.yml served {video.shape}, mask {mask is not None}, frames finite in "
+              "[-1, 1] expected")
+        check(served == {"dfn_forward": 1, "dfn_backward": 0, "bn_stats": 0, "bn_grad_reduce": 0},
+              f"serving final_noseg.yml launched {served}")
+        print(f"final_noseg.yml's epoch-1 snapshot through Infer [{card}]: {video.shape}, no mask, "
+              f"|frame| mean {abs(video).mean():.4f} max {abs(video).max():.4f}; {served}")
+        del infer
+    return types.SimpleNamespace(runs=runs_var, new_maps=new_maps, seq_counts=seq_counts,
+                                 noseg_counts=noseg_counts, served=served)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2626,9 +2941,10 @@ def main() -> int:
     phase(f"19. throughput.yml --synthetic {THROUGHPUT_SYNTHETIC} through the CLI, one epoch at "
           "bfloat16")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_", dir=build_dir) as tmp:
-        cli_bf16 = cli_epoch(card, "throughput.yml", ["--synthetic", str(THROUGHPUT_SYNTHETIC)],
-                             runs_bf16["throughput.yml"].expected, 2,
-                             set(CASCADE_TAGS) - set(CASCADE_G_TAGS), args.seed, Path(tmp))
+        cli_bf16, _ = cli_epoch(card, "throughput.yml",
+                                ["--synthetic", str(THROUGHPUT_SYNTHETIC)],
+                                runs_bf16["throughput.yml"].expected, 2,
+                                set(CASCADE_TAGS) - set(CASCADE_G_TAGS), args.seed, Path(tmp))
     for name in kernels:
         bf16 = bf16_counts[name] + cli_bf16[name]
         kernels[name]["bf16_launches"] += cli_bf16[name]
@@ -2652,9 +2968,9 @@ def main() -> int:
                                              Path(tmp))
         phase("20. procedural.yml --data_dir on phase 11's tree through the CLI, one epoch at "
               "bfloat16")
-        procedural_counts = cli_epoch(card, "procedural.yml", ["--data_dir", str(data_dir)],
-                                      runs_bf16["procedural.yml"].expected, None,
-                                      set(CASCADE_TAGS), args.seed, Path(tmp))
+        procedural_counts, _ = cli_epoch(card, "procedural.yml", ["--data_dir", str(data_dir)],
+                                         runs_bf16["procedural.yml"].expected, None,
+                                         set(CASCADE_TAGS), args.seed, Path(tmp))
     for name in kernels:
         kernels[name]["launches"] += (disk_counts[name] + walk_counts[name]
                                       + fvd_is_counts[name] + rehearsal_counts[name]
@@ -2666,6 +2982,25 @@ def main() -> int:
           f"at bfloat16: serving {serving_bf16['launches']} dfn_forward, the steps of "
           f"{', '.join(runs_bf16)} {bf16_counts}, throughput.yml's CLI {cli_bf16}, "
           f"procedural.yml's CLI {procedural_counts}")
+
+    # -------------- 21-24. the remaining training objectives, as variants
+    variants = variant_phases(card, gen, args.seed, build_dir)
+    runs_var, served = variants.runs, variants.served
+    for name in kernels:
+        f32_var = sum(r.train_counts[name] for f, r in runs_var.items()
+                      if f != "throughput_seq.yml")
+        bf16_var = runs_var["throughput_seq.yml"].train_counts[name]
+        kernels[name]["launches"] += (f32_var + bf16_var + variants.seq_counts[name]
+                                      + variants.noseg_counts[name] + served[name])
+        kernels[name]["bf16_launches"] += bf16_var
+        kernels[name]["variant_step_launches"] = {f: r.expected[name]
+                                                  for f, r in runs_var.items()}
+    for name, rows in variants.new_maps.items():
+        kernels[name]["new_maps"] = rows
+    print(f"launches of the variants: the steps "
+          + "; ".join(f"{f} {r.train_counts}" for f, r in runs_var.items())
+          + f"; the seq CLI {variants.seq_counts}; the no-seg CLI {variants.noseg_counts}; its "
+          f"serving {served}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

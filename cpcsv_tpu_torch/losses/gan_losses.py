@@ -3,14 +3,19 @@ reference's loss algebra, `miscc/utils.py:48-188`), in float32.
 
   * discriminator_loss: real-pair BCE vs 1, wrong-pair (shifted conditions)
     BCE vs 0, fake-pair BCE vs 0; total = real + 0.5·(fake + wrong), plus the
-    multi-label soft margin of the real features' character head.
+    multi-label soft margin of the real features' character head, plus
+    CONSISTENCY_RATIO × the order BCE of the VideoEncoder on shuffled
+    stories. With InfoNCE the (B, B) pair matrix's `infonce_loss` takes the
+    wrong term's slot.
   * generator_loss: BCE(fake logits, 1) plus the character loss on the fake
-    features.
+    features, plus CONSISTENCY_RATIO × MSE(VideoEncoder(fake),
+    VideoEncoder(real)), the real side detached.
   * kl_loss: the CA-Net posterior's KL to N(0, 1).
+  * infonce_loss: −mean_i log softmax_j(pair[i] / τ)[i], an extension of the
+    JAX package (`gan_losses.py:infonce_loss`), not of the reference.
 
 The heads return logits, so the BCE is taken with logits: the same number as
-the reference's Sigmoid + BCELoss, without its overflow. There is no InfoNCE
-or order-consistency term yet (`models/factory.py` refuses both).
+the reference's Sigmoid + BCELoss, without its overflow.
 """
 
 from __future__ import annotations
@@ -48,6 +53,13 @@ def multi_label_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.T
     return correct / torch.clamp(targets.float().sum(), min=1.0)
 
 
+def infonce_loss(pair_logits: torch.Tensor, temperature: float = 1.0) -> torch.Tensor:
+    """Batch-wise InfoNCE over pair_logits[i, j] = D(features_i, condition_j),
+    the diagonal matched: −mean_i log softmax_j(pair_logits[i] / τ)[i]."""
+    log_probs = torch.log_softmax(pair_logits.float() / temperature, dim=-1)
+    return -torch.diagonal(log_probs).mean()
+
+
 class DLossOut(NamedTuple):
     total: torch.Tensor
     real: torch.Tensor
@@ -69,25 +81,41 @@ def discriminator_loss(
     fake_logits: torch.Tensor,
     cate_logits_real: Optional[torch.Tensor],
     cate_labels: Optional[torch.Tensor],
+    order_logits: Optional[torch.Tensor] = None,
+    order_labels: Optional[torch.Tensor] = None,
+    consistency_ratio: float = 1.0,
+    pair_logits: Optional[torch.Tensor] = None,
+    infonce_temperature: float = 1.0,
 ) -> DLossOut:
+    """`wrong_logits` is ignored (pass None) where `pair_logits` is given."""
     zero = real_logits.new_zeros((), dtype=torch.float32)
     err_real = bce_with_logits(real_logits, torch.ones_like(real_logits))
-    # no wrong pair at batch 1 (see the discriminators' d_phase)
-    err_wrong = (bce_with_logits(wrong_logits, torch.zeros_like(wrong_logits))
-                 if wrong_logits.numel() > 0 else zero)
+    if pair_logits is not None:
+        err_wrong = infonce_loss(pair_logits, infonce_temperature)
+    elif wrong_logits.numel() > 0:
+        err_wrong = bce_with_logits(wrong_logits, torch.zeros_like(wrong_logits))
+    else:  # no wrong pair at batch 1 (see the discriminators' d_phase)
+        err_wrong = zero
     err_fake = bce_with_logits(fake_logits, torch.zeros_like(fake_logits))
     total = err_real + 0.5 * (err_fake + err_wrong)
     acc = zero
     if cate_logits_real is not None:
         total = total + multilabel_soft_margin(cate_logits_real, cate_labels)
         acc = multi_label_accuracy(cate_logits_real, cate_labels)
-    return DLossOut(total, err_real, err_wrong, err_fake, acc, zero)
+    cons = zero
+    if order_logits is not None:
+        cons = bce_with_logits(order_logits.reshape(-1), order_labels.reshape(-1))
+        total = total + consistency_ratio * cons
+    return DLossOut(total, err_real, err_wrong, err_fake, acc, cons)
 
 
 def generator_loss(
     fake_logits: torch.Tensor,
     cate_logits_fake: Optional[torch.Tensor],
     cate_labels: Optional[torch.Tensor],
+    consistency_fake: Optional[torch.Tensor] = None,
+    consistency_real: Optional[torch.Tensor] = None,
+    consistency_ratio: float = 1.0,
 ) -> GLossOut:
     zero = fake_logits.new_zeros((), dtype=torch.float32)
     total = bce_with_logits(fake_logits, torch.ones_like(fake_logits))
@@ -95,4 +123,9 @@ def generator_loss(
     if cate_logits_fake is not None:
         total = total + multilabel_soft_margin(cate_logits_fake, cate_labels)
         acc = multi_label_accuracy(cate_logits_fake, cate_labels)
-    return GLossOut(total, acc, zero)
+    cons = zero
+    if consistency_fake is not None:
+        cons = torch.mean(torch.square(consistency_fake.float()
+                                       - consistency_real.detach().float()))
+        total = total + consistency_ratio * cons
+    return GLossOut(total, acc, cons)

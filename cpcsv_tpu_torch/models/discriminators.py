@@ -17,10 +17,15 @@ a reference `netD_*.pth` loads with ``load_state_dict(strict=True)``:
 
 The heads return logits (no sigmoid). The public methods take the JAX
 package's layouts: images (N, H, W, C), stories (B, T, H, W, C).
-`d_phase` and `g_phase` call the encoder and the head in the JAX order,
-which sets how the BN running statistics and the SN vectors evolve. There is
-no VideoEncoder and no InfoNCE method yet (`models/factory.py` refuses
-both).
+`d_phase`, `d_phase_infonce` and `g_phase` call the encoder, the head and
+the story D's order-consistency VideoEncoder (`seq_consisten_model`, with
+`use_seq_consistency`) in the JAX order, which sets how the BN running
+statistics and the SN vectors evolve.
+
+InfoNCE (cfg.USE_INFONCE): `pairwise_cond_logits` scores every (feature_i,
+condition_j) pair in one head call over B² rows, i-major
+(`discriminators.py:29-37`); `d_phase_infonce` calls it in place of the real
+and the wrong head calls, so the head's statistics come from (pairs, fake).
 
 `dtype` is the compute dtype (cfg.COMPUTE_DTYPE; None = float32): every conv
 runs in it, with float32 parameters, so the features and logits come out in
@@ -34,6 +39,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from cpcsv_tpu_torch.models.video_encoder import VideoEncoder
 from cpcsv_tpu_torch.ops.blocks import BatchNorm2d, Conv2d, Conv4x4s2
 from cpcsv_tpu_torch.ops.spectral_norm import SNConv2d
 
@@ -42,6 +48,15 @@ LEAK = 0.2
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
+
+
+def pairwise_cond_logits(head: "DGetLogits", features: torch.Tensor,
+                         conditions: torch.Tensor) -> torch.Tensor:
+    """(B, B) logits of head(features_i, conditions_j): one call over B² rows,
+    features repeated i-major and conditions tiled."""
+    B = features.shape[0]
+    logits = head(features.repeat_interleave(B, dim=0), conditions.repeat(B, 1))
+    return logits.view(B, B)
 
 
 def encoder64(in_channels: int, ndf: int, sn_first: bool,
@@ -126,6 +141,15 @@ class ImageDiscriminator(nn.Module):
         fake_feat = self(fake)
         return self.get_cond_logits(fake_feat, cond), self.cate_logits(fake_feat)
 
+    def d_phase_infonce(self, real, fake, cond):
+        """InfoNCE D-update forwards: (pair logits (B, B), fake logits, cate
+        logits of the real features), order of `discriminators.py:212-222`."""
+        real_feat = self(real)
+        fake_feat = self(fake)
+        pair = pairwise_cond_logits(self.get_cond_logits, real_feat, cond)
+        fake_logits = self.get_cond_logits(fake_feat, cond)
+        return pair, fake_logits, self.cate_logits(real_feat)
+
 
 class SegDiscriminator(ImageDiscriminator):
     """STAGE1_D_SEG: the same on 1-channel masks."""
@@ -138,13 +162,16 @@ class SegDiscriminator(ImageDiscriminator):
 
 class StoryDiscriminator(nn.Module):
     """STAGE1_D_STY_V2: per-frame encoder (all four convs spectral-normed),
-    features averaged over the frames, a conditional head, no character head."""
+    features averaged over the frames, a conditional head, no character head;
+    with `use_seq_consistency`, the order-consistency VideoEncoder."""
 
     def __init__(self, ndf: int = 124, nef: int = 124, text_dim: int = 356,
-                 label_num: int = 9, dtype: Optional[torch.dtype] = None):
+                 label_num: int = 9, use_seq_consistency: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.encode_img = encoder64(3, ndf, sn_first=True, dtype=dtype)
         self.get_cond_logits = DGetLogits(ndf, nef + text_dim + label_num, dtype)
+        self.seq_consisten_model = VideoEncoder(dtype) if use_seq_consistency else None
 
     def forward(self, story: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, 3) -> frame-mean features (B, ndf*8, 4, 4)."""
@@ -152,8 +179,16 @@ class StoryDiscriminator(nn.Module):
         emb = self.encode_img(_nchw(story.reshape(B * T, *story.shape[2:])))
         return emb.view(B, T, *emb.shape[1:]).mean(dim=1)
 
-    def d_phase(self, real, fake, cond):
-        """(real, wrong, fake logits, None), order of `discriminators.py:279-296`."""
+    def order_logits(self, shuffled):
+        """The VideoEncoder's order logits (B, 1) of the shuffle-augmented
+        stories, or None without the branch or without `shuffled`."""
+        if self.seq_consisten_model is None or shuffled is None:
+            return None
+        return self.seq_consisten_model(shuffled)
+
+    def d_phase(self, real, fake, cond, shuffled=None):
+        """(real, wrong, fake logits, order logits of `shuffled` or None),
+        order of `discriminators.py:279-296`."""
         real_feat = self(real)
         fake_feat = self(fake)
         real_logits = self.get_cond_logits(real_feat, cond)
@@ -162,8 +197,25 @@ class StoryDiscriminator(nn.Module):
         else:  # see ImageDiscriminator.d_phase
             wrong_logits = real_logits.new_zeros((0,))
         fake_logits = self.get_cond_logits(fake_feat, cond)
-        return real_logits, wrong_logits, fake_logits, None
+        return real_logits, wrong_logits, fake_logits, self.order_logits(shuffled)
 
-    def g_phase(self, fake, cond):
-        """(fake logits, None): no character head on the story D."""
-        return self.get_cond_logits(self(fake), cond), None
+    def d_phase_infonce(self, real, fake, cond, shuffled=None):
+        """(pair logits (B, B), fake logits, order logits or None)."""
+        real_feat = self(real)
+        fake_feat = self(fake)
+        pair = pairwise_cond_logits(self.get_cond_logits, real_feat, cond)
+        fake_logits = self.get_cond_logits(fake_feat, cond)
+        return pair, fake_logits, self.order_logits(shuffled)
+
+    def g_phase(self, fake, cond, real=None):
+        """(fake logits, VideoEncoder(fake), VideoEncoder(real)); the last two
+        None without the branch or without `real`. The encoder runs on `real`
+        first, in train mode, as JAX's does (`discriminators.py:298-305`), so
+        `fake` meets the BN statistics and SN vectors `real` left; `real`'s
+        output takes no gradient, as the loss stops it anyway."""
+        fake_logits = self.get_cond_logits(self(fake), cond)
+        if self.seq_consisten_model is None or real is None:
+            return fake_logits, None, None
+        with torch.no_grad():
+            cons_real = self.seq_consisten_model(real)
+        return fake_logits, self.seq_consisten_model(fake), cons_real

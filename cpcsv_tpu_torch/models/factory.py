@@ -16,11 +16,11 @@ from cpcsv_tpu_torch.models.discriminators import (
 from cpcsv_tpu_torch.models.generator import StoryGenerator
 
 # Keys of the JAX package that the port parses but does not honour: its TPU
-# lowering (mesh, Pallas opt-in, remat, scan, BN backend) and its training.
-# Each must keep its default; another value raises rather than being ignored.
+# lowering (mesh, Pallas opt-in, remat, scan, BN backend) and its optimizer
+# state's dtype. Each must keep its default; another value raises rather than
+# being ignored.
 UNSUPPORTED_KEYS = (
-    "MESH_SHAPE", "USE_PALLAS", "REMAT", "SCAN_STEPS", "BN_BACKEND",
-    "ADAM_MU_DTYPE", "USE_INFONCE", "INFONCE_TEMPERATURE",
+    "MESH_SHAPE", "USE_PALLAS", "REMAT", "SCAN_STEPS", "BN_BACKEND", "ADAM_MU_DTYPE",
 )
 
 
@@ -63,24 +63,14 @@ def generator_from_config(cfg: Config) -> StoryGenerator:
     )
 
 
-# Training settings the port's train step does not cover yet, with the slice
-# that brings each.
-NOT_TRAINED_YET = {
-    "USE_SEQ_CONSISTENCY": (True, "the VideoEncoder order-consistency branch comes with a "
-                                  "later training slice"),
-    "SEGMENT_LEARNING": (False, "the port trains the segment-learning generators "
-                                "(final.yml, cascade.yml); the plain one comes with a later "
-                                "slice"),
-}
-
-
 def build_models(cfg: Config):
     """(G, D_im, D_st, D_se) for training, on the CPU, their parameters
-    float32, their compute in cfg.COMPUTE_DTYPE."""
-    for key, (refused, why) in NOT_TRAINED_YET.items():
-        if getattr(cfg, key) == refused:
-            raise NotImplementedError(f"{key}={refused!r}: {why}")
+    float32, their compute in cfg.COMPUTE_DTYPE; D_se is None without
+    SEGMENT_LEARNING, and D_st holds the order-consistency VideoEncoder with
+    USE_SEQ_CONSISTENCY (`cpcsv_tpu/models/factory.py:43-75`)."""
     net_g = generator_from_config(cfg)
     kw = dict(ndf=cfg.GAN.DF_DIM, nef=cfg.GAN.CONDITION_DIM, text_dim=cfg.TEXT.DIMENSION,
               label_num=cfg.LABEL_NUM, dtype=compute_dtype(cfg))
-    return net_g, ImageDiscriminator(**kw), StoryDiscriminator(**kw), SegDiscriminator(**kw)
+    d_se = SegDiscriminator(**kw) if cfg.SEGMENT_LEARNING else None
+    return (net_g, ImageDiscriminator(**kw),
+            StoryDiscriminator(use_seq_consistency=cfg.USE_SEQ_CONSISTENCY, **kw), d_se)

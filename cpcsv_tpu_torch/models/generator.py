@@ -279,7 +279,7 @@ class StoryGenerator(nn.Module):
             m_logvar=m_flat,
             c_mu=r_mu,
             c_logvar=r_logvar,
-            seg=_nhwc(mask) if seg else None,
+            seg=_nhwc(mask) if seg and mask is not None else None,
         )
 
     def train_autoencoder(self, real_segments: torch.Tensor) -> torch.Tensor:
@@ -319,5 +319,5 @@ class StoryGenerator(nn.Module):
             m_logvar=motion_input,
             c_mu=c_mu,
             c_logvar=c_logvar,
-            seg=_nhwc(mask) if seg else None,
+            seg=_nhwc(mask) if seg and mask is not None else None,
         )

@@ -14,7 +14,7 @@ Counterpart of `cpcsv_tpu/ops/batchnorm.py` (`bn_train_core`, `_bn_fwd`,
   * running update (`update_running_stats`): momentum 0.1 (flax 0.9), with
     torch's unbiased variance, var·M/(M−1).
 
-M = N·H·W. x is float32 or bfloat16; the reductions read it as it is and
+M = N·H·W (N·T·H·W for a 5-D map, N for a dense one). x is float32 or bfloat16; the reductions read it as it is and
 sum in float32. A CUDA tensor goes to the kernels (`ops/cuda/bn.py`), a CPU
 tensor to their plain versions; the normalize and dx passes are plain
 PyTorch on both, as the JAX package computes them outside Pallas too.
@@ -88,9 +88,9 @@ class _BatchNormTrain(torch.autograd.Function):
 
 
 def batch_norm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float):
-    """Train-mode BN of float32 or bfloat16 x (N, C) or (N, C, H, W) with
-    batch statistics: (y in x's dtype, batch mean, biased batch var), the
-    statistics float32."""
+    """Train-mode BN of float32 or bfloat16 x (N, C), (N, C, H, W) or
+    (N, C, T, H, W) with batch statistics: (y in x's dtype, batch mean,
+    biased batch var), the statistics float32."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"train-mode BatchNorm takes float32 or bfloat16, got {x.dtype}")
     return _BatchNormTrain.apply(x, scale, bias, eps)

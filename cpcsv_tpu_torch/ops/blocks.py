@@ -11,8 +11,9 @@ so a reference `netG_epoch_E.pth`, or a JAX checkpoint converted with
 
 Compute dtype (cfg.COMPUTE_DTYPE), as the JAX package threads `dtype=`: the
 parameters stay float32; `Conv2d` and `Linear` cast their input, weight and
-bias to `dtype` and yield `dtype`. `dtype=None` (float32) casts nothing, so
-the layers run in the parameters' own dtype.
+bias to `dtype` and yield `dtype`, and so does `Conv3d`, the order-consistency
+VideoEncoder's. `dtype=None` (float32) casts nothing, so the layers run in
+the parameters' own dtype.
 
 BatchNorm follows the module's mode and yields its input's dtype. In eval
 mode it normalises with the running statistics exactly as flax's
@@ -45,6 +46,19 @@ def cast(t: Optional[torch.Tensor], dtype: Optional[torch.dtype]):
 
 class Conv2d(nn.Conv2d):
     """nn.Conv2d at a compute dtype (`cpcsv_tpu/ops/blocks.py:276-277`)."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return self._conv_forward(cast(x, dt), cast(self.weight, dt), cast(self.bias, dt))
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d at a compute dtype (the VideoEncoder's `SNConv`,
+    `cpcsv_tpu/ops/spectral_norm.py:114-121`)."""
 
     def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
         super().__init__(*args, **kwargs)
@@ -99,6 +113,13 @@ class BatchNorm1d(_BatchNorm, nn.BatchNorm1d):
 
 
 class BatchNorm2d(_BatchNorm, nn.BatchNorm2d):
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS)
+
+
+class BatchNorm3d(_BatchNorm, nn.BatchNorm3d):
+    """(N, C, T, H, W): the kernels reduce it as (N, C, T·H·W)."""
+
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS)
 

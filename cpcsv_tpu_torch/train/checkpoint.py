@@ -5,8 +5,10 @@ trainer.py:121-131,482-485). In `Model/`:
   netG_epoch_{E}.pth           the generator's state_dict, reference layout
                                (BN running statistics included), one a snapshot
   netD_{im,st,se}_epoch_last.pth  the discriminators' state_dicts, overwritten
-  train_state_last.pth         the full state: four nets (BN statistics, SN u
-                               and v), four Adam states and the step count,
+                               (no netD_se without SEGMENT_LEARNING; the story
+                               D's VideoEncoder inside netD_st)
+  train_state_last.pth         the full state: the nets (BN statistics, SN u
+                               and v), their Adam states and the step count,
                                labelled COMPLETED_EPOCH inside the file
   last_epoch.txt               the completed epoch, for people
 
@@ -65,9 +67,12 @@ class CheckpointManager:
         epoch."""
         completed = epoch if completed is None else completed
         self.save_generator(_cpu_state_dict(state.gen), epoch)
+        nets = state.nets()
         for name, fname in D_FILES.items():
+            if name not in nets:
+                continue
             path = self._path(fname)
-            torch.save(_cpu_state_dict(getattr(state, name)), path + ".tmp")
+            torch.save(_cpu_state_dict(nets[name]), path + ".tmp")
             _replace_synced(path + ".tmp", path)
         self._save_state(state, completed)
         marker = self._path("last_epoch.txt")
@@ -104,6 +109,9 @@ class CheckpointManager:
         # moments as they are (or copy them to the card), so no restored
         # state shares memory with another
         payload = torch.load(path, map_location="cpu", weights_only=True)
+        if set(payload["nets"]) != set(state.nets()):
+            raise ValueError(f"{path} holds the nets {sorted(payload['nets'])}, the config "
+                             f"builds {sorted(state.nets())}: another SEGMENT_LEARNING")
         for name, net in state.nets().items():
             net.load_state_dict(payload["nets"][name], strict=True)
         for name, opt in state.opts.items():

@@ -7,12 +7,15 @@ state: the train steps set it on every call, as the JAX steps take `lr` as
 an argument (`state.py:66-70`). `torch.optim.Adam` computes optax's
 `scale_by_adam` followed by −lr·u. A net's BN running statistics and SN
 vectors live in its buffers, as its `batch_stats` and `spectral`
-collections do in JAX.
+collections do in JAX. Without SEGMENT_LEARNING there is no seg D: `d_se` is
+None, and `nets()` and `opts` leave it out (three Adams, not four), as the
+JAX state's `d_se` is None.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -30,12 +33,13 @@ class TrainState:
     gen: nn.Module
     d_im: nn.Module
     d_st: nn.Module
-    d_se: nn.Module
-    opts: dict[str, torch.optim.Optimizer]  # keyed by NETS
+    d_se: Optional[nn.Module]
+    opts: dict[str, torch.optim.Optimizer]  # keyed by the names of nets()
     step: int = 0
 
     def nets(self) -> dict[str, nn.Module]:
-        return {name: getattr(self, name) for name in NETS}
+        """The nets the state has, by name, in NETS order."""
+        return {name: getattr(self, name) for name in NETS if getattr(self, name) is not None}
 
 
 def make_adam(params) -> torch.optim.Adam:
@@ -51,7 +55,7 @@ def weights_init(net: nn.Module, generator: torch.Generator) -> None:
     keep torch's U(−1/√H, 1/√H). A spectral-normed conv's u is drawn anew
     and its v is the u's next power-iteration v. All draws from `generator`."""
     for mod in net.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.Linear)):
             weight = getattr(mod, "weight_orig", mod.weight)
             weight.normal_(0.0, 0.02, generator=generator)
             if mod.bias is not None:
@@ -72,14 +76,14 @@ def weights_init(net: nn.Module, generator: torch.Generator) -> None:
 
 
 def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = "cuda") -> TrainState:
-    """All four nets of `cfg` (`models.factory.build_models`), in train mode,
+    """The nets of `cfg` (`models.factory.build_models`), in train mode,
     initialised from `seed` on `device`, with their optimizers. It runs on
     the card unless the caller passes device="cpu"."""
     dev = resolve_device(device)
-    nets = dict(zip(NETS, build_models(cfg)))
+    state = TrainState(*build_models(cfg), opts={})
     generator = torch.Generator(device=dev).manual_seed(seed)
-    for net in nets.values():
+    for name, net in state.nets().items():
         net.to(dev).train()
         weights_init(net, generator)
-    opts = {name: make_adam(net.parameters()) for name, net in nets.items()}
-    return TrainState(opts=opts, **nets)
+        state.opts[name] = make_adam(net.parameters())
+    return state

@@ -3,13 +3,23 @@
 
   D step: the generator samples stories and images in train mode without
     gradients (its BN running statistics update, `_sample_all`), then the
-    seg, image and story discriminators each take one Adam step on
-    real + 0.5·(fake + wrong) BCE (+ the character loss), in that order.
+    seg (with SEGMENT_LEARNING), image and story discriminators each take
+    one Adam step on real + 0.5·(fake + wrong) BCE (+ the character loss),
+    in that order. With USE_SEQ_CONSISTENCY the story D's loss adds
+    CONSISTENCY_RATIO × the order BCE of its VideoEncoder on the batch's
+    `shuffled` stories against `order_labels` (the trainer's host shuffle,
+    `losses/shuffle.py`). With USE_INFONCE each D scores every (real
+    feature, condition) pair in one head call, its diagonal is the real
+    logits, and the pair matrix's InfoNCE at INFONCE_TEMPERATURE takes the
+    wrong term's slot.
   G step: the generator samples again with fresh noise, the conditions are
     detached, the discriminators run `g_phase` in train mode (their BN and SN
     state changes, their parameters do not), and only the generator steps on
       im_G + KL·im_KL + SEGMENT_RATIO·se_G + IMAGE_RATIO·st_G + KL·st_KL
-        [+ RECONSTRUCT_LOSS·(video_latent + reconstruct), cascade only].
+        [+ RECONSTRUCT_LOSS·(video_latent + reconstruct), cascade only],
+    se_G being 0 without SEGMENT_LEARNING, and st_G with USE_SEQ_CONSISTENCY
+    adding CONSISTENCY_RATIO × MSE(VideoEncoder(fake), VideoEncoder(real)),
+    the encoder run on the real stories first.
     The reference's `ratio` on the story/seg group is 1.0 (main_pororo.py).
     Cascade: video_latent (image_latent) is the sum of four MSEs between the
     story (image) call's two latent pyramids, (zmc_seg, h_seg1, h_seg2,
@@ -22,7 +32,10 @@
 Batches are dicts in the JAX schema (`steps.py:100-106`), numpy arrays or
 tensors, NHWC: st_batch images (B, T, 64, 64, 3), description (B, T, 356),
 labels (B, T, 9); im_batch images (B, 64, 64, 3), description (B, 356),
-labels (B, 9), content (B, T, >=356), images_seg (B, 64, 64, 1).
+labels (B, 9), content (B, T, >=356), images_seg (B, 64, 64, 1) (read with
+SEGMENT_LEARNING); with USE_SEQ_CONSISTENCY st_batch also holds shuffled
+(B, T, 64, 64, 3) and order_labels (B,). The metric tags are the JAX step's
+for each variant: no seg_D/* without a seg D.
 
 `rng` is a `torch.Generator` on the nets' device, from which each step draws
 the story noise then the image noise (CA eps, motion-GRU h0, per-step noise
@@ -46,6 +59,7 @@ import torch
 from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.device import float32_math
 from cpcsv_tpu_torch.losses.gan_losses import (
+    GLossOut,
     discriminator_loss,
     generator_loss,
     kl_loss,
@@ -111,11 +125,27 @@ def make_train_steps(cfg: Config):
     (state, metrics). Unlike the JAX package's, it takes no models: the nets
     are modules that live in the state."""
     seg_w, img_w, kl = cfg.SEGMENT_RATIO, cfg.IMAGE_RATIO, cfg.TRAIN.COEFF.KL
+    use_segment, nce = cfg.SEGMENT_LEARNING, cfg.USE_INFONCE
 
-    def d_update(net, opt, real, fake, cond, cate_labels, lr):
+    def d_update(net, opt, real, fake, cond, cate_labels, lr, extra=None):
+        """One D's Adam step (`cpcsv_tpu/train/steps.py:one_d`). `extra` is the
+        story D's: a dict, empty without the shuffle branch; the image and
+        seg Ds get None (dispatch on `is not None`, not on truthiness)."""
         net.train()
-        real_logits, wrong_logits, fake_logits, cate = net.d_phase(real, fake, cond)
-        out = discriminator_loss(real_logits, wrong_logits, fake_logits, cate, cate_labels)
+        story = extra is not None
+        args = (real, fake, cond) + ((extra.get("shuffled"),) if story else ())
+        if nce:
+            pair, fake_logits, third = net.d_phase_infonce(*args)
+            real_logits, wrong_logits = torch.diagonal(pair), None
+        else:
+            real_logits, wrong_logits, fake_logits, third = net.d_phase(*args)
+            pair = None
+        # the third output: the story D's order logits, the others' cate logits
+        cate, order = (None, third) if story else (third, None)
+        out = discriminator_loss(real_logits, wrong_logits, fake_logits, cate, cate_labels, order,
+                                 extra.get("order_labels") if story else None,
+                                 cfg.CONSISTENCY_RATIO, pair_logits=pair,
+                                 infonce_temperature=cfg.INFONCE_TEMPERATURE)
         _step(net, opt, out.total, lr)
         return out
 
@@ -128,20 +158,24 @@ def make_train_steps(cfg: Config):
                 st_out, im_out = _sample_all(cfg, state.gen, rng, st_batch, im_batch)
             st_mu, im_mu = build_conditions(st_batch, im_batch, st_out.c_mu, im_out.c_mu)
             labels = im_batch["labels"]
-            se = d_update(state.d_se, state.opts["d_se"], im_batch["images_seg"], im_out.seg,
-                          im_mu, labels, lr_d)
+            metrics = {}
+            if use_segment:
+                se = d_update(state.d_se, state.opts["d_se"], im_batch["images_seg"],
+                              im_out.seg, im_mu, labels, lr_d)
+                metrics = {"seg_D/loss": se.total, "seg_D/real": se.real,
+                           "seg_D/fake": se.fake, "Accuracy/se_D": se.accuracy}
             im = d_update(state.d_im, state.opts["d_im"], im_batch["images"], im_out.image,
                           im_mu, labels, lr_d)
+            st_extra = ({"shuffled": st_batch["shuffled"], "order_labels": st_batch["order_labels"]}
+                        if cfg.USE_SEQ_CONSISTENCY else {})
             st = d_update(state.d_st, state.opts["d_st"], st_batch["images"], st_out.image,
-                          st_mu, None, lr_d)
-        metrics = {
-            "seg_D/loss": se.total, "seg_D/real": se.real, "seg_D/fake": se.fake,
-            "Accuracy/se_D": se.accuracy,
+                          st_mu, None, lr_d, st_extra)
+        metrics.update({
             "img_D/loss": im.total, "img_D/real": im.real, "img_D/fake": im.fake,
             "Accuracy/im_D": im.accuracy,
             "st_D/loss": st.total, "st_D/real": st.real, "st_D/fake": st.fake,
             "st_D/order": st.consistency,
-        }
+        })
         return state, {k: v.detach() for k, v in metrics.items()}
 
     def g_step(state: TrainState, rng, st_batch, im_batch, lr_g):
@@ -154,9 +188,16 @@ def make_train_steps(cfg: Config):
             st_mu, im_mu = build_conditions(st_batch, im_batch, st_out.c_mu, im_out.c_mu)
             st_mu, im_mu = st_mu.detach(), im_mu.detach()  # the reference detaches them
             labels = im_batch["labels"]
-            se_g = generator_loss(*state.d_se.g_phase(im_out.seg, im_mu), labels)
+            if use_segment:
+                se_g = generator_loss(*state.d_se.g_phase(im_out.seg, im_mu), labels)
+            else:
+                zero = im_mu.new_zeros(())
+                se_g = GLossOut(zero, zero, zero)
             im_g = generator_loss(*state.d_im.g_phase(im_out.image, im_mu), labels)
-            st_g = generator_loss(state.d_st.g_phase(st_out.image, st_mu)[0], None, None)
+            fake_logits, cons_fake, cons_real = state.d_st.g_phase(st_out.image, st_mu,
+                                                                   st_batch["images"])
+            st_g = generator_loss(fake_logits, None, None, cons_fake, cons_real,
+                                  cfg.CONSISTENCY_RATIO)
             im_kl = kl_loss(im_out.c_mu, im_out.c_logvar)
             st_kl = kl_loss(st_out.c_mu, st_out.c_logvar)
             total = im_g.total + im_kl * kl + (se_g.total * seg_w + st_g.total * img_w + st_kl * kl)

@@ -9,8 +9,11 @@ halving with a doubling interval, `lr_at_epoch`), frames/s and the epoch's
 seconds, and save a checkpoint every SNAPSHOT_INTERVAL epochs and at the end.
 
 Every epoch's randomness comes from (seed, epoch): one `torch.Generator` for
-the steps' noise, one for the sample grid, and the loaders' `set_epoch`, so a
-resumed epoch E trains exactly as an uninterrupted run's epoch E.
+the steps' noise, one for the sample grid, the loaders' `set_epoch`, and,
+with USE_SEQ_CONSISTENCY, the numpy generator `default_rng([seed, epoch])`
+of the host-side story shuffle (`_augment_story_host`, as
+`cpcsv_tpu/train/trainer.py:126-134,218-227`), so a resumed epoch E trains
+exactly as an uninterrupted run's epoch E.
 
 The host-to-card copy of the next pair of batches is made on a background
 thread and a side stream while the card runs the current step
@@ -52,6 +55,7 @@ from cpcsv_tpu_torch.evaluation.drivers import (
     make_in_memory_extractors,
 )
 from cpcsv_tpu_torch.evaluation.ssim import ssim_score
+from cpcsv_tpu_torch.losses.shuffle import create_random_shuffle
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.train.state import TrainState, create_train_state
 from cpcsv_tpu_torch.train.steps import make_train_steps
@@ -130,6 +134,16 @@ class GANTrainer:
         self.ckpt = CheckpointManager(self.model_dir)
         self.logger = MetricsLogger(self.log_dir)
         self._eval_extractors = None  # the in-training FID/FSD's, built at its first call
+        self._np_rng = np.random.default_rng(seed)  # reseeded every epoch
+
+    def _augment_story_host(self, st_batch: dict) -> dict:
+        """With USE_SEQ_CONSISTENCY, the story batch with `shuffled` stories
+        and their `order_labels` added, drawn on the host from the epoch's
+        numpy generator; otherwise the batch as it is."""
+        if not self.cfg.USE_SEQ_CONSISTENCY:
+            return st_batch
+        shuffled, order_labels = create_random_shuffle(st_batch["images"], rng=self._np_rng)
+        return {**st_batch, "shuffled": shuffled, "order_labels": order_labels}
 
     # ------------------------------------------------------------------
     def _warm_start_generator(self, state: TrainState) -> None:
@@ -171,6 +185,7 @@ class GANTrainer:
         for epoch in range(start_epoch, self.max_epoch):
             start_t = time.time()
             rng = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch, 0))
+            self._np_rng = np.random.default_rng([self.seed, epoch])
             for loader in (storyloader, imageloader):
                 if hasattr(loader, "set_epoch"):
                     loader.set_epoch(epoch)
@@ -182,9 +197,9 @@ class GANTrainer:
                 for st_host in storyloader:
                     yield st_host, next(image_iter)
 
-            def put(pair):
+            def put(pair):  # on the prefetch thread, one batch after another
                 st_host, im_host = pair
-                return st_host, copier(st_host), copier(im_host)
+                return st_host, copier(self._augment_story_host(st_host)), copier(im_host)
 
             def log_row(row: dict, i: int) -> None:
                 """Reference cadence: story-D scalars every step

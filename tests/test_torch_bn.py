@@ -12,11 +12,13 @@ card; JAX is reached through fixtures, so that test runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_bn.py -m cuda
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
-from cpcsv_tpu_torch.ops import blocks
+from cpcsv_tpu_torch.ops import batchnorm, blocks
 from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
 from cpcsv_tpu_torch.ops.cuda import build
 from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
@@ -280,6 +282,37 @@ def test_bf16_plan_covers_every_element_once(shape, aligned):
     assert (_walk_maps(p, N, C, S) == 1).all()
 
 
+# USE_SEQ_CONSISTENCY's VideoEncoder at ST_BATCH 18 (float32) and 72
+# (bfloat16): 5-D maps as (N, C, T·H·W), C = 45 and S down to 4 and 1 (S = 4
+# is no multiple of the 8-element bf16 load; (18, 45, 4) has neither C nor S
+# one); and USE_INFONCE's pairwise head at IM_BATCH 90 (8100 = 90² rows) and
+# ST_BATCH 18 (324)
+VIDEO_SHAPES = [(18, 45, 5120), (18, 64, 7168), (18, 128, 1792), (18, 128, 1024),
+                (18, 128, 256), (18, 256, 128), (18, 256, 32), (18, 512, 16), (18, 512, 4),
+                (18, 128, 1), (72, 45, 5120), (72, 512, 4), (18, 45, 4)]
+INFONCE_SHAPES = [(8100, 992, 16), (324, 992, 16)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("shape", VIDEO_SHAPES + INFONCE_SHAPES, ids=str)
+def test_plan_covers_the_objectives_maps(shape, aligned, itemsize):
+    """Every element of the VideoEncoder's and InfoNCE's maps read once, with
+    16-byte loads only where the row allows them."""
+    N, C, S = shape
+    p = bn_cuda.plan(N, C, S, H100_SMS, aligned, itemsize=itemsize)
+    wide = 16 // itemsize
+    assert p.vec in (1, wide)
+    if p.vec == wide:
+        assert aligned and (C if S == 1 else S) % wide == 0
+    if S == 1:
+        reads, written = _walk_rows(p, N, C)
+        assert (reads == 1).all() and (written == np.arange(C)).all()
+        return
+    assert p.grid == -(-C // p.channels) * p.cluster
+    assert (_walk_maps(p, N, C, S) == 1).all()
+
+
 def test_bf16_plan_sizes_work_in_16_byte_loads():
     # the largest bfloat16 map of a throughput.yml step reads as many 16-byte
     # loads as the float32 one of final.yml at a quarter of the batch
@@ -406,3 +439,44 @@ def test_cuda_kernels_match_plain_bf16():
             assert ((a.double() - r).abs() <= 1e-5 * m + 1e-6).all()
     assert variants >= {("rows", 8, False), ("rows", 1, False), ("maps", 8, False),
                         ("maps", 8, True), ("maps", 1, False), ("maps", 1, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_cuda_kernels_at_the_video_encoder_maps(dtype):
+    """The VideoEncoder's BN maps as the model gives them, 5-D, through
+    BatchNorm3d (C = 45 at S = 5120, C = 512 at S = 4, and (18, 45, 4)), the
+    kernels in train mode forward and backward against the same module on
+    the plain versions: output, input gradient, scale and bias gradients,
+    running statistics. float32 sums in other orders; at bfloat16 the
+    output and dx round once either way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    for shape in [(18, 45, 5, 32, 32), (18, 512, 1, 2, 2), (18, 45, 1, 2, 2), (18, 128, 4, 8, 8)]:
+        gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.5).to(dtype)
+        dy = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        out = {}
+        for route in ("kernel", "plain"):
+            bn = blocks.BatchNorm3d(shape[1]).cuda().train()
+            xi = x.clone().requires_grad_()
+            before = dict(bn_cuda.launches)
+            if route == "plain":
+                with mock.patch.object(batchnorm, "bn_stats", bn_cuda.bn_stats_plain), \
+                        mock.patch.object(batchnorm, "bn_grad_reduce",
+                                          bn_cuda.bn_grad_reduce_plain):
+                    y = bn(xi)
+                    y.backward(dy)
+            else:
+                y = bn(xi)
+                y.backward(dy)
+            torch.cuda.synchronize()
+            launched = {k: bn_cuda.launches[k] - before[k] for k in before}
+            assert launched == ({"bn_stats": 1, "bn_grad_reduce": 1} if route == "kernel"
+                                else {"bn_stats": 0, "bn_grad_reduce": 0})
+            assert y.dtype == dtype and xi.grad.dtype == dtype
+            out[route] = [t.float() for t in (y, xi.grad, bn.weight.grad, bn.bias.grad,
+                                               bn.running_mean, bn.running_var)]
+        for a, r in zip(out["kernel"], out["plain"]):
+            torch.testing.assert_close(a, r, **tol)

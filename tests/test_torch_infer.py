@@ -71,8 +71,7 @@ def test_sample_videos_np_holds_float32(cascade_setup, monkeypatch):
 
 @pytest.mark.parametrize("key,value", [
     ("MESH_SHAPE", "data:4"), ("USE_PALLAS", True), ("REMAT", True), ("SCAN_STEPS", 1),
-    ("BN_BACKEND", "pallas"), ("ADAM_MU_DTYPE", "bfloat16"), ("USE_INFONCE", True),
-    ("INFONCE_TEMPERATURE", 0.5),
+    ("BN_BACKEND", "pallas"), ("ADAM_MU_DTYPE", "bfloat16"),
 ])
 def test_generator_refuses_keys_it_does_not_honour(key, value):
     cfg = config_from_file("final.yml").with_updates(GAN=TINY, **{key: value})

@@ -43,7 +43,7 @@ from cpcsv_tpu_torch.data.synthetic import synthetic_batches
 from cpcsv_tpu_torch.losses import gan_losses
 from cpcsv_tpu_torch.ops import batchnorm, blocks, dynamic_filter
 from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
-from cpcsv_tpu_torch.models.factory import build_models, generator_from_config
+from cpcsv_tpu_torch.models.factory import generator_from_config
 from cpcsv_tpu_torch.train.state import create_train_state, make_adam, weights_init
 from cpcsv_tpu_torch.train import steps as steps_module
 from cpcsv_tpu_torch.train.steps import make_train_steps
@@ -529,15 +529,6 @@ def test_synthetic_batches_match_jax():
         assert set(a) == set(r)
         for key in r:
             np.testing.assert_array_equal(a[key], np.asarray(r[key]), err_msg=key)
-
-
-@pytest.mark.parametrize("key,value", [
-    ("USE_SEQ_CONSISTENCY", True), ("SEGMENT_LEARNING", False), ("USE_INFONCE", True),
-])
-def test_build_models_refuses_what_the_slice_does_not_train(key, value):
-    cfg = configs()[1].with_updates(**{key: value})
-    with pytest.raises(NotImplementedError, match=key):
-        build_models(cfg)
 
 
 def test_create_train_state_without_a_card_raises(monkeypatch):
