@@ -19,9 +19,9 @@ Phases, each of which exits non-zero on failure:
      TF32 is allowed globally, and a `generate_story` PNG walk;
   5. serving timings: frames/s and device busy time from a torch.profiler
      trace; the card's launch floor (an empty kernel in one CUDA graph); the
-     DFN forward kernel at B = 90, 360 and 1440 in one CUDA graph and from a
-     trace, over the floor, beside its bound, its plain version and a
-     library call;
+     DFN forward kernel at B = 90 and 360, the main paths' batches, in one
+     CUDA graph and from a trace, over the floor, beside its bound, its plain
+     version and a library call;
   6. training at full width, final.yml (v1) then cascade.yml, each at
      IM_BATCH 90 / ST_BATCH 18, from `create_train_state` through
      `make_train_steps`: 2 warm-up and 5 timed D+G steps with finite metrics
@@ -33,7 +33,9 @@ Phases, each of which exits non-zero on failure:
      steps/s, device busy time and idle share from a trace, peak memory;
   7. for each config, from one saved state and the same noise, one D+G step
      with the kernels against one with their plain versions swapped in:
-     losses, gradients and BN running statistics;
+     losses, gradients and BN running statistics, within the float32
+     tolerances or three times the spread of plain steps summed in other
+     orders (phase 17);
   8. the BN kernels against their plain versions at every (N, C, S) either
      step gave them, at N=7 and at edge shapes, each aligned and unaligned;
      then on bfloat16 x and dy at every shape of the bfloat16 steps
@@ -52,15 +54,16 @@ Phases, each of which exits non-zero on failure:
      cascade tags), the sample grids, the launches against the steps run;
      frames/s, the idle share of the traced epoch's steps, checkpoint write
      seconds;
- 11. a procedural Pororo tree of 48 episodes written by the port's writer
-     into a temporary directory under build/, and cascade.yml --data_dir on
-     it through the CLI for 2 epochs of 34 steps: the launches, finite
-     metrics under the cascade tags, the snapshots of epochs 0 and 2; each
+ 11. a procedural Pororo tree of DISK_EPISODES (24) episodes written by the
+     port's writer into a temporary directory under build/, and cascade.yml
+     --data_dir on it through the CLI for one epoch of 17 steps: the launches, finite
+     metrics under the cascade tags, the snapshots of epochs 0 and 1; the
      epoch's frames/s, the median step after the first against phase 6's,
      the first-batch wait, the loader's host time a batch, the idle share of
      5 traced steps;
- 12. --eval_fid 1, --eval_ssim 1 and --load_ckpt 2 through the CLI on that
-     run: a CSV row a snapshot, newest first, finite and tagged random-init;
+ 12. --eval_fid 1, --eval_ssim 1 and --load_ckpt 1 through the CLI on that
+     run's final snapshot (the epoch-0 one, of the same state, removed): a
+     CSV row a snapshot, finite and tagged random-init;
      the numbered PNGs; the DFN launches; TF32 off inside the extractors;
      each backbone on the card against the CPU; seconds a checkpoint by part
      (generation and PNG writing, PNG reading, Inception, R(2+1)D, the host
@@ -90,8 +93,10 @@ Phases, each of which exits non-zero on failure:
      ST_BATCH 72 and procedural.yml at 90 / 18, as phase 6 (2 warm-up and 5
      timed D+G steps, every check of it) with frames/s; then a D+G step under
      each FUSED_UPSAMPLE;
- 17. phase 7 for each bfloat16 config, against a yardstick: two plain steps
-     whose BN sums run over the batch, then over the map, in reverse order;
+ 17. phase 7 for each bfloat16 config, against a yardstick: the plain step
+     and four whose BN sums run in a seeded random order over the batch,
+     the map or both, or in float64, the largest spread of any two (also
+     for the VideoEncoder's and clevr.yml's float32 steps);
  18. the four lowerings side by side: ms of a serving call and of a step;
  19. (after 10) throughput.yml --synthetic 144 through the CLI, one epoch:
      the launches, finite metrics under the v1 tags, float32 checkpoints,
@@ -111,7 +116,25 @@ Phases, each of which exits non-zero on failure:
  24. the seq-consistency variant through the CLI, 2 epochs straight, and 1
      plus an auto-resumed one whose host shuffles and metrics equal the
      straight run's; the SEGMENT_LEARNING false variant for one epoch (no
-     netD_se file) and its snapshot served by `Infer`.
+     netD_se file) and its snapshot served by `Infer`;
+ 25. (after 7, on final.yml's state) REMAT: one D+G step with the up blocks
+     recomputed in the backward against one without, from one state and
+     noise: metrics and gradients at the float32 tolerances, BN running
+     statistics and num_batches_tracked bit for bit, the recompute's extra
+     bn_stats launches as counted from the code, one kernel node a BN call;
+     ms a step and peak memory of each;
+ 26. (after 25) ADAM_MU_DTYPE bfloat16: ms a step and the Adam state's bytes
+     against float32, the moments' dtypes, and a bfloat16 save restored into
+     float32 optimizers, cast back with the same values;
+ 27. clevr.yml (4-frame stories of 18-d codes and 8 labels, IM 64 / ST 16,
+     gf_dim 2048) as phases 6-7 with frames/s, the BN kernels against their
+     plain versions and timed at its shapes, the DFN pair at B = 64, and 16
+     stories of 4 frames served through `Infer`;
+ 28. the CLEVR CLI (`cli/main_clevr.py`) at full width, --synthetic 96: 2
+     epochs straight with CPCSV_PROFILE_DIR set (the trainer's trace of
+     steps 2-5, the BN and DFN kernels in it), 1 plus an auto-resumed epoch
+     whose state and metrics equal the straight run's bit for bit, and its
+     final snapshot walked with --eval_fid 1 and --eval_ssim 1.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -158,7 +181,13 @@ TRAIN_CONFIGS = ("final.yml", "cascade.yml")  # phases 6-7, in this order
 BF16_CONFIGS = ("throughput.yml", "procedural.yml")  # COMPUTE_DTYPE bfloat16, phases 15-20
 THROUGHPUT_SYNTHETIC = 144  # phase 19's --synthetic: 2 story steps at ST_BATCH 72
 CLI_SYNTHETIC = 36  # phase 10's --synthetic: 2 story steps an epoch, one image batch
-DISK_TRACED = (10, 5)  # phase 11: the first of epoch 1's steps under the profiler, and how many
+# phase 11's tree: 306 train clips (17 steps of 18 stories), 54 test stories
+# (half the writer's default 48 episodes and 34 steps, to keep the run short)
+DISK_EPISODES = 24
+DISK_TRACED = (10, 5)  # phase 11: the first of its steps under the profiler, and how many
+# phase 11's one epoch leaves netG_epoch_0 and netG_epoch_1 (the final save)
+# of one state; phases 12-13 walk the latter alone
+WALKED = [1]
 LOADER_ALONE = 4  # phase 11: batches of each loader timed with nothing else running
 FVD_FRAMES = 10  # calculate_fvd's frames a clip (phase 13)
 # the cascade G step's own metrics, and every tag the JAX package's trainer
@@ -186,6 +215,15 @@ VARIANTS = (
 # InfoNCE head's B² rows and the VideoEncoder's stem, (N, C, S) and dtype
 NEW_BN_MAPS = (((8100, 992, 16), "float32"), ((18, 64, 7168), "float32"),
                ((18, 64, 7168), "bfloat16"))
+# phase 7's yardstick (twin_step): the plain steps whose BN sums run in a
+# seeded random order over these dimensions of (N, C, S), or in float64;
+# held at bfloat16, with the VideoEncoder, and for these float32 configs
+REORDERINGS = ((0,), (2,), (0, 2), "float64")
+F32_YARDSTICK = ("clevr.yml",)
+# phases 27-28: clevr.yml (4-frame stories, IM 64 / ST 16), its DFN batch,
+# the serving call's stories, and the CLI's --synthetic: 6 story steps an
+# epoch at ST_BATCH 16, so that CPCSV_PROFILE_DIR's steps 2-5 lie in epoch 0
+CLEVR_CONFIG, CLEVR_DFN_B, CLEVR_STORIES, CLEVR_SYNTHETIC = "clevr.yml", 64, 16, 96
 COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
 GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
 # (N, C, S) beside the step's BN shapes: one row, one channel, S not a
@@ -491,10 +529,10 @@ def dfn_line(name: str, B: int, t: DfnTime, floor: float, library: str, extra: s
 
 
 def dfn_forward_times(gen, card: str, floor: float, dtype=None,
-                      batches=(90, 360, 1440)) -> dict:
+                      batches=(90, 360)) -> dict:
     """{B: DfnTime} of the DFN forward of the package on sys.path at the
-    generator's shape, B = 90 (a training call, 18 stories) and 360 (72) and
-    1440, float32 (or `dtype`), inputs warm in the L2 (on the main path
+    generator's shape, B = 90 (a training call, 18 stories) and 360 (72),
+    float32 (or `dtype`), inputs warm in the L2 (on the main path
     image_net and filter_net write them just before). The library call,
     grouped F.conv1d, is one cuDNN kernel per group and is timed in a graph
     at B=90 only (it hung in capture at B >= 360); above, back to back with
@@ -708,7 +746,12 @@ def per_step_launches(state, infonce: bool = False) -> dict[str, int]:
         upsample2_seg to upsample4_seg: they feed only the mask, and no loss
         reads the story call's mask. In the cascade the story mask feeds the
         re-encoder, which gates the image trunk and the latent loss, so every
-        call is on the path."""
+        call is on the path.
+      REMAT (`gen.remat`): the G step's backward runs every UpBlock and
+        DownBlock call on the loss's path again, each block's BN `bn_stats`
+        once more; the D step samples without gradients, so no recompute."""
+    from cpcsv_tpu_torch.ops.blocks import UpBlock
+
     gen = state.gen
     g = len(bn_modules(gen))
     ds = [d for d in (state.d_se, state.d_im, state.d_st) if d is not None]
@@ -718,16 +761,21 @@ def per_step_launches(state, infonce: bool = False) -> dict[str, int]:
              if state.d_st.seq_consisten_model is not None else 0)
     d_phase = 2 * enc + (2 if infonce else 3) * head + video
     g_phase = enc + head + 2 * video
-    autoencoder = unread_mask_bns = 0
+    autoencoder = unread_mask_bns = ae_blocks = 0
+    blocks = sum(len(bn_modules(m)) for name, m in gen.named_children()
+                 if name.startswith(("upsample", "downsample")))
     if gen.cascade:
-        autoencoder = sum(len(bn_modules(getattr(gen, m))) for m in (
-            "presample", "downsample1_seg", "downsample2_seg", "downsample3_seg",
-            "downsample4_seg", "upsample1_seg", "upsample2_seg", "upsample3_seg",
-            "upsample4_seg"))
+        ae_blocks = sum(len(bn_modules(getattr(gen, m))) for m in (
+            "downsample1_seg", "downsample2_seg", "downsample3_seg", "downsample4_seg",
+            "upsample1_seg", "upsample2_seg", "upsample3_seg", "upsample4_seg"))
+        autoencoder = ae_blocks + len(bn_modules(gen.presample))
     elif gen.use_segment:
         unread_mask_bns = 3
+    check(all(isinstance(getattr(gen, f"upsample{i}"), UpBlock) for i in range(1, 5)),
+          "the generator's up blocks are not UpBlocks")
+    recompute = (2 * blocks - unread_mask_bns + 2 * ae_blocks) if gen.remat else 0
     return {
-        "bn_stats": 2 * g + d_phase + 2 * g + 2 * autoencoder + g_phase,
+        "bn_stats": 2 * g + d_phase + 2 * g + 2 * autoencoder + g_phase + recompute,
         "bn_grad_reduce": (d_phase + 2 * g - unread_mask_bns + 2 * autoencoder + g_phase
                            - video),
         **DFN_STEP_LAUNCHES,
@@ -820,13 +868,14 @@ def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespac
     # concatenation zmc_all left it, a column slice; the wrapper gets that
     # view, so nothing copied it on the way
     L_out = DFN_SHAPE[1] + 2 * DFN_SHAPE[3] - DFN_SHAPE[2] + 1
+    width = cfg.motion_dim + cfg.content_dim + DFN_SHAPE[1]  # zmc_all's: ZMC_WIDTH at Pororo's
     check(len(douts) == expected["dfn_backward"]
-          and all(sh == (b_im, 1, L_out) and st[0] == ZMC_WIDTH and st[-1] == 1
+          and all(sh == (b_im, 1, L_out) and st[0] == width and st[-1] == 1
                   for sh, st in douts),
           f"{name}: dfn_backward got dout (shape, strides) {douts} in one step: expected "
-          f"{expected['dfn_backward']} views with row stride {ZMC_WIDTH}")
+          f"{expected['dfn_backward']} views with row stride {width}")
     print(f"dfn_backward was handed in one step dout (shape, strides) {douts}: the column "
-          f"slice of zmc_all's gradient, row stride {ZMC_WIDTH}, no copy before the kernel")
+          f"slice of zmc_all's gradient, row stride {width}, no copy before the kernel")
     peak = torch.cuda.max_memory_allocated()
     for h in flags:
         h.remove()
@@ -885,25 +934,20 @@ def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespac
           f"{ {k: dict(n) for k, n in nodes.items() if n != {GRAPH_KERNEL_NODE: 1}} }")
     print(f"  one call of each BN wrapper at each of the step's {len(nodes)} (kernel, shape)s, "
           f"{dtype}, captured in a CUDA graph: one kernel node each")
-    # the trace, for the busy time; now and then it loses device events (one
+    # the trace, for the busy time. Now and then it loses device events (one
     # to ~110 of the 9,000-16,000 of two steps; in some runs one BN kernel in
-    # every trace), so it is taken again, up to 3 times, until it holds one
-    # BN kernel a call. A lost event only lowers the count: no trace may hold
-    # more, or a finish kernel
-    for _ in range(3):
-        dev_events, _ = trace(train_step, 2)
-        bn_kernels = {}  # BN device kernels in the 2 traced steps, by name
-        for e in dev_events:
-            if any(f in e.name for f in ("reduce_maps", "reduce_rows", "finish(")):
-                bn_kernels[e.name] = bn_kernels.get(e.name, 0) + 1
-        traced = sum(bn_kernels.values())
-        check(traced <= 2 * bn_calls_per_step and not any("finish(" in k for k in bn_kernels),
-              f"{name}: 2 traced steps ran the BN device kernels {bn_kernels}: more than one "
-              f"per call ({bn_calls_per_step} a step), or a finish")
-        if traced == 2 * bn_calls_per_step:
-            break
-        print(f"  a trace of 2 steps holds {traced} BN device kernels in {len(dev_events)} "
-              f"device events, {bn_calls_per_step} a step launched: traced again")
+    # every trace, however often it is taken again), so the CUDA graph nodes
+    # above hold the count of one kernel a call. A lost event only lowers the
+    # trace's count: no trace may hold more, or a finish kernel
+    dev_events, _ = trace(train_step, 2)
+    bn_kernels = {}  # BN device kernels in the 2 traced steps, by name
+    for e in dev_events:
+        if any(f in e.name for f in ("reduce_maps", "reduce_rows", "finish(")):
+            bn_kernels[e.name] = bn_kernels.get(e.name, 0) + 1
+    traced = sum(bn_kernels.values())
+    check(traced <= 2 * bn_calls_per_step and not any("finish(" in k for k in bn_kernels),
+          f"{name}: 2 traced steps ran the BN device kernels {bn_kernels}: more than one "
+          f"per call ({bn_calls_per_step} a step), or a finish")
     names = by_name(dev_events, 2)
     busy = sum(names.values()) / 1e3
     ours = {k: v for k, v in names.items()
@@ -921,21 +965,31 @@ def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespac
         step_ms=med * 1e3, busy_ms=busy)
 
 
-def twin_step(run: types.SimpleNamespace, seed: int) -> None:
+def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True) -> dict:
     """Phase 7 (17 at bfloat16): from one saved state and the same noise, one
     D+G step with the kernels against one with their plain versions swapped
     in (and one more with the kernels, which must give the same bits but for
-    cuDNN). At bfloat16 a float32 sum in another order can move a bfloat16
-    rounding, which the step carries on; the yardstick is two more plain
-    steps whose BN sums run over the batch, then over the map, in reverse
-    order (as the JAX package's two BN arms differ), and the kernels may
-    differ from the plain versions by three times the larger spread, or by
-    the float32 tolerances. So in float32 too where the story D's
-    VideoEncoder is in the step (phase 21): the consistency MSE carries the
-    last-bit differences through its eleven train-mode BNs into the
-    generator's gradients, which then lie ~1e-2 apart (0.65-0.93 of the
-    float32 gradient tolerance in two runs on an H100; on the CPU the port's own
-    float32 seq-consistency G gradients lie up to 8e-3 from float64)."""
+    cuDNN), held to the float32 tolerances. At bfloat16 a float32 sum in
+    another order can move a bfloat16 rounding, which the step carries on;
+    so there the yardstick is four more plain steps whose BN sums run in
+    other orders (as the JAX package's two BN arms differ): over the batch,
+    over the map and over both in a seeded random order, and in float64
+    rounded once, and the kernels may differ from the plain versions by
+    three times the largest spread of any two of the five plain steps (ten
+    pairs), or by the float32 tolerances. One pair of reversed sums, the
+    yardstick before, once came out at a fifth of the kernels' spread:
+    reversing a sum moves few of its last bits, and the chaotic step's
+    spread is heavy-tailed. In float32 the yardstick holds too where the
+    step carries the last-bit differences of the BN sums into the
+    generator's gradients at the float32 gradient tolerance itself
+    (`F32_YARDSTICK`): the story D's VideoEncoder, its eleven train-mode BNs
+    (phase 21: 0.65-0.93 of it in two runs; on the CPU the port's own
+    float32 seq-consistency G gradients lie up to 8e-3 from float64), and
+    clevr.yml (phase 27: over 12 seeds, `tools/twin_spread.py` on an H100,
+    the plain pairs' gradient spread ran 3.1e-3 to 1.27e-2, above 1e-2 in
+    three, the kernels' 0.5-1.1 times it; 1.15e-5 against the zero
+    gradients' 1e-5 in one). Returns the readings; `hold` False prints them
+    and holds nothing."""
     import torch
 
     from cpcsv_tpu_torch.models import generator as generator_module
@@ -946,33 +1000,37 @@ def twin_step(run: types.SimpleNamespace, seed: int) -> None:
     state, cfg = run.state, run.cfg
     nets = state.nets()
     b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE
-    saved = ({n: {k: v.detach().clone() for k, v in net.state_dict().items()}
-              for n, net in nets.items()},
-             {n: copy.deepcopy(opt.state_dict()) for n, opt in state.opts.items()})
+    saved = save_twin(state)
     g_noise = torch.Generator(device="cuda").manual_seed(seed + 1)
     noise = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, g_noise),
               state.gen.draw_noise(b_im, 1, g_noise)) for _ in range(2)]
 
-    def plain_patches(reverse=None):
-        """The plain versions, their BN sums over dimension `reverse` of
-        (N, C, S) in reverse order if given."""
+    def plain_patches(reorder=None):
+        """The plain versions; with `reorder` (REORDERINGS), their BN sums over
+        the dimensions of (N, C, S) it names in a seeded random order, or in
+        float64 and rounded to float32 once."""
         def order(t):
-            return t if reverse is None else t.flip(reverse)
+            for d in () if reorder in (None, "float64") else reorder:
+                gen = torch.Generator(device=t.device).manual_seed(t.shape[d])
+                t = t.index_select(d, torch.randperm(t.shape[d], generator=gen,
+                                                     device=t.device))
+            return t.double() if reorder == "float64" else t
 
-        return (mock.patch.object(batchnorm, "bn_stats",
-                                  lambda x: bn_cuda.bn_stats_plain(order(x))),
-                mock.patch.object(batchnorm, "bn_grad_reduce",
-                                  lambda x, dy, m, i: bn_cuda.bn_grad_reduce_plain(
-                                      order(x), order(dy), m, i)),
+        def stats(x):
+            return tuple(v.float() for v in bn_cuda.bn_stats_plain(order(x)))
+
+        def grad_reduce(x, dy, m, i):
+            wide = reorder == "float64"
+            return tuple(v.float() for v in bn_cuda.bn_grad_reduce_plain(
+                order(x), order(dy), m.double() if wide else m, i.double() if wide else i))
+
+        return (mock.patch.object(batchnorm, "bn_stats", stats),
+                mock.patch.object(batchnorm, "bn_grad_reduce", grad_reduce),
                 mock.patch.object(generator_module, "dynamic_filter_conv1d",
                                   dynamic_filter_conv1d_plain))
 
     def twin(patches):
-        for n, net in nets.items():
-            net.load_state_dict(saved[0][n])
-            # a copy: load_state_dict keeps tensors already on the device,
-            # and the Adam step would then update the saved moments in place
-            state.opts[n].load_state_dict(copy.deepcopy(saved[1][n]))
+        restore_twin(state, saved)
         with contextlib.ExitStack() as stack:
             for patch in patches:
                 stack.enter_context(patch)
@@ -991,8 +1049,8 @@ def twin_step(run: types.SimpleNamespace, seed: int) -> None:
         the Linear biases before a train-mode BN): largest ‖a-b‖ / the net's
         largest ‖b‖; BN statistics: largest ‖a-b‖ / ‖b‖), and the tensors
         with the largest gradient errors."""
-        m = max(abs(a[0][k] - b[0][k]) / (abs(b[0][k]) + 1e-3) for k in b[0]
-                if not k.startswith("Accuracy/"))
+        m, m_key = max((abs(a[0][k] - b[0][k]) / (abs(b[0][k]) + 1e-3), k) for k in b[0]
+                       if not k.startswith("Accuracy/"))
         acc = max(abs(a[0][k] - b[0][k]) for k in b[0] if k.startswith("Accuracy/"))
         largest = {}
         for (n, k), g in b[1].items():
@@ -1008,15 +1066,16 @@ def twin_step(run: types.SimpleNamespace, seed: int) -> None:
         errs.sort(key=lambda t: -t[0])
         worst_zero = max(zero_errs, key=lambda t: t[0])
         return ((m, acc, errs[0][0], worst_zero[0], st),
-                ([(".".join(key), f"{e:.2e}") for e, key in errs[:5] if key], worst_zero[1]))
+                ([(".".join(key), f"{e:.2e}") for e, key in errs[:5] if key], worst_zero[1],
+                 m_key))
 
     saved_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # cuDNN's backward would add its own spread
     bf16 = cfg.COMPUTE_DTYPE == "bfloat16"
-    yard = bf16 or cfg.USE_SEQ_CONSISTENCY
+    yard = bf16 or cfg.USE_SEQ_CONSISTENCY or run.name in F32_YARDSTICK
     try:
         kern, kern_again, ref = twin(()), twin(()), twin(plain_patches())
-        reordered = [twin(plain_patches(dim)) for dim in (0, 2)] if yard else []
+        reordered = [twin(plain_patches(dims)) for dims in REORDERINGS] if yard else []
     finally:
         torch.backends.cudnn.deterministic = saved_det
     (self_spread, _), (twin_spread, worst) = spread(kern_again, kern), spread(kern, ref)
@@ -1027,23 +1086,29 @@ def twin_step(run: types.SimpleNamespace, seed: int) -> None:
     # a wrong reduction or DFN backward moves a gradient by O(1). An accuracy
     # counts labels: 0.01 is two of the ~240 positive labels of IM_BATCH 90
     # flipping at p = 0.5.
-    tols = (1e-4, 1e-2, 1e-2, 1e-5, 1e-4)
+    tols, yardstick = (1e-4, 1e-2, 1e-2, 1e-5, 1e-4), None
     if yard:
-        yardstick = [max(ys) for ys in zip(*(spread(r, ref)[0] for r in reordered))]
+        pairs = [spread(a, b) for a, b in itertools.combinations([ref, *reordered], 2)]
+        yardstick = [max(ys) for ys in zip(*(p[0] for p in pairs))]
         tols = tuple(max(t, 3 * y) for t, y in zip(tols, yardstick))
-        print(f"{run.name}: {'bfloat16' if bf16 else 'VideoEncoder'} yardstick, two plain steps "
-              "with the BN sums over the batch, "
-              "then over the map, in reverse order against the plain step, the larger spread: "
+        print(f"{run.name}: {'bfloat16' if bf16 else 'float32'} yardstick, the plain step and "
+              f"{len(reordered)} with the BN sums reordered ({REORDERINGS}: seeded random "
+              f"orders over those dimensions of (N, C, S), or float64), the largest spread of "
+              f"the {len(pairs)} pairs: "
               + ", ".join(f"{y:.3e}" for y in yardstick)
-              + "; tolerances three times that or the float32 ones")
+              + "; tolerances three times that or the float32 ones; the pairs' metric spreads "
+              + ", ".join(f"{p[0][0]:.2e} ({p[1][2]})" for p in pairs))
     print(f"{run.name}: " + "kernels vs plain versions, one D+G step from one state and noise: largest metric "
           "error {:.3e} (tol {:g}), accuracy {:.3e} (tol {:g}), gradient {:.3e} (tol {:g}), "
           "zero gradient {:.3e} (tol {:g}), BN statistics {:.3e} (tol {:g}); worst gradients, "
           "relative and zero: "
           "{}; kernels vs kernels: {:.3e}, {:.3e}, {:.3e}, {:.3e}, {:.3e}".format(
               *(x for pair in zip(twin_spread, tols) for x in pair), worst, *self_spread))
-    check(all(e <= t for e, t in zip(twin_spread, tols)),
-          f"{run.name}: kernels vs plain step spread {twin_spread} above {tols}")
+    if hold:
+        check(all(e <= t for e, t in zip(twin_spread, tols)),
+              f"{run.name}: kernels vs plain step spread {twin_spread} above {tols}")
+    return {"kernels_vs_plain": twin_spread, "tolerances": tols, "yardstick": yardstick,
+            "kernels_vs_kernels": self_spread}
 
 
 
@@ -1441,14 +1506,16 @@ def timing(buckets: dict, key: str, fn):
 
 def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamespace, seed: int,
                  root: Path) -> tuple[dict[str, int], Path, Path]:
-    """Phase 11: a procedural Pororo tree (the port's writer, 48 episodes)
+    """Phase 11: a procedural Pororo tree (the port's writer, DISK_EPISODES)
     under `root`, then `cascade.yml --data_dir` through the CLI in this
-    process for 2 epochs. Checks the launches against the steps and sample
-    grids run, finite metrics under the JAX package's cascade tags, and the
-    snapshots; prints each epoch's frames/s, its steps' median host time
+    process for one epoch. Checks the launches against the steps and sample
+    grid run, finite metrics under the JAX package's cascade tags, and the
+    snapshots; prints the epoch's frames/s, its steps' median host time
     after the first (min, max) against phase 6's, the first-batch wait, the
     host time a batch spends in the datasets and the collate, and the idle
-    share of 5 traced steps of epoch 1. Returns (launches, run dir, data dir)."""
+    share of 5 traced steps. Leaves the final snapshot alone for the walks:
+    the epoch-0 one holds the same state. Returns (launches, run dir, data
+    dir)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1462,12 +1529,12 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
 
     data_dir = root / "pororo"
     t = time.perf_counter()
-    info = write_procedural_pororo(str(data_dir))
+    info = write_procedural_pororo(str(data_dir), n_episodes=DISK_EPISODES)
     print(f"procedural tree [{card}]: {info} written in {time.perf_counter() - t:.2f} s")
     cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "cascade.yml")
     cfg = config_from_file(cfg_file)
     steps_an_epoch = info["train_clips"] // cfg.TRAIN.ST_BATCH_SIZE
-    traced = range(DISK_TRACED[0], DISK_TRACED[0] + DISK_TRACED[1])  # epoch 1's traced steps
+    traced = range(DISK_TRACED[0], DISK_TRACED[0] + DISK_TRACED[1])
 
     host: dict[str, list] = {}  # host seconds by what ran
     starts, spans, step_starts = [], [], []  # per epoch: the span's start and length, its steps
@@ -1487,11 +1554,11 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
 
         def d_step_timing(*args):
             i = len(step_starts[-1])
-            if len(starts) == 2 and i == traced.stop:  # the card drained with the last readback
+            if i == traced.stop:  # the card drained with the last readback
                 window["host_s"] = time.perf_counter() - window.pop("t")
                 window["prof"].__exit__(None, None, None)
             step_starts[-1].append(time.perf_counter())
-            if len(starts) == 2 and i == traced.start:
+            if i == traced.start:
                 window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
                 window["prof"].__enter__()
                 window["t"] = time.perf_counter()
@@ -1542,7 +1609,7 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
                 timed_loading(host), contextlib.redirect_stdout(printed):
             reset_counts()  # the main path: the CLI only
             t = time.perf_counter()
-            main_pororo.main(["--cfg", cfg_file, "--data_dir", str(data_dir), "--max_epoch", "2",
+            main_pororo.main(["--cfg", cfg_file, "--data_dir", str(data_dir), "--max_epoch", "1",
                               "--manualSeed", str(seed)])
             run_s = time.perf_counter() - t
             counts = read_counts()
@@ -1553,13 +1620,15 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
     run_dir = run_root / "output" / "torch" / cfg.CONFIG_NAME
 
     model = run_dir / "Model"
-    for f in ("netG_epoch_0.pth", "netG_epoch_2.pth", "train_state_last.pth",
+    for f in ("netG_epoch_0.pth", "netG_epoch_1.pth", "train_state_last.pth",
               "netD_im_epoch_last.pth", "netD_st_epoch_last.pth", "netD_se_epoch_last.pth"):
         check((model / f).is_file(), f"the --data_dir run wrote no {model / f}")
-    check(not (model / "netG_epoch_1.pth").exists(),
-          "a snapshot of epoch 1, which SNAPSHOT_INTERVAL 10 does not take")
-    check((model / "last_epoch.txt").read_text().strip() == "1",
-          f"last_epoch.txt holds {(model / 'last_epoch.txt').read_text()!r}, expected 1")
+    check((model / "last_epoch.txt").read_text().strip() == "0",
+          f"last_epoch.txt holds {(model / 'last_epoch.txt').read_text()!r}, expected 0")
+    snapshots = [torch.load(model / f"netG_epoch_{e}.pth", weights_only=True) for e in (0, 1)]
+    check(all(torch.equal(snapshots[0][k], v) for k, v in snapshots[1].items()),
+          "netG_epoch_0 and netG_epoch_1 of a one-epoch run hold different states")
+    (model / "netG_epoch_0.pth").unlink()  # the walks take the final snapshot alone
     check(all((data_dir / c).is_file() for c in ("img_cache4.npy", "following_cache4.npy")),
           "the loaders wrote no clip-index cache")
     records = [json.loads(line) for line in (run_dir / "log" / "metrics.jsonl").open()]
@@ -1567,20 +1636,20 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
     check(all(np.isfinite(r["value"]) for r in records), "metrics.jsonl holds a non-finite value")
     check(tags == set(CASCADE_TAGS), f"metrics.jsonl tags {sorted(tags)} differ from the JAX "
           f"package's cascade set: missing {set(CASCADE_TAGS) - tags}, extra {tags - set(CASCADE_TAGS)}")
-    steps = 2 * steps_an_epoch
+    steps = steps_an_epoch
     expected = {k: v * steps for k, v in per_step.items()}
-    expected["dfn_forward"] += 2
+    expected["dfn_forward"] += 1
     check(counts == expected, f"--data_dir run: launches {counts}, expected {expected} for "
-                              f"{steps} steps and 2 sample grids")
-    print(f"--data_dir run: {steps} D+G steps ({steps_an_epoch} an epoch) and 2 sample grids "
-          f"launched {counts} = {per_step} a step, plus one dfn_forward a grid")
+                              f"{steps} steps and a sample grid")
+    print(f"--data_dir run: {steps} D+G steps and a sample grid launched {counts} = {per_step} "
+          "a step, plus one dfn_forward a grid")
 
     fps = {r["step"]: r["value"] for r in records if r["tag"] == "perf/frames_per_sec"}
     epoch_s = {r["step"]: r["value"] for r in records if r["tag"] == "perf/epoch_seconds"}
-    check(len(spans) == 2 and all(len(s) == steps_an_epoch for s in step_starts),
+    check(len(spans) == 1 and all(len(s) == steps_an_epoch for s in step_starts),
           f"{len(spans)} epochs with {[len(s) for s in step_starts]} steps timed")
     frames_per_step = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
-    for epoch in (0, 1):
+    for epoch in (0,):
         marks = step_starts[epoch] + [starts[epoch] + spans[epoch]]
         steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
         later = sorted(steps_ms[1:])
@@ -1591,7 +1660,7 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
               f"{spans[epoch] * 1e3:.2f} ms on the host clock ({steps_an_epoch * frames_per_step / spans[epoch]:.1f} "
               f"frames/s); first-batch wait {wait:.2f} ms; first step {steps_ms[0]:.2f} ms; "
               f"steps after the first {med:.2f} ms median (min {later[0]:.2f}, max {later[-1]:.2f})"
-              + (f", {len(traced)} of them traced" if epoch == 1 else "")
+              + f", {len(traced)} of them traced"
               + f"; phase 6 cascade step {phase6.step_ms:.2f} ms with batches on the card")
     items = {k: len(v) for k, v in host.items()}
     batches = len(host["collate"])
@@ -1606,14 +1675,14 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
           f"{np.mean(host['image item']) * 1e3:.2f} ms an image")
     dev = device_events(window["prof"].events())
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    check(busy > 0, "the trace of epoch 1's steps holds no device work")
+    check(busy > 0, "the trace of the epoch's steps holds no device work")
     n = len(traced)
-    print(f"--data_dir epoch 1, steps {traced.start}-{traced.stop - 1} under torch.profiler "
+    print(f"--data_dir epoch 0, steps {traced.start}-{traced.stop - 1} under torch.profiler "
           f"[{card}]: {window['host_s'] * 1e3 / n:.2f} ms a step on the host clock, device busy "
           f"{busy / n:.2f} ms a step in {len(dev) / n:.0f} ops: idle share "
           f"{1 - busy / (window['host_s'] * 1e3):.3f}; against phase 6's busy "
           f"{phase6.busy_ms:.2f} ms a step, the untraced steps' idle share "
-          f"{1 - phase6.busy_ms / med:.3f} (epoch 1's median)")
+          f"{1 - phase6.busy_ms / med:.3f} (the epoch's median)")
     print(f"--data_dir run [{card}]: {run_s:.2f} s in all, state init, cache build and "
           "checkpoints included")
     return counts, run_dir, data_dir
@@ -1675,7 +1744,7 @@ def calibrated_copy(net, x, seed: int):
 
 
 def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]:
-    """Phase 12: --eval_fid 1, --eval_ssim 1 and --load_ckpt 2 through the
+    """Phase 12: --eval_fid 1, --eval_ssim 1 and --load_ckpt 1 through the
     CLI on phase 11's run. Checks one CSV row a snapshot, newest first,
     finite, with the random-init tags; the numbered PNGs; the DFN launches of
     the generations; TF32 off inside the extractors; each backbone's forward
@@ -1695,7 +1764,7 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
     cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "cascade.yml")
     cfg = config_from_file(cfg_file)
     args = ["--cfg", cfg_file, "--data_dir", str(data_dir), "--manualSeed", str(seed)]
-    epochs = [2, 0]  # phase 11's snapshots, newest first
+    epochs = WALKED  # phase 11's snapshots, newest first
     test_stories = (len(np.load(data_dir / "train_test_ids.npy", allow_pickle=True)[1])
                     // cfg.TRAIN.ST_BATCH_SIZE * cfg.TRAIN.ST_BATCH_SIZE)
     host: dict[str, list] = {}
@@ -1737,7 +1806,7 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
             ssim_rows = main_pororo.main(args + ["--eval_ssim", "1"])
             ssim_s = time.perf_counter() - t
             t = time.perf_counter()
-            main_pororo.main(args + ["--load_ckpt", "2"])
+            main_pororo.main(args + ["--load_ckpt", str(epochs[0])])
             dump_s = time.perf_counter() - t
             counts = read_counts()
     finally:
@@ -1764,12 +1833,12 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
     pngs = {d: len([f for f in os.listdir(run_dir / "Evaluation" / d) if f.endswith(".png")])
             for d in ("samples", "ref")}
     check(pngs == {"samples": test_stories * cfg.VIDEO_LEN, "ref": test_stories * cfg.VIDEO_LEN},
-          f"--load_ckpt 2 wrote {pngs} numbered PNGs, expected {test_stories} test stories x "
-          f"{cfg.VIDEO_LEN}")
+          f"--load_ckpt {epochs[0]} wrote {pngs} numbered PNGs, expected {test_stories} test "
+          f"stories x {cfg.VIDEO_LEN}")
     # a generate_story per checkpoint and the dump: one DFN forward a story
     # batch; SSIM: one a chunk of 64 stories; eval BN, no gradients
     batches = test_stories // cfg.TRAIN.ST_BATCH_SIZE
-    expected = {"dfn_forward": 2 * batches + 2 * -(-test_stories // 64) + batches,
+    expected = {"dfn_forward": len(epochs) * (batches + -(-test_stories // 64)) + batches,
                 "dfn_backward": 0, "bn_stats": 0, "bn_grad_reduce": 0}
     check(counts == expected, f"walks: launches {counts}, expected {expected}")
     check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32,
@@ -1794,7 +1863,7 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
               f"{frames / sum(fid_host[key]):.1f} frames/s (host clock around the calls, "
               "host-to-card copies included)")
     print(f"--eval_ssim walk [{card}]: {ssim_s:.2f} s, {ssim_s / n:.2f} s a checkpoint of "
-          f"{test_stories} stories; --load_ckpt 2: {dump_s:.2f} s for "
+          f"{test_stories} stories; --load_ckpt {epochs[0]}: {dump_s:.2f} s for "
           f"{2 * test_stories * cfg.VIDEO_LEN} PNGs")
 
     # each backbone on the card against the same weights on the CPU, its BN
@@ -1851,7 +1920,7 @@ def fvd_is_walks(card: str, run_dir: Path, data_dir: Path, seed: int, root: Path
     cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / "cascade.yml")
     cfg = config_from_file(cfg_file)
     args = ["--cfg", cfg_file, "--data_dir", str(data_dir), "--manualSeed", str(seed)]
-    epochs = [2, 0]  # phase 11's snapshots, newest first
+    epochs = WALKED  # phase 11's snapshots, newest first
     test_stories = (len(np.load(data_dir / "train_test_ids.npy", allow_pickle=True)[1])
                     // cfg.TRAIN.ST_BATCH_SIZE * cfg.TRAIN.ST_BATCH_SIZE)
     frames = test_stories * cfg.VIDEO_LEN
@@ -1945,7 +2014,7 @@ def fvd_is_walks(card: str, run_dir: Path, data_dir: Path, seed: int, root: Path
     check(is_csv == [[r["epoch"], r["is_mean"], r["is_std"]] for r in out["IS"].rows],
           f"is_score.csv {is_csv} differs from the rows {out['IS'].rows}")
     pngs = {d: len([f for f in os.listdir(run_dir / "Evaluation" / d) if f.endswith(".png")])
-            for d in ("ref", os.path.join(cfg.CONFIG_NAME, "fvd_epoch_0"))}
+            for d in ("ref", os.path.join(cfg.CONFIG_NAME, f"fvd_epoch_{epochs[-1]}"))}
     check(set(pngs.values()) == {frames}, f"the FVD dumps hold {pngs} PNGs, expected {frames}")
     check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32,
           f"TF32 flags (cudnn, matmul) inside the backbones {inside}")
@@ -2357,8 +2426,9 @@ def bn_new_maps(gen, card: str) -> dict:
 def seq_cli(card: str, cfg_file: str, per_step: dict[str, int], seed: int,
             root: Path) -> dict[str, int]:
     """Phase 24, the seq-consistency variant through the port's CLI in this
-    process: --synthetic CLI_SYNTHETIC for 2 epochs straight, then in
-    another working directory 1 epoch and a --continue_ckpt auto epoch. The
+    process: --synthetic CLI_SYNTHETIC for 2 epochs straight (its checkpoint
+    saves skipped: it is the reference), then in another working directory 1
+    epoch and a --continue_ckpt auto epoch. The
     resumed epoch's host shuffles equal the straight run's epoch 1 bit for
     bit, and its metrics equal them within 1e-4 (cuDNN held deterministic);
     the launches against the steps and grids run. Returns the launches."""
@@ -2368,6 +2438,7 @@ def seq_cli(card: str, cfg_file: str, per_step: dict[str, int], seed: int,
     from cpcsv_tpu_torch.cli import main_pororo
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.train import trainer as trainer_module
+    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 
     cfg = config_from_file(cfg_file)
     args = ["--cfg", cfg_file, "--synthetic", str(CLI_SYNTHETIC), "--manualSeed", str(seed)]
@@ -2397,8 +2468,11 @@ def seq_cli(card: str, cfg_file: str, per_step: dict[str, int], seed: int,
                 work.mkdir()
                 os.chdir(work)
                 first = len(shuffles)
-                for extra in invocations:
-                    main_pororo.main(args + extra)
+                # the straight run is the reference: its saves (~5 s each) skipped
+                with (mock.patch.object(CheckpointManager, "save", lambda *a, **k: None)
+                      if label == "straight" else contextlib.nullcontext()):
+                    for extra in invocations:
+                        main_pororo.main(args + extra)
                 runs[label] = (work / "output" / "torch" / cfg.CONFIG_NAME, shuffles[first:])
         counts = read_counts()
     finally:
@@ -2508,6 +2582,450 @@ def variant_phases(card: str, gen, seed: int, build_dir: Path) -> types.SimpleNa
         del infer
     return types.SimpleNamespace(runs=runs_var, new_maps=new_maps, seq_counts=seq_counts,
                                  noseg_counts=noseg_counts, served=served)
+
+
+def restore_twin(state, saved) -> None:
+    """Every net and optimizer of `state` back to `saved` (nets' state_dicts,
+    optimizers' state_dicts), the optimizer states deep-copied: load_state_dict
+    keeps tensors already on the device, and a step would update them in place."""
+    for n, net in state.nets().items():
+        net.load_state_dict(saved[0][n])
+        state.opts[n].load_state_dict(copy.deepcopy(saved[1][n]))
+
+
+def save_twin(state):
+    """(the nets' state_dicts, the optimizers' state_dicts), copies."""
+    return ({n: {k: v.detach().clone() for k, v in net.state_dict().items()}
+             for n, net in state.nets().items()},
+            {n: copy.deepcopy(opt.state_dict()) for n, opt in state.opts.items()})
+
+
+def time_steps(run: types.SimpleNamespace, steps: int = WARMUP_STEPS + TIMED_STEPS):
+    """`steps` D+G steps of phase 6's record on its batches: (ms of the timed
+    ones, host clock between synchronises, peak device memory in bytes,
+    launches)."""
+    import torch
+
+    rng = torch.Generator(device="cuda").manual_seed(1)
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # the main path: the steps only
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run.d_step(run.state, rng, run.st_batch, run.im_batch, LR_D)
+        run.g_step(run.state, rng, run.st_batch, run.im_batch, LR_G)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times[WARMUP_STEPS:], torch.cuda.max_memory_allocated(), read_counts()
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def remat_phase(run: types.SimpleNamespace, card: str, seed: int) -> dict:
+    """Phase 25, on phase 6's final.yml record: REMAT, the generator's up
+    blocks recomputed in the G step's backward (`torch.utils.checkpoint`).
+    From one saved state and the same noise, one D+G step without and one
+    with it (cuDNN deterministic): the same metrics, gradients and BN
+    running statistics at the float32 tolerances, and the BN state
+    (running statistics, num_batches_tracked) bit for bit, the recompute
+    writing none; each BN wrapper at each shape of the REMAT step one kernel
+    node in a CUDA graph; then 2 warm-up and 5 timed D+G steps of each, ms a
+    step and peak memory, the launches against the count from the code.
+    Returns {"counts": launches, "per_step": launches a step with REMAT}."""
+    import torch
+
+    state, cfg = run.state, run.cfg
+    b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE
+    saved = save_twin(state)
+    g_noise = torch.Generator(device="cuda").manual_seed(seed + 2)
+    noise = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, g_noise),
+              state.gen.draw_noise(b_im, 1, g_noise)) for _ in range(2)]
+    state.gen.remat = True
+    expected = per_step_launches(state)
+    state.gen.remat = False
+
+    def one(remat: bool):
+        restore_twin(state, saved)
+        state.gen.remat = remat
+        with counting_bn_calls() as calls:
+            reset_counts()
+            _, dm = run.d_step(state, noise[0], run.st_batch, run.im_batch, LR_D)
+            _, gm = run.g_step(state, noise[1], run.st_batch, run.im_batch, LR_G)
+            counts = read_counts()
+        buffers = {(n, k): b.detach().clone() for n, net in state.nets().items()
+                   for k, b in net.named_buffers()
+                   if k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+        return ({k: float(v) for k, v in {**dm, **gm}.items()},
+                {(n, k): p.grad.detach().clone() for n, net in state.nets().items()
+                 for k, p in net.named_parameters()}, buffers, counts, calls)
+
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, remat = one(False), one(True)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+        state.gen.remat = False
+    metric_err = max(abs(remat[0][k] - plain[0][k]) / (abs(plain[0][k]) + 1e-3)
+                     for k in plain[0])
+    grad_err = max(float((remat[1][k] - g).norm() / (g.norm() + 1e-12)) for k, g in plain[1].items()
+                   if float(g.norm()) > 0)
+    bn_equal = all(torch.equal(remat[2][k], v) for k, v in plain[2].items())
+    bitwise = (remat[0] == plain[0] and all(torch.equal(remat[1][k], v)
+                                            for k, v in plain[1].items()))
+    check(metric_err <= 1e-4 and grad_err <= 1e-2,
+          f"REMAT vs none: metric error {metric_err:.3e} (tol 1e-4), gradient {grad_err:.3e} "
+          "(tol 1e-2)")
+    check(bn_equal, "REMAT: the BN running statistics or num_batches_tracked differ from the "
+                    "step without it: the recompute wrote BN state")
+    check(plain[3] == run.expected and remat[3] == expected,
+          f"launches of one step: without REMAT {plain[3]}, with {remat[3]}, expected {expected}")
+    step_calls = {k: dict(sorted(c.items())) for k, c in remat[4].items()}
+    new_shapes = {k: set(c) - set(run.step_calls[k]) for k, c in step_calls.items()}
+    check(not any(new_shapes.values()), f"REMAT gave the BN kernels new shapes {new_shapes}")
+    nodes = bn_graph_nodes(step_calls, torch.float32)
+    check(all(n == {GRAPH_KERNEL_NODE: 1} for n in nodes.values()),
+          f"REMAT: a BN call's CUDA graph holds other than one kernel node: {nodes}")
+    print(f"{run.name} REMAT vs none, one D+G step from one state and noise, cuDNN deterministic "
+          f"[{card}]: largest metric error {metric_err:.3e} (tol 1e-4), gradient "
+          f"{grad_err:.3e} (tol 1e-2), {'bitwise' if bitwise else 'not bitwise'}; BN running "
+          f"statistics and num_batches_tracked bit for bit: {bn_equal}; launches a step "
+          f"{plain[3]} without, {remat[3]} with (from the code: {expected}); bn_stats calls by "
+          f"shape with REMAT: " + ", ".join(f"{sh} x{n}" for sh, n in step_calls["bn_stats"].items())
+          + f"; one kernel node a call at each of {len(nodes)} (kernel, shape)s")
+    out = {"counts": {k: plain[3][k] + remat[3][k] for k in plain[3]}, "per_step": expected}
+    for remat_on in (False, True):
+        restore_twin(state, saved)
+        state.gen.remat = remat_on
+        torch.cuda.empty_cache()
+        times, peak, counts = time_steps(run)
+        steps = WARMUP_STEPS + TIMED_STEPS
+        want = (expected if remat_on else run.expected)
+        check(all(counts[k] == want[k] * steps for k in want),
+              f"REMAT {remat_on}: launches {counts} in {steps} steps, expected {want} a step")
+        for k in counts:
+            out["counts"][k] += counts[k]
+        key = "remat" if remat_on else "none"
+        out[f"{key}_ms"], out[f"{key}_peak_gib"] = median(times), peak / 2**30
+        print(f"{run.name} D+G step, REMAT {remat_on} [{card}]: {median(times):.2f} ms median of "
+              f"{TIMED_STEPS} (min {min(times):.2f}, max {max(times):.2f}), peak device memory "
+              f"{peak / 2**30:.3f} GiB; launches {counts} in {steps} steps")
+    state.gen.remat = False
+    restore_twin(state, saved)
+    print(f"REMAT on {run.name} [{card}]: {out['remat_ms'] / out['none_ms']:.3f}x the step time, "
+          f"{out['remat_peak_gib'] / out['none_peak_gib']:.3f}x the peak memory")
+    return out
+
+
+def adam_mu_phase(run: types.SimpleNamespace, card: str, root: Path) -> dict:
+    """Phase 26, on phase 6's final.yml record: ADAM_MU_DTYPE bfloat16, the
+    four Adams with their first moments in bfloat16, loaded from the float32
+    states (cast on load). The optimizer state's bytes and 2 warm-up and 5
+    timed D+G steps of each, ms a step; finite metrics, bfloat16 first and
+    float32 second moments after the steps; a save at bfloat16 through
+    `CheckpointManager` restored into float32 optimizers, each first moment
+    cast back to float32 with the same values. Returns the launches."""
+    import torch
+
+    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+    from cpcsv_tpu_torch.train.state import make_adam
+
+    state = run.state
+    saved = save_twin(state)
+
+    def state_bytes(opts):
+        return sum(v.numel() * v.element_size() for opt in opts.values()
+                   for st in opt.state.values() for v in st.values() if v.dim() > 0)
+
+    counts_all = collections.Counter()
+    out = {}
+    for mu in ("float32", "bfloat16"):
+        opts = {n: make_adam(net.parameters(), mu) for n, net in state.nets().items()}
+        for n, opt in opts.items():
+            opt.load_state_dict(copy.deepcopy(saved[1][n]))
+        state.opts = opts
+        restore_twin(state, saved)
+        torch.cuda.empty_cache()
+        times, peak, counts = time_steps(run)
+        counts_all.update(counts)
+        moments = [(st["exp_avg"].dtype, st["exp_avg_sq"].dtype) for opt in opts.values()
+                   for st in opt.state.values()]
+        want = (getattr(torch, mu), torch.float32)
+        check(all(m == want for m in moments), f"ADAM_MU_DTYPE {mu}: moments {set(moments)}")
+        check(all(bool(torch.isfinite(p).all()) for net in state.nets().values()
+                  for p in net.parameters()), f"ADAM_MU_DTYPE {mu}: a parameter is not finite")
+        out[mu] = (median(times), state_bytes(opts), peak)
+        print(f"{run.name} ADAM_MU_DTYPE {mu} [{card}]: D+G step {median(times):.2f} ms median of "
+              f"{TIMED_STEPS} (min {min(times):.2f}, max {max(times):.2f}); Adam state "
+              f"{state_bytes(opts) / 2**30:.3f} GiB (first and second moments of the 4 nets); "
+              f"peak device memory {peak / 2**30:.3f} GiB")
+    ckpt = CheckpointManager(str(root / "adam_mu"))
+    t = time.perf_counter()
+    ckpt.save(state, 0)
+    save_s = time.perf_counter() - t
+    bf16 = {n: {i: st["exp_avg"].clone() for i, st in opt.state_dict()["state"].items()}
+            for n, opt in state.opts.items()}
+    state.opts = {n: make_adam(net.parameters(), "float32") for n, net in state.nets().items()}
+    ckpt.restore(state)
+    back = [(st["exp_avg"].dtype, torch.equal(st["exp_avg"], bf16[n][i].float()))
+            for n, opt in state.opts.items() for i, st in opt.state_dict()["state"].items()]
+    check(all(d == torch.float32 and same for d, same in back),
+          "a bfloat16 save restored at float32: first moments not float32 or not the saved "
+          "values")
+    print(f"a save at ADAM_MU_DTYPE bfloat16 ({save_s:.2f} s) restored into float32 Adams "
+          f"[{card}]: {len(back)} first moments float32, equal to the saved bfloat16 values; "
+          f"bfloat16 against float32: {out['bfloat16'][0] / out['float32'][0]:.3f}x the step "
+          f"time, {out['bfloat16'][1] / out['float32'][1]:.3f}x the Adam state bytes")
+    shutil.rmtree(root / "adam_mu")
+    restore_twin(state, saved)
+    return dict(counts_all)
+
+
+def clevr_step(card: str, gen, floor: float, seed: int) -> types.SimpleNamespace:
+    """Phase 27: clevr.yml at full width (IM 64 / ST 16, 4 frames, gf_dim
+    2048, 18-d codes, 8 labels): phases 6 and 7 for it, with frames/s; the BN
+    kernels against their plain versions at every (N, C, S) of its step and
+    in one CUDA graph each with L2-cold inputs against the library call and
+    the bound, as phases 8-9; the DFN pair at B = 64; serving 16 stories of 4
+    frames through `Infer` from the trained generator. Returns what the
+    kernels line takes."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
+    from cpcsv_tpu_torch.evaluation.drivers import Infer
+
+    run = train_at_full_width(CLEVR_CONFIG, seed, card)
+    cfg = run.cfg
+    frames = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
+    print(f"{CLEVR_CONFIG} D+G step [{card}]: {run.step_ms:.2f} ms median, "
+          f"{frames / run.step_ms * 1e3:.1f} frames/s ({frames} frames a step); launches a step "
+          f"{run.expected}")
+    twin_step(run, seed)
+    shapes = sorted(set(run.step_calls["bn_stats"]) | set(run.step_calls["bn_grad_reduce"]))
+    bn_err, plans = bn_vs_plain(gen, shapes, torch.float32)
+    print(f"BN kernels vs plain at {CLEVR_CONFIG}'s {len(shapes)} shapes {shapes}, each aligned "
+          f"and one float off: max abs error bn_stats {bn_err['bn_stats']:.3e}, bn_grad_reduce "
+          f"{bn_err['bn_grad_reduce']:.3e} (tol 1e-5 of the terms' magnitude + 1e-6); plans "
+          f"{sorted(plans)}")
+    record = types.SimpleNamespace(expected=run.expected, step_calls=run.step_calls,
+                                   train_counts=run.train_counts)
+    per_shape, step_bn = bn_timings(gen, card, {CLEVR_CONFIG: record}, torch.float32)
+    largest = bn_largest(gen, card, {CLEVR_CONFIG: record}, per_shape, torch.float32)
+    fwd = dfn_forward_times(gen, card, floor, batches=(CLEVR_DFN_B,))
+    bwd, bwd_op, _, copies = dfn_backward_times(gen, card, floor, batches=(CLEVR_DFN_B,))
+    check(copies == 0, f"the DFN backward op copied a row-strided dout {copies} times")
+
+    # serving: the trained generator through Infer, 16 stories of 4 frames
+    infer = Infer(cfg, {k: v.detach().cpu() for k, v in run.state.gen.state_dict().items()},
+                  device="cuda", seed=seed)
+    batch = next(story_batches(SyntheticStoryDataset(
+        CLEVR_STORIES, cfg.VIDEO_LEN, cfg.IMSIZE, cfg.TEXT.DIMENSION, cfg.LABEL_NUM, seed=seed),
+        CLEVR_STORIES))
+    reset_counts()  # the main path: the entry point only
+    video, _ = infer.sample_videos_np(batch)
+    served = read_counts()
+    check(video.shape == (CLEVR_STORIES, cfg.VIDEO_LEN, 64, 64, 3)
+          and bool(np.isfinite(video).all() and (np.abs(video) <= 1).all()),
+          f"{CLEVR_CONFIG} served {video.shape}: expected finite frames in [-1, 1]")
+    check(served == {"dfn_forward": 1, "dfn_backward": 0, "bn_stats": 0, "bn_grad_reduce": 0},
+          f"serving {CLEVR_CONFIG} launched {served}")
+    for _ in range(2):
+        infer.sample_videos_np(batch)
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        infer.sample_videos_np(batch)
+        times.append((time.perf_counter() - t) * 1e3)
+    dev, _ = trace(lambda: infer.sample_videos_np(batch), 3)
+    busy = sum(by_name(dev, 3).values()) / 1e3
+    n_frames = CLEVR_STORIES * cfg.VIDEO_LEN
+    print(f"{CLEVR_CONFIG} serving through Infer [{card}]: {video.shape}, |frame| mean "
+          f"{abs(video).mean():.4f} max {abs(video).max():.4f}; {median(times):.2f} ms a call "
+          f"median of 5 (min {min(times):.2f}, max {max(times):.2f}), "
+          f"{n_frames / median(times) * 1e3:.1f} frames/s; device busy {busy:.3f} ms a call, "
+          f"idle share {1 - busy / median(times):.3f}; launches {served}")
+    del infer, run
+    torch.cuda.empty_cache()
+    return types.SimpleNamespace(record=record, bn_err=bn_err, per_shape=per_shape,
+                                 step_bn=step_bn, largest=largest, fwd=fwd[CLEVR_DFN_B],
+                                 bwd=bwd[CLEVR_DFN_B], bwd_op=bwd_op[CLEVR_DFN_B], served=served)
+
+
+def profile_trace_kernels(profile_dir: Path) -> dict[str, int]:
+    """{kernel family: device kernel events} of the one Chrome trace that
+    CPCSV_PROFILE_DIR holds."""
+    files = list(profile_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"CPCSV_PROFILE_DIR {profile_dir} holds {files}: expected one trace")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    families = ("reduce_maps", "reduce_rows", "dfn_forward_kernel", "dfn_backward_kernel")
+    out = {f: sum(f in name for name in kernels) for f in families}
+    out["all kernels"] = len(kernels)
+    out["MB"] = files[0].stat().st_size / 1e6
+    return out
+
+
+def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dict[str, int]:
+    """Phase 28, the CLEVR CLI (`python -m cpcsv_tpu_torch.cli.main_clevr`) in
+    this process at full clevr.yml width, cuDNN deterministic: --synthetic
+    CLEVR_SYNTHETIC for 2 epochs straight with CPCSV_PROFILE_DIR set (its
+    checkpoint saves skipped: it is the reference, and a save is ~5 s at
+    this width), then in another working directory 1 epoch and a
+    --continue_ckpt auto epoch. The resumed run's state (nets, Adam states)
+    equals the straight run's bit for bit, and its metrics too; the tags,
+    the launches against the steps and grids run. The straight run's trace:
+    one file, steps 2-5 of epoch 0, the BN and DFN kernels by name, as many
+    as four steps launch (a lost event lowers the count, none raises it).
+    Then the resumed run's final snapshot (the others removed) walked with
+    --eval_fid 1 and --eval_ssim 1 at 4 frames a story, random-init
+    extractors. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.cli import main_clevr
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+    from cpcsv_tpu_torch.train.trainer import PROFILE_STEPS
+
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / CLEVR_CONFIG)
+    cfg = config_from_file(cfg_file)
+    args = ["--cfg", cfg_file, "--synthetic", str(CLEVR_SYNTHETIC), "--manualSeed", str(seed)]
+    steps_an_epoch = CLEVR_SYNTHETIC // cfg.TRAIN.ST_BATCH_SIZE
+    profile_dir = root / "clevr_profile"
+    runs, states, printed, seconds = {}, {}, io.StringIO(), {}
+    cwd = os.getcwd()
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    reset_counts()  # the main path: the CLI only
+    try:
+        with contextlib.redirect_stdout(printed):
+            for label, invocations in (("straight", (["--max_epoch", "2"],)),
+                                       ("resumed", (["--max_epoch", "1"],
+                                                    ["--max_epoch", "2", "--continue_ckpt",
+                                                     "auto"]))):
+                work = root / f"clevr_cli_{label}"
+                work.mkdir()
+                os.chdir(work)
+                straight = label == "straight"
+                env = {"CPCSV_PROFILE_DIR": str(profile_dir)} if straight else {}
+                t = time.perf_counter()
+                with mock.patch.dict(os.environ, env), (
+                        mock.patch.object(CheckpointManager, "save", lambda *a, **k: None)
+                        if straight else contextlib.nullcontext()):
+                    for extra in invocations:
+                        states[label] = main_clevr.main(args + extra)
+                seconds[label] = time.perf_counter() - t
+                runs[label] = work / "output" / "torch" / cfg.CONFIG_NAME
+        counts = read_counts()
+    finally:
+        os.chdir(cwd)
+        torch.backends.cudnn.deterministic = saved_det
+    lines = [line for line in printed.getvalue().splitlines()
+             if line.startswith(("----[", "Auto-resume", "WARNING"))]
+    print(f"{CLEVR_CONFIG} CLI output [{card}]:\n  " + "\n  ".join(lines))
+    check("Auto-resume from epoch 1" in lines, "the resumed CLEVR run did not auto-resume")
+
+    def flat(state):
+        out = {}
+        for name, net in state.nets().items():
+            out.update({f"{name}.{k}": v for k, v in net.state_dict().items()})
+            for i, st in state.opts[name].state_dict()["state"].items():
+                out.update({f"{name}.adam.{i}.{k}": v for k, v in st.items()})
+        return out
+
+    a, b = flat(states["straight"]), flat(states["resumed"])
+    check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+          "the resumed CLEVR run's full state differs from the straight run's: "
+          + str([k for k in a if k not in b or not torch.equal(a[k], b[k])][:5]))
+    records = {}
+    for label, run_dir in runs.items():
+        rows = [json.loads(line) for line in (run_dir / "log" / "metrics.jsonl").open()]
+        records[label] = {(r["tag"], r["step"]): r["value"] for r in rows
+                          if not r["tag"].startswith("perf/")}
+    tags = {tag for tag, _ in records["straight"]}
+    want = set(CASCADE_TAGS) - set(CASCADE_G_TAGS) - {"perf/frames_per_sec", "perf/epoch_seconds"}
+    check(tags == want, f"CLEVR CLI tags: missing {want - tags}, extra {tags - want}")
+    check(records["straight"] == records["resumed"],
+          "the resumed CLEVR run's metrics differ from the straight run's")
+    check(all(np.isfinite(v) for v in records["straight"].values()),
+          "the CLEVR CLI logged a non-finite value")
+    steps = 4 * steps_an_epoch  # 2 epochs in each run
+    expected = {k: v * steps for k, v in per_step.items()}
+    expected["dfn_forward"] += 4  # a sample grid an epoch
+    check(counts == expected, f"CLEVR CLI: launches {counts}, expected {expected}")
+    snapshot = torch.load(runs["resumed"] / "Model" / "netG_epoch_2.pth", weights_only=True)
+    check(snapshot["ca_net.fc.weight"].shape[1] == cfg.TEXT.DIMENSION * cfg.VIDEO_LEN
+          and snapshot["recurrent.weight_ih"].shape[1]
+          == cfg.GAN.Z_DIM + cfg.TEXT.DIMENSION + cfg.LABEL_NUM,
+          "the CLEVR snapshot's CA input or motion GRU has other than CLEVR's dims")
+    fps = [r for r in (json.loads(line) for line in
+                       (runs["straight"] / "log" / "metrics.jsonl").open())
+           if r["tag"] == "perf/frames_per_sec"]
+    print(f"CLEVR CLI [{card}]: 2 epochs of {steps_an_epoch} steps straight ({seconds['straight']:.2f} "
+          f"s, the trace included, no saves) and 1 + an auto-resumed 1 ({seconds['resumed']:.2f} "
+          f"s, 3 saves): the state ({len(a)} tensors) and {len(records['straight'])} metrics "
+          "bit for bit; "
+          f"frames/s " + ", ".join(f"epoch {r['step']} {r['value']:.1f}" for r in fps)
+          + f"; launches {counts}")
+
+    # CPCSV_PROFILE_DIR: the trace of the straight run's steps 2-5
+    traced = profile_trace_kernels(profile_dir)
+    n = PROFILE_STEPS[1] - PROFILE_STEPS[0] + 1
+    bn_traced = traced["reduce_maps"] + traced["reduce_rows"]
+    bn_launched = n * (per_step["bn_stats"] + per_step["bn_grad_reduce"])
+    check(0.99 * bn_launched <= bn_traced <= bn_launched
+          and traced["dfn_forward_kernel"] == n * per_step["dfn_forward"]
+          and traced["dfn_backward_kernel"] == n * per_step["dfn_backward"],
+          f"the CPCSV_PROFILE_DIR trace holds {traced}: expected {n} steps of {per_step}")
+    print(f"CPCSV_PROFILE_DIR [{card}]: one trace, {traced['MB']:.1f} MB, of steps "
+          f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1]} of epoch 0: {traced['all kernels']} device "
+          f"kernels, the BN kernels {bn_traced} of {bn_launched} launched (reduce_maps "
+          f"{traced['reduce_maps']}, reduce_rows {traced['reduce_rows']}), dfn_forward_kernel "
+          f"{traced['dfn_forward_kernel']}, dfn_backward_kernel {traced['dfn_backward_kernel']}")
+
+    # the walks at 4 frames a story, on the final snapshot alone
+    run_dir = runs["resumed"]
+    for e in (0, 1):  # the one-epoch run's snapshots
+        (run_dir / "Model" / f"netG_epoch_{e}.pth").unlink()
+    printed = io.StringIO()
+    os.chdir(run_dir.parent.parent.parent)
+    reset_counts()
+    try:
+        with warnings.catch_warnings(), contextlib.redirect_stdout(printed):
+            warnings.simplefilter("ignore")
+            t = time.perf_counter()
+            fid_rows = main_clevr.main(args + ["--eval_fid", "1"])
+            fid_s = time.perf_counter() - t
+            t = time.perf_counter()
+            ssim_rows = main_clevr.main(args + ["--eval_ssim", "1"])
+            ssim_s = time.perf_counter() - t
+        walk_counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    n_test = max(CLEVR_SYNTHETIC // 4, cfg.TRAIN.ST_BATCH_SIZE)  # the CLI's test set
+    check([r["epoch"] for r in fid_rows] == [2] and [r["epoch"] for r in ssim_rows] == [2]
+          and all(np.isfinite([r["fid"], r["vfid"]]).all() and r["fid_random_init"]
+                  and r["fsd_random_init"] for r in fid_rows)
+          and all(np.isfinite(r["ssim"]) for r in ssim_rows),
+          f"CLEVR walks: FID rows {fid_rows}, SSIM rows {ssim_rows}")
+    # the FID walk generates the loader's batches, SSIM the dataset in chunks of 64
+    walk_expected = {"dfn_forward": n_test // cfg.TRAIN.ST_BATCH_SIZE + -(-n_test // 64),
+                     "dfn_backward": 0,
+                     "bn_stats": 0, "bn_grad_reduce": 0}
+    check(walk_counts == walk_expected,
+          f"CLEVR walks: launches {walk_counts}, expected {walk_expected}")
+    print(f"CLEVR walks of epoch 2's snapshot at {cfg.VIDEO_LEN} frames a story, {n_test} "
+          f"test stories [{card}]: --eval_fid fid {fid_rows[0]['fid']!r} fsd "
+          f"{fid_rows[0]['vfid']!r} (random-init extractors) in {fid_s:.2f} s; --eval_ssim "
+          f"{ssim_rows[0]['ssim']!r} in {ssim_s:.2f} s; launches {walk_counts}")
+    for label in runs:
+        shutil.rmtree(root / f"clevr_cli_{label}")
+    return {k: counts[k] + walk_counts[k] for k in counts}
 
 
 def main() -> int:
@@ -2804,11 +3322,19 @@ def main() -> int:
 
     # ----------------------- 6-7. training at full width, each config in turn
     runs = {}
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
     for name in TRAIN_CONFIGS:
         phase(f"6. training at full width, {name}")
         run = train_at_full_width(name, args.seed, card)
         phase(f"7. one D+G step of {name}, kernels vs plain versions")
         twin_step(run, args.seed)
+        if name == "final.yml":
+            phase("25. REMAT on final.yml: a step against one without, then timed")
+            remat = remat_phase(run, card, args.seed)
+            phase("26. ADAM_MU_DTYPE bfloat16 on final.yml: timed, saved and resumed at float32")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_adam_", dir=build_dir) as tmp:
+                adam_counts = adam_mu_phase(run, card, Path(tmp))
         # keep what phases 8-10 read; free the state before the next config
         runs[name] = types.SimpleNamespace(expected=run.expected, step_calls=run.step_calls,
                                            train_counts=run.train_counts, step_ms=run.step_ms,
@@ -2934,8 +3460,6 @@ def main() -> int:
     # -------------------------------------- 10. the trainer through the CLI
     phase("10. the trainer through the CLI: cascade.yml, one epoch, then auto-resume")
     cli_counts = cli_trainer(card, runs["cascade.yml"].expected, args.seed)
-    build_dir = REPO / "build"
-    build_dir.mkdir(exist_ok=True)
 
     # ------------------------------- 19. throughput.yml through the CLI
     phase(f"19. throughput.yml --synthetic {THROUGHPUT_SYNTHETIC} through the CLI, one epoch at "
@@ -2956,7 +3480,7 @@ def main() -> int:
 
     # -------------------------- 11-12. from disk, then the checkpoint walks
     with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_", dir=build_dir) as tmp:
-        phase("11. cascade.yml from a procedural Pororo tree on disk through the CLI, 2 epochs")
+        phase("11. cascade.yml from a procedural Pororo tree on disk through the CLI, one epoch")
         disk_counts, run_dir, data_dir = disk_trainer(card, runs["cascade.yml"].expected,
                                                       runs["cascade.yml"], args.seed, Path(tmp))
         phase("12. the checkpoint walks: --eval_fid, --eval_ssim, --load_ckpt")
@@ -3001,6 +3525,39 @@ def main() -> int:
           + "; ".join(f"{f} {r.train_counts}" for f, r in runs_var.items())
           + f"; the seq CLI {variants.seq_counts}; the no-seg CLI {variants.noseg_counts}; its "
           f"serving {served}")
+
+    # ------------------------- 27-28. CLEVR's 4-frame stories at full width
+    phase(f"27. {CLEVR_CONFIG} at full width: D+G steps, kernels vs plain, the BN and DFN "
+          "kernels at its shapes, serving")
+    clevr = clevr_step(card, gen, floor, args.seed)
+    phase(f"28. the CLEVR CLI: --synthetic {CLEVR_SYNTHETIC}, 2 epochs with CPCSV_PROFILE_DIR, "
+          "then 1 and an auto-resumed epoch; --eval_fid, --eval_ssim")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clevr_", dir=build_dir) as tmp:
+        clevr_cli_counts = clevr_cli(card, clevr.record.expected, args.seed, Path(tmp))
+    for name in kernels:
+        kernels[name]["launches"] += (remat["counts"][name] + adam_counts[name]
+                                      + clevr.record.train_counts[name] + clevr.served[name]
+                                      + clevr_cli_counts[name])
+        kernels[name]["clevr_step_launches"] = clevr.record.expected[name]
+        kernels[name]["remat_step_launches"] = remat["per_step"][name]
+    for name in ("bn_stats", "bn_grad_reduce"):
+        shape = clevr.largest[name]["shape"]
+        _, _, kernel_ms, library_ms, bound = clevr.per_shape[name, shape]
+        kernels[name].update({
+            "clevr_shape": shape, "clevr_max_abs_err": clevr.bn_err[name], "clevr_ms": kernel_ms,
+            "clevr_plain_ms": clevr.largest[name]["plain_ms"], "clevr_bound_ms": bound,
+            "clevr_bound_by": clevr.largest[name]["bound_by"], "clevr_library_ms": library_ms,
+            "clevr_step_ms": clevr.step_bn[CLEVR_CONFIG][name][0],
+            "clevr_step_bound_ms": clevr.step_bn[CLEVR_CONFIG][name][2],
+        })
+    for name, t in (("dfn_forward", clevr.fwd), ("dfn_backward", clevr.bwd)):
+        kernels[name].update({
+            "clevr_shape": [CLEVR_DFN_B, *DFN_SHAPE[:2]], "clevr_ms": t.graph_ms,
+            "clevr_plain_ms": t.plain_ms, "clevr_bound_ms": t.bound_ms,
+            "clevr_bound_by": t.bound_by, "clevr_library_ms": t.library_ms})
+    print(f"launches of REMAT {remat['counts']}, ADAM_MU_DTYPE {adam_counts}, {CLEVR_CONFIG}'s "
+          f"steps {clevr.record.train_counts}, its serving {clevr.served}, its CLI and walks "
+          f"{clevr_cli_counts}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -108,8 +108,10 @@ def story_batches(dataset, batch_size: int) -> Iterator[dict]:
 def synthetic_batches(cfg, b_st: int, b_im: int, seed: int = 0) -> tuple[dict, dict]:
     """(st_batch, im_batch) numpy float32 dicts in the train step's schema,
     the same values as the JAX package's from the same seed (without the
-    order-consistency fields: the port does not train that branch yet)."""
-    T = cfg.VIDEO_LEN
+    order-consistency fields), at the config's VIDEO_LEN, TEXT.DIMENSION and
+    LABEL_NUM: the JAX package's fixed 356 and 9 at Pororo's, CLEVR's 18 and
+    8 at `clevr.yml`'s."""
+    T, D, L = cfg.VIDEO_LEN, cfg.TEXT.DIMENSION, cfg.LABEL_NUM
     rng = np.random.default_rng(seed)
 
     def normal(*shape):
@@ -118,10 +120,10 @@ def synthetic_batches(cfg, b_st: int, b_im: int, seed: int = 0) -> tuple[dict, d
     def labels(*shape):
         return (rng.random(shape) < 0.3).astype(np.float32)
 
-    st_batch = {"images": normal(b_st, T, 64, 64, 3), "description": normal(b_st, T, 356),
-                "labels": labels(b_st, T, 9)}
-    im_batch = {"images": normal(b_im, 64, 64, 3), "description": normal(b_im, 356),
-                "labels": labels(b_im, 9), "content": normal(b_im, T, 356)}
+    st_batch = {"images": normal(b_st, T, 64, 64, 3), "description": normal(b_st, T, D),
+                "labels": labels(b_st, T, L)}
+    im_batch = {"images": normal(b_im, 64, 64, 3), "description": normal(b_im, D),
+                "labels": labels(b_im, L), "content": normal(b_im, T, D)}
     if cfg.SEGMENT_LEARNING:
         im_batch["images_seg"] = normal(b_im, 64, 64, 1)
     return st_batch, im_batch

@@ -15,13 +15,36 @@ from cpcsv_tpu_torch.models.discriminators import (
 )
 from cpcsv_tpu_torch.models.generator import StoryGenerator
 
-# Keys of the JAX package that the port parses but does not honour: its TPU
-# lowering (mesh, Pallas opt-in, remat, scan, BN backend) and its optimizer
-# state's dtype. Each must keep its default; another value raises rather than
-# being ignored.
-UNSUPPORTED_KEYS = (
-    "MESH_SHAPE", "USE_PALLAS", "REMAT", "SCAN_STEPS", "BN_BACKEND", "ADAM_MU_DTYPE",
-)
+# Keys of the JAX package that the port parses but does not honour yet: the
+# device mesh, which comes with the DDP slice. It must keep its default;
+# another value raises rather than being ignored.
+UNSUPPORTED_KEYS = ("MESH_SHAPE",)
+# The JAX package's TPU lowering choices, accepted at every value its config
+# accepts, each with one meaning in the port:
+#   SCAN_STEPS (K > 1: K D+G pairs a dispatch, lax.scan; else one): the
+#     same sequence of updates; the port runs one D+G pair a dispatch
+#     whatever K is;
+#   USE_PALLAS (the Pallas DFN on a TPU): on a CUDA device the DFN always
+#     runs its CUDA kernel, on the CPU its plain version;
+#   BN_BACKEND ("xla": flax BatchNorm; "mxu": its statistics as matmuls;
+#     "pallas": as Pallas kernels): the port's train BN is the Pallas arm's
+#     arithmetic on the BN kernels (`ops/batchnorm.py`) under every value.
+BN_BACKENDS = ("xla", "mxu", "pallas")
+
+
+def check_lowering_keys(cfg: Config) -> None:
+    """ValueError where the JAX package would refuse a BN_BACKEND
+    (ADAM_MU_DTYPE: `train.state.make_adam`); NotImplementedError for
+    UNSUPPORTED_KEYS."""
+    default = Config()
+    for key in UNSUPPORTED_KEYS:
+        if getattr(cfg, key) != getattr(default, key):
+            raise NotImplementedError(
+                f"{key}={getattr(cfg, key)!r}: the port does not support this key; "
+                f"leave it at its default {getattr(default, key)!r}"
+            )
+    if cfg.BN_BACKEND not in BN_BACKENDS:
+        raise ValueError(f"BN_BACKEND must be 'xla', 'mxu' or 'pallas', got {cfg.BN_BACKEND!r}")
 
 
 # cfg.COMPUTE_DTYPE -> the modules' compute dtype (None: no casts, the
@@ -38,15 +61,10 @@ def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
 
 def generator_from_config(cfg: Config) -> StoryGenerator:
     """The StoryGenerator of `cfg`, on the CPU, its parameters float32, its
-    compute in cfg.COMPUTE_DTYPE. On a CUDA device its DFN always runs the
-    CUDA kernel."""
-    default = Config()
-    for key in UNSUPPORTED_KEYS:
-        if getattr(cfg, key) != getattr(default, key):
-            raise NotImplementedError(
-                f"{key}={getattr(cfg, key)!r}: the port does not support this key; "
-                f"leave it at its default {getattr(default, key)!r}"
-            )
+    compute in cfg.COMPUTE_DTYPE, its up and down blocks recomputed in the
+    backward under cfg.REMAT. On a CUDA device its DFN always runs the CUDA
+    kernel."""
+    check_lowering_keys(cfg)
     return StoryGenerator(
         video_len=cfg.VIDEO_LEN,
         motion_dim=cfg.TEXT.DIMENSION + cfg.LABEL_NUM,
@@ -59,6 +77,7 @@ def generator_from_config(cfg: Config) -> StoryGenerator:
         cascade=cfg.CASCADE_MODEL,
         torch_repeat_quirk=cfg.TORCH_REPEAT_QUIRK,
         fused_upsample=cfg.FUSED_UPSAMPLE,
+        remat=cfg.REMAT,
         dtype=compute_dtype(cfg),
     )
 

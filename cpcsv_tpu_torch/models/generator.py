@@ -21,6 +21,13 @@ None the three are drawn from `generator` in the JAX package's order: CA eps
 (B, 124), then the motion GRU's h0 noise (B, 365), then the per-step noise
 (B, T, 100).
 
+`remat` is cfg.REMAT (`cpcsv_tpu/models/generator.py:114-118`, `nn.remat`
+on every UpBlock and DownBlock): while gradients are recorded each such
+block runs through `torch.utils.checkpoint` (non-reentrant), so its
+activations are not kept but recomputed in the backward. The outputs and
+gradients are the same; each train-mode BN in a block on the loss's path
+runs `bn_stats` twice a call and updates its running statistics once.
+
 The module's mode picks the BatchNorm statistics: eval mode serves with the
 running ones; train mode normalises with the batch's and updates each BN's
 running statistics in call order, and on the card the DFN's gradient comes
@@ -36,11 +43,14 @@ dtype, as JAX draws it in that dtype.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
+from cpcsv_tpu_torch.ops.batchnorm import recomputing
 from cpcsv_tpu_torch.ops.blocks import (
     BatchNorm2d,
     Conv3x3,
@@ -82,6 +92,12 @@ class CANet(nn.Module):
         return mu + torch.exp(0.5 * logvar) * eps.to(mu.dtype), mu, logvar
 
 
+def _remat_contexts():
+    """The checkpoint's (forward, recompute) contexts: the forward as it is,
+    the recompute with BN's state writes off."""
+    return contextlib.nullcontext(), recomputing()
+
+
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
@@ -105,9 +121,11 @@ class StoryGenerator(nn.Module):
         out_num: int = 1,
         torch_repeat_quirk: bool = False,
         fused_upsample: str = "off",
+        remat: bool = False,
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.remat = remat
         self.video_len = video_len
         self.motion_dim, self.content_dim = motion_dim, content_dim
         self.noise_dim, self.text_dim = noise_dim, text_dim
@@ -182,6 +200,22 @@ class StoryGenerator(nn.Module):
         hs = gru_unroll(self.mocornn, self.c_net(content_code), motion_input, self.dtype)
         return hs.reshape(-1, self.content_dim)
 
+    # ----------------------------------------------------------------- blocks
+    def _block(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """An UpBlock or DownBlock on x; under REMAT, while gradients are
+        recorded, through the non-reentrant checkpoint: the backward runs the
+        block again instead of keeping its activations, and its BN writes no
+        state the second time (`ops/batchnorm.py:recomputing`)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return block(x)
+        return checkpoint(block, x, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=_remat_contexts)
+
+    def _chain(self, x: torch.Tensor, *blocks: nn.Module) -> torch.Tensor:
+        for block in blocks:
+            x = self._block(block, x)
+        return x
+
     # ------------------------------------------------------------- DFN fusion
     def _dfn_fuse(self, m_code_flat, crnn_code) -> torch.Tensor:
         m_image = self.image_net(m_code_flat).reshape(-1, self.filter_num, self.image_size)
@@ -194,10 +228,10 @@ class StoryGenerator(nn.Module):
     # ----------------------------------------------------------------- decode
     def _reencode_mask(self, mask):
         z = self.presample(mask)
-        g4 = self.downsample1_seg(z)  # 32x32
-        g3 = self.downsample2_seg(g4)  # 16x16
-        g2 = self.downsample3_seg(g3)  # 8x8
-        g1 = self.downsample4_seg(g2)  # 4x4
+        g4 = self._block(self.downsample1_seg, z)  # 32x32
+        g3 = self._block(self.downsample2_seg, g4)  # 16x16
+        g2 = self._block(self.downsample3_seg, g3)  # 8x8
+        g1 = self._block(self.downsample4_seg, g2)  # 4x4
         return g1, g2, g3, g4
 
     def _decode(self, zmc_all):
@@ -205,34 +239,35 @@ class StoryGenerator(nn.Module):
         the dense heads are channel-major, so a view gives the 4x4 map."""
         zmc_img = self.fc(zmc_all).view(-1, self.gf_dim, 4, 4)
         if not self.use_segment:
-            h = self.upsample4(self.upsample3(self.upsample2(self.upsample1(zmc_img))))
+            h = self._chain(zmc_img, self.upsample1, self.upsample2, self.upsample3,
+                            self.upsample4)
             return self.img(h), None, None
 
         zmc_seg = self.fc_seg(zmc_all).view(-1, self.gf_dim_seg, 4, 4)
         if self.cascade:
             # seg trunk first, re-encode the mask, then gate the image trunk
-            h_seg1 = self.upsample1_seg(zmc_seg)
-            h_seg2 = self.upsample2_seg(h_seg1)
-            h_seg3 = self.upsample3_seg(h_seg2)
-            mask = self.img_seg(self.upsample4_seg(h_seg3))
+            h_seg1 = self._block(self.upsample1_seg, zmc_seg)
+            h_seg2 = self._block(self.upsample2_seg, h_seg1)
+            h_seg3 = self._block(self.upsample3_seg, h_seg2)
+            mask = self.img_seg(self._block(self.upsample4_seg, h_seg3))
             g1, g2, g3, g4 = self._reencode_mask(mask)
             zmc_img = self.seg_c(g1) * zmc_img + zmc_img
-            h_img = self.upsample1(zmc_img)
+            h_img = self._block(self.upsample1, zmc_img)
             h_img = self.seg_c1(g2) * h_img + h_img
-            h_img = self.upsample4(self.upsample3(self.upsample2(h_img)))
+            h_img = self._chain(h_img, self.upsample2, self.upsample3, self.upsample4)
             latents = ((zmc_seg, h_seg1, h_seg2, h_seg3), (g1, g2, g3, g4))
             return self.img(h_img), latents, mask
         # v1: the seg trunk gates the image trunk directly (model.py:381-407)
         zmc_img = self.seg_c(zmc_seg) * zmc_img + zmc_img
-        h_seg = self.upsample1_seg(zmc_seg)
-        h_img = self.upsample1(zmc_img)
+        h_seg = self._block(self.upsample1_seg, zmc_seg)
+        h_img = self._block(self.upsample1, zmc_img)
         h_img = self.seg_c1(h_seg) * h_img + h_img
-        h_seg = self.upsample2_seg(h_seg)
-        h_img = self.upsample2(h_img)
-        h_seg = self.upsample3_seg(h_seg)
-        h_img = self.upsample3(h_img)
-        h_seg = self.upsample4_seg(h_seg)
-        h_img = self.upsample4(h_img)
+        h_seg = self._block(self.upsample2_seg, h_seg)
+        h_img = self._block(self.upsample2, h_img)
+        h_seg = self._block(self.upsample3_seg, h_seg)
+        h_img = self._block(self.upsample3, h_img)
+        h_seg = self._block(self.upsample4_seg, h_seg)
+        h_img = self._block(self.upsample4, h_img)
         return self.img(h_img), None, self.img_seg(h_seg)
 
     @staticmethod
@@ -291,7 +326,8 @@ class StoryGenerator(nn.Module):
         if not self.cascade:
             raise ValueError("the seg autoencoder exists only in the cascade generator")
         g1, _, _, _ = self._reencode_mask(real_segments.permute(0, 3, 1, 2))
-        h = self.upsample4_seg(self.upsample3_seg(self.upsample2_seg(self.upsample1_seg(g1))))
+        h = self._chain(g1, self.upsample1_seg, self.upsample2_seg, self.upsample3_seg,
+                        self.upsample4_seg)
         return _nhwc(self.img_seg(h))
 
     def sample_images(

@@ -28,15 +28,40 @@ by float32 rounding, which later bfloat16 roundings can carry further.
 The output's cast is inside the autograd Function, so the backward reads
 a bfloat16 dy: the values of JAX's float32 cotangent of the cast, at half
 the bytes.
+
+Under REMAT (`models/generator.py`) the backward runs a block's forward a
+second time, its BN on the same input through the same kernel, which gives
+the forward's bits (the kernels have no atomics). Inside `recomputing()` a
+BN computes as before but writes no state, so the running statistics and
+`num_batches_tracked` are updated once a call, as flax's remat does.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
 from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
 
 MOMENTUM = 0.1
+_recompute = threading.local()  # autograd runs a CUDA backward on a thread of its own
+
+
+@contextlib.contextmanager
+def recomputing():
+    """While it is open on this thread, train-mode BN updates no state."""
+    was = is_recomputing()
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = was
+
+
+def is_recomputing() -> bool:
+    return getattr(_recompute, "on", False)
 
 
 def _on_cpu(x: torch.Tensor, name: str) -> bool:

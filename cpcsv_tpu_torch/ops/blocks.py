@@ -32,7 +32,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cpcsv_tpu_torch.ops.batchnorm import batch_norm_train, update_running_stats
+from cpcsv_tpu_torch.ops.batchnorm import (
+    batch_norm_train,
+    is_recomputing,
+    update_running_stats,
+)
 from cpcsv_tpu_torch.ops.fused_upsample import LOWERINGS
 
 BN_EPS = 1e-5
@@ -90,15 +94,17 @@ class _BatchNorm:
 
     with the batch statistics in train mode (then the running statistics are
     updated, and num_batches_tracked counts up as in torch; it is inert at
-    momentum 0.1), the running ones in eval mode.
+    momentum 0.1; REMAT's recompute updates neither), the running ones in
+    eval mode.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps)
-            update_running_stats(self.running_mean, self.running_var, mean, var,
-                                 x.numel() // x.shape[1])
-            self.num_batches_tracked.add_(1)
+            if not is_recomputing():
+                update_running_stats(self.running_mean, self.running_var, mean, var,
+                                     x.numel() // x.shape[1])
+                self.num_batches_tracked.add_(1)
             return y
         shape = (1, -1) + (1,) * (x.dim() - 2)
         mean = self.running_mean.float().view(shape)

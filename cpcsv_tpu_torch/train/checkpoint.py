@@ -18,6 +18,12 @@ file or the new one under the final name, never a part of one. The full
 state's label is also the comment of its zip archive (the format
 `torch.save` writes), so `last_epoch` reads it without unpickling the file.
 
+The Adam states are saved with their first moments in cfg.ADAM_MU_DTYPE;
+restoring casts them to the dtype the state's optimizers were built with
+(`train.state.Adam.load_state_dict`), as `cpcsv_tpu/train/checkpoint.py:241-250`
+casts to the template, so a run may flip the key between resumes. A state
+saved by `torch.optim.Adam` loads as it is.
+
 Resume is exact: the trainer draws every epoch's noise and data order from
 (seed, epoch), so a resumed epoch E sees what an uninterrupted run's would.
 The one state not saved is the image loader's wrap-around position inside an

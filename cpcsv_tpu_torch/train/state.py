@@ -4,8 +4,9 @@ Adam optimizer (counterpart of `cpcsv_tpu/train/state.py`; reference
 
 Adam has β = (0.5, 0.999) and eps 1e-8. The learning rate is not part of the
 state: the train steps set it on every call, as the JAX steps take `lr` as
-an argument (`state.py:66-70`). `torch.optim.Adam` computes optax's
-`scale_by_adam` followed by −lr·u. A net's BN running statistics and SN
+an argument (`state.py:66-70`). `Adam` computes optax's `scale_by_adam`
+followed by −lr·u, with the first moment stored in cfg.ADAM_MU_DTYPE
+(`cpcsv_tpu/train/state.py:26-41`). A net's BN running statistics and SN
 vectors live in its buffers, as its `batch_stats` and `spectral`
 collections do in JAX. Without SEGMENT_LEARNING there is no seg D: `d_se` is
 None, and `nets()` and `opts` leave it out (three Adams, not four), as the
@@ -34,7 +35,7 @@ class TrainState:
     d_im: nn.Module
     d_st: nn.Module
     d_se: Optional[nn.Module]
-    opts: dict[str, torch.optim.Optimizer]  # keyed by the names of nets()
+    opts: dict[str, Adam]  # keyed by the names of nets()
     step: int = 0
 
     def nets(self) -> dict[str, nn.Module]:
@@ -42,9 +43,81 @@ class TrainState:
         return {name: getattr(self, name) for name in NETS if getattr(self, name) is not None}
 
 
-def make_adam(params) -> torch.optim.Adam:
-    """Adam(β = 0.5, 0.999, eps 1e-8); the steps set the learning rate."""
-    return torch.optim.Adam(params, lr=0.0, betas=(0.5, 0.999), eps=1e-8)
+# cfg.ADAM_MU_DTYPE -> the first moment's dtype (None: the parameter's, as
+# optax's mu_dtype=None and torch.optim.Adam keep it)
+MU_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+class Adam(torch.optim.Optimizer):
+    """Adam whose first moment may be stored in bfloat16 beside float32
+    parameters: optax's `scale_by_adam(mu_dtype=...)`, which
+    `torch.optim.Adam` cannot do.
+
+    One step, in torch.optim.Adam's (foreach) arithmetic and state layout
+    (`step`, `exp_avg`, `exp_avg_sq`), so that with a float32 moment it
+    gives torch.optim.Adam's bits and reads its state_dicts:
+      m  = lerp(float32(stored m), g, 1 − β1)      in float32
+      v  = β2·v + (1 − β2)·g²                        float32
+      p −= lr/(1 − β1^t) · m / (√v/√(1 − β2^t) + eps)   float32
+      stored m = m in `mu_dtype` (rounded to nearest even), as optax casts
+      the new moment only after it has used it; mu_dtype None keeps it in
+      the parameter's dtype.
+    A loaded state_dict's first moments are cast to `mu_dtype`, so a run may
+    flip ADAM_MU_DTYPE between resumes."""
+
+    def __init__(self, params, mu_dtype: Optional[torch.dtype] = None,
+                 betas: tuple[float, float] = (0.5, 0.999), eps: float = 1e-8):
+        super().__init__(params, {"lr": 0.0, "betas": betas, "eps": eps})
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+            states = [self.state[p] for p in params]
+            grads = [p.grad for p in params]
+            stored = [s["exp_avg"] for s in states]
+            mu = [m if m.dtype == p.dtype else m.to(p.dtype) for m, p in zip(stored, params)]
+            nu = [s["exp_avg_sq"] for s in states]
+            steps = [s["step"] for s in states]
+            (b1, b2), lr, eps = group["betas"], group["lr"], group["eps"]
+            torch._foreach_add_(steps, 1)
+            torch._foreach_lerp_(mu, grads, 1 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, 1 - b2)
+            step_size = [(lr / (1 - b1 ** s.item())) * -1 for s in steps]
+            denom = torch._foreach_sqrt(nu)
+            torch._foreach_div_(denom, [(1 - b2 ** s.item()) ** 0.5 for s in steps])
+            torch._foreach_add_(denom, eps)
+            torch._foreach_addcdiv_(params, mu, denom, step_size)
+            if any(a is not b for a, b in zip(mu, stored)):
+                torch._foreach_copy_(stored, mu)
+
+    def __getstate__(self):  # torch.optim.Optimizer's pickles its defaults, state and groups only
+        return {**super().__getstate__(), "mu_dtype": self.mu_dtype}
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)  # casts every moment to its parameter's dtype
+        if self.mu_dtype is not None:
+            for state in self.state.values():
+                if "exp_avg" in state:
+                    state["exp_avg"] = state["exp_avg"].to(self.mu_dtype)
+
+
+def make_adam(params, mu_dtype: str = "float32") -> Adam:
+    """Adam(β = 0.5, 0.999, eps 1e-8), its first moment in `mu_dtype`
+    (cfg.ADAM_MU_DTYPE); the steps set the learning rate."""
+    if mu_dtype not in MU_DTYPES:
+        raise ValueError(f"ADAM_MU_DTYPE must be 'float32' or 'bfloat16', got {mu_dtype!r}")
+    return Adam(params, MU_DTYPES[mu_dtype])
 
 
 @torch.no_grad()
@@ -85,5 +158,5 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
     for name, net in state.nets().items():
         net.to(dev).train()
         weights_init(net, generator)
-        state.opts[name] = make_adam(net.parameters())
+        state.opts[name] = make_adam(net.parameters(), cfg.ADAM_MU_DTYPE)
     return state

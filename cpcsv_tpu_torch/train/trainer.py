@@ -28,9 +28,15 @@ package. The extractors are built at the first epoch's hook and kept.
 The run directory archives itself (reference trainer.py:55-61): the YAML
 config and the port's generator and trainer sources are copied into it.
 
+With CPCSV_PROFILE_DIR set, the first epoch of the run with more than two
+steps is traced from its step 2 to its step 5 (or its end) with
+torch.profiler into that directory (`utils/profiling.py`), as
+`cpcsv_tpu/train/trainer.py:273-287` traces with jax.profiler; a run too
+short for that says so at its end.
+
 SCAN_STEPS, the JAX package's K updates in one dispatch, is the same sequence
 of updates; the port runs it one D+G pair at a time. Refused, naming the
-slice that brings each: a MESH_SHAPE and CPCSV_PROFILE_DIR.
+slice that brings it: a MESH_SHAPE.
 """
 
 from __future__ import annotations
@@ -61,8 +67,10 @@ from cpcsv_tpu_torch.train.state import TrainState, create_train_state
 from cpcsv_tpu_torch.train.steps import make_train_steps
 from cpcsv_tpu_torch.utils.image import save_image_results, save_story_results
 from cpcsv_tpu_torch.utils.logging import MetricsLogger
+from cpcsv_tpu_torch.utils.profiling import profile_env_dir, start_trace, stop_trace
 
 EPOCH_STEPS_SPAN = "GANTrainer.epoch_steps"  # a torch.profiler range around an epoch's steps
+PROFILE_STEPS = (2, 5)  # CPCSV_PROFILE_DIR: the first and the last step of an epoch traced
 
 
 def lr_at_epoch(base_lr: float, epoch: int, decay_step: int) -> float:
@@ -91,10 +99,6 @@ def refuse_unported(cfg: Config) -> None:
         raise NotImplementedError(
             f"MESH_SHAPE={cfg.MESH_SHAPE!r}: multi-device training comes with the DDP slice "
             "(torch.distributed); the port trains on one device")
-    if os.environ.get("CPCSV_PROFILE_DIR"):
-        raise NotImplementedError(
-            "CPCSV_PROFILE_DIR: the trainer's profile capture comes with the tools slice; "
-            "unset it (chip_smoke.py traces the port with torch.profiler)")
 
 
 class GANTrainer:
@@ -181,6 +185,7 @@ class GANTrainer:
         num_step = len(storyloader)
         c_time = time.time()
         print(f"LR DECAY EPOCH: {cfg.TRAIN.LR_DECAY_EPOCH}")
+        profile_dir = profile_env_dir()  # armed until one trace is written
 
         for epoch in range(start_epoch, self.max_epoch):
             start_t = time.time()
@@ -213,10 +218,12 @@ class GANTrainer:
                     self.logger.add_scalars(
                         {k: v for k, v in stats.items() if not k.startswith("st_D/")}, step)
 
-            last_st_host = None
+            last_st_host, prof = None, None
             with record_function(EPOCH_STEPS_SPAN):
                 for i, (st_host, st_staged, im_staged) in enumerate(
                         device_prefetch(paired_batches(), put, depth=2)):
+                    if profile_dir and i == PROFILE_STEPS[0]:
+                        prof = start_trace(profile_dir)
                     st_batch, im_batch = copier.ready(st_staged), copier.ready(im_staged)
                     _, d_metrics = self.d_step(state, rng, st_batch, im_batch, lr_d)
                     _, g_metrics = self.g_step(state, rng, st_batch, im_batch, lr_g)
@@ -225,6 +232,12 @@ class GANTrainer:
                     values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
                     log_row(dict(zip(metrics, values.tolist())), i)
                     last_st_host = st_host
+                    if prof is not None and i == PROFILE_STEPS[1]:
+                        stop_trace(prof)
+                        prof = profile_dir = None
+            if prof is not None:  # the epoch ended inside the traced steps
+                stop_trace(prof)
+                profile_dir = None
 
             # ---- epoch sample grid (reference trainer.py:437-444)
             if last_st_host is not None:
@@ -251,6 +264,9 @@ class GANTrainer:
         # the final save keeps the reference's name netG_epoch_{MAX_EPOCH} and
         # records the last completed epoch for auto-resume
         self.ckpt.save(state, self.max_epoch, completed=self.max_epoch - 1)
+        if profile_dir:
+            print(f"WARNING: CPCSV_PROFILE_DIR was set but no epoch had more than "
+                  f"{PROFILE_STEPS[0]} steps to trace")
         self.logger.flush()
         return state
 

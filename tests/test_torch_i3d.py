@@ -40,7 +40,7 @@ def relative_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-@pytest.mark.parametrize("frames", [10, 20])
+@pytest.mark.parametrize("frames", [10, 20, 4])
 def test_i3d_matches_jax_with_the_same_weights(jax_i3d, frames):
     import jax
     import jax.numpy as jnp

@@ -4,6 +4,7 @@ that the port imports nothing of JAX or of the JAX package."""
 
 import ast
 import dataclasses
+import functools
 import os
 from pathlib import Path
 
@@ -15,9 +16,15 @@ from cpcsv_tpu.config import config_from_file as jax_config_from_file
 from cpcsv_tpu.data.synthetic import SyntheticStoryDataset as JaxSyntheticStoryDataset
 from cpcsv_tpu.utils import image as jax_image
 from cpcsv_tpu_torch.config import GanConfig, config_from_file
-from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
+from cpcsv_tpu_torch.data.synthetic import (
+    SyntheticStoryDataset,
+    story_batches,
+    synthetic_batches,
+)
 from cpcsv_tpu_torch.evaluation.drivers import Infer
 from cpcsv_tpu_torch.models.factory import generator_from_config
+from cpcsv_tpu_torch.train.state import create_train_state
+from cpcsv_tpu_torch.train.steps import make_train_steps
 from cpcsv_tpu_torch.utils import image
 from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 
@@ -69,14 +76,57 @@ def test_sample_videos_np_holds_float32(cascade_setup, monkeypatch):
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
 
 
-@pytest.mark.parametrize("key,value", [
-    ("MESH_SHAPE", "data:4"), ("USE_PALLAS", True), ("REMAT", True), ("SCAN_STEPS", 1),
-    ("BN_BACKEND", "pallas"), ("ADAM_MU_DTYPE", "bfloat16"),
-])
+@pytest.mark.parametrize("key,value", [("MESH_SHAPE", "data:4")])
 def test_generator_refuses_keys_it_does_not_honour(key, value):
     cfg = config_from_file("final.yml").with_updates(GAN=TINY, **{key: value})
     with pytest.raises(NotImplementedError, match=key):
         generator_from_config(cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_step(**keys):
+    """final.yml at this file's tiny widths with `keys`: one D+G step on the
+    CPU from seed 0 with the same batches and noise, (state, metrics)."""
+    cfg = config_from_file("final.yml").with_updates(
+        GAN=GanConfig(CONDITION_DIM=124, Z_DIM=100, DF_DIM=8, GF_DIM=4, GF_SEG_DIM=16), **keys)
+    state = create_train_state(cfg, seed=0, device="cpu")
+    st, im = synthetic_batches(cfg, 2, 4, seed=1)
+    d_step, g_step = make_train_steps(cfg)
+    rng = torch.Generator().manual_seed(5)
+    _, dm = d_step(state, rng, st, im, 4e-4)
+    _, gm = g_step(state, rng, st, im, 1e-4)
+    return state, {k: float(v) for k, v in {**dm, **gm}.items()}
+
+
+@pytest.mark.parametrize("key,value", [
+    ("USE_PALLAS", True), ("REMAT", True), ("SCAN_STEPS", 1), ("BN_BACKEND", "pallas"),
+    ("ADAM_MU_DTYPE", "bfloat16"),
+])
+def test_lowering_keys_are_honoured(key, value):
+    """The keys the port once refused, each flipped for one tiny D+G step
+    against the default step, as its meaning says: USE_PALLAS (the DFN's
+    kernel choice, the same function), SCAN_STEPS (the same updates one
+    pair a dispatch), BN_BACKEND (the same BN arithmetic) and REMAT (the
+    blocks recomputed) give the default's bits; ADAM_MU_DTYPE bfloat16 gives
+    them too after one update (Adam uses the new first moment before it
+    stores it) but for the stored first moments, the default's rounded to
+    bfloat16. A BN_BACKEND the JAX package refuses raises as there
+    (ADAM_MU_DTYPE's: `tests/test_torch_remat_adam.py`)."""
+    ref_state, ref_metrics = tiny_step()
+    state, metrics = tiny_step(**{key: value})
+    assert metrics == ref_metrics
+    for net, ref in zip(state.nets().values(), ref_state.nets().values()):
+        for (name, a), b in zip(net.state_dict().items(), ref.state_dict().values()):
+            assert torch.equal(a, b), name
+    mu = torch.bfloat16 if key == "ADAM_MU_DTYPE" else torch.float32
+    for n, opt in state.opts.items():
+        for a, b in zip(opt.state.values(), ref_state.opts[n].state.values()):
+            assert a["exp_avg"].dtype == mu and torch.equal(a["exp_avg"], b["exp_avg"].to(mu))
+            assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+    if key == "BN_BACKEND":
+        with pytest.raises(ValueError, match=key):
+            generator_from_config(config_from_file("final.yml").with_updates(
+                GAN=TINY, BN_BACKEND="cudnn"))
 
 
 def test_infer_without_a_card_raises(cascade_setup, monkeypatch):
@@ -86,7 +136,8 @@ def test_infer_without_a_card_raises(cascade_setup, monkeypatch):
         Infer(cfg, state)
 
 
-@pytest.mark.parametrize("name", ["final.yml", "cascade.yml", "throughput.yml", "procedural.yml"])
+@pytest.mark.parametrize("name", ["final.yml", "cascade.yml", "throughput.yml", "procedural.yml",
+                                  "clevr.yml"])
 def test_config_matches_jax(name):
     jax_cfg = jax_config_from_file(str(ROOT / "cpcsv_tpu" / "configs" / name))
     assert dataclasses.asdict(config_from_file(name)) == dataclasses.asdict(jax_cfg)

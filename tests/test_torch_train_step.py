@@ -1,5 +1,6 @@
 """The port's alternating D step and G step against the JAX package's, for
-`final.yml` (v1) and `cascade.yml`, and the cascade's seg autoencoder.
+`final.yml` (v1), `cascade.yml` and `clevr.yml` (v1 at CLEVR's dims: 4-frame
+stories, 18-d codes, 8 labels), and the cascade's seg autoencoder.
 
 The port's initial state (tiny widths, the config otherwise) is carried into
 a JAX `TrainState` by the JAX package's own converter (`utils/port_torch.py`)
@@ -82,7 +83,8 @@ GRAD_RTOL_CASCADE_G_FLOAT64 = 2e-2
 
 # the steps compared, by test id: (config, step)
 STEPS = {"d": ("final.yml", "d"), "g": ("final.yml", "g"),
-         "cascade-d": ("cascade.yml", "d"), "cascade-g": ("cascade.yml", "g")}
+         "cascade-d": ("cascade.yml", "d"), "cascade-g": ("cascade.yml", "g"),
+         "clevr-d": ("clevr.yml", "d"), "clevr-g": ("clevr.yml", "g")}
 
 
 def configs(name="final.yml"):
@@ -199,8 +201,9 @@ def _port_step(run, name, which):
     load_jax_train_state(state, state0)
     draws = outs[which][2]
     # 6 draws: story then image, each CA eps, motion-GRU h0, per-step noise
-    assert [d.shape for d in draws] == [(B_ST, 124), (B_ST, 365), (B_ST, 5, 100),
-                                        (B_IM, 124), (B_IM, 365), (B_IM, 1, 100)]
+    M, T = tcfg.motion_dim, tcfg.VIDEO_LEN
+    assert [d.shape for d in draws] == [(B_ST, 124), (B_ST, M), (B_ST, T, 100),
+                                        (B_IM, 124), (B_IM, M), (B_IM, 1, 100)]
     noise = tuple(tuple(torch.from_numpy(d) for d in draws[i:i + 3]) for i in (0, 3))
     d_step, g_step = make_train_steps(tcfg)
     calls = PLAIN_CALLS[name, which] = collections.Counter()
@@ -537,7 +540,7 @@ def test_create_train_state_without_a_card_raises(monkeypatch):
         create_train_state(configs()[1], seed=0)
 
 
-@pytest.mark.parametrize("name", ["final.yml", "cascade.yml"])
+@pytest.mark.parametrize("name", ["final.yml", "cascade.yml", "clevr.yml"])
 def test_chip_smoke_launch_counts_match_a_step(runs, name):
     """The per-step kernel launches that chip_smoke.py derives from the code
     equal the calls a D step and a G step of the parity tests above made to

@@ -2,11 +2,12 @@
 (`cpcsv_tpu_torch.train.trainer`, `data/`, `utils/image.py`) on the CPU, held
 against the JAX package where it computes the same thing: the LR schedule,
 the loader's batch order, the synthetic image items and the sample grids;
-and what the trainer refuses. Training runs, checkpoints and resume are
+what the trainer refuses; and its CPCSV_PROFILE_DIR trace. Training runs, checkpoints and resume are
 driven through the CLI in `test_torch_cli.py`.
 """
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -101,14 +102,9 @@ def test_sample_grids_match_jax(tmp_path):
 
 @pytest.mark.parametrize("update,match", [
     ({"MESH_SHAPE": "data:4"}, "DDP slice"),
-    ("CPCSV_PROFILE_DIR", "tools slice"),
 ])
 def test_trainer_refuses_what_it_does_not_do(update, match, tmp_path, monkeypatch):
-    cfg = tiny_cfg()
-    if update == "CPCSV_PROFILE_DIR":
-        monkeypatch.setenv("CPCSV_PROFILE_DIR", str(tmp_path / "trace"))
-    else:
-        cfg = cfg.with_updates(**update)
+    cfg = tiny_cfg().with_updates(**update)
     with pytest.raises(NotImplementedError, match=match):
         GANTrainer(cfg, str(tmp_path), device="cpu")
 
@@ -117,3 +113,72 @@ def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GANTrainer(tiny_cfg(), str(tmp_path))
+
+
+def test_profile_dir_traces_steps_2_to_5(tmp_path, monkeypatch, capsys):
+    """CPCSV_PROFILE_DIR, which the trainer once refused: the first epoch
+    with more than 2 steps is traced from its step 2 to its step 5 into that
+    directory, one torch.profiler Chrome trace, as the JAX trainer traces
+    with jax.profiler (`cpcsv_tpu/train/trainer.py:273-287`); a run whose
+    epochs are too short traces nothing and says so. The steps are stand-ins
+    that mark themselves with a range and a matmul (profiling a real tiny
+    step on the CPU costs seconds; `chip_smoke.py` reads the real kernels
+    from the trace on the card)."""
+    import json
+
+    from cpcsv_tpu_torch.cli.main_pororo import synthetic_loaders
+    from cpcsv_tpu_torch.train import trainer as trainer_module
+
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("CPCSV_PROFILE_DIR", str(trace_dir))
+    monkeypatch.setitem(sys.modules, "tensorboardX", None)  # metrics.jsonl only: seconds less
+    steps = []
+
+    def stand_ins(cfg):
+        def d_step(state, *args):
+            steps.append(len(steps))
+            with torch.profiler.record_function(f"test.step_{len(steps) - 1}"):
+                return state, {"st_D/loss": torch.ones(2, 2).matmul(torch.ones(2, 2)).sum()}
+
+        return d_step, lambda state, *args: (state, {"G/loss": torch.zeros(())})
+
+    monkeypatch.setattr(trainer_module, "make_train_steps", stand_ins)
+    cfg = tiny_cfg(max_epoch=1)
+    GANTrainer(cfg, str(tmp_path / "short"), device="cpu").train(
+        *synthetic_loaders(cfg, 4, seed=0))  # 2 steps: too short
+    assert not trace_dir.exists()
+    assert "CPCSV_PROFILE_DIR was set but no epoch had more than 2 steps" in capsys.readouterr().out
+    steps.clear()
+    GANTrainer(cfg, str(tmp_path / "run"), device="cpu").train(
+        *synthetic_loaders(cfg, 14, seed=0))  # 7 steps
+    assert steps == list(range(7))
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    names = [e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]]
+    assert {n for n in names if n and n.startswith("test.step_")} == {
+        f"test.step_{i}" for i in range(2, 6)}
+    assert names.count("aten::matmul") == 4
+
+
+def test_profiling_helpers(tmp_path, monkeypatch):
+    """`utils/profiling.py`, the JAX module's surface: maybe_trace writes one
+    trace of its block into a directory and nothing without one; StepTimer
+    keeps the steps after its warm-up; profile_env_dir reads
+    CPCSV_PROFILE_DIR, empty as unset."""
+    from cpcsv_tpu_torch.utils import profiling
+
+    with profiling.maybe_trace(None):
+        pass
+    with profiling.maybe_trace(str(tmp_path / "trace")):
+        torch.ones(2, 2).matmul(torch.ones(2, 2))
+    assert len(list((tmp_path / "trace").glob("*.pt.trace.json"))) == 1
+    timer = profiling.StepTimer(warmup=1)
+    assert np.isnan(timer.mean) and np.isnan(timer.frames_per_sec(10))
+    for _ in range(3):
+        timer.start()
+        timer.stop(sync_on=torch.zeros(1))
+    assert len(timer.times) == 2 and timer.frames_per_sec(10) == 10 / timer.mean
+    monkeypatch.setenv("CPCSV_PROFILE_DIR", "")
+    assert profiling.profile_env_dir() is None
+    monkeypatch.setenv("CPCSV_PROFILE_DIR", str(tmp_path))
+    assert profiling.profile_env_dir() == str(tmp_path)
