@@ -54,9 +54,9 @@ Phases, each of which exits non-zero on failure:
      cascade tags), the sample grids, the launches against the steps run;
      frames/s, the idle share of the traced epoch's steps, checkpoint write
      seconds;
- 11. a procedural Pororo tree of DISK_EPISODES (24) episodes written by the
+ 11. a procedural Pororo tree of DISK_EPISODES (16) episodes written by the
      port's writer into a temporary directory under build/, and cascade.yml
-     --data_dir on it through the CLI for one epoch of 17 steps: the launches, finite
+     --data_dir on it through the CLI for one epoch of 11 steps: the launches, finite
      metrics under the cascade tags, the snapshots of epochs 0 and 1; the
      epoch's frames/s, the median step after the first against phase 6's,
      the first-batch wait, the loader's host time a batch, the idle share of
@@ -134,7 +134,24 @@ Phases, each of which exits non-zero on failure:
      epochs straight with CPCSV_PROFILE_DIR set (the trainer's trace of
      steps 2-5, the BN and DFN kernels in it), 1 plus an auto-resumed epoch
      whose state and metrics equal the straight run's bit for bit, and its
-     final snapshot walked with --eval_fid 1 and --eval_ssim 1.
+     final snapshot walked with --eval_fid 1 and --eval_ssim 1;
+ 29. data parallelism (`cpcsv_tpu_torch/parallel/`): two gloo ranks, each a
+     process of this script sharing the card, at full final.yml width and
+     IM_BATCH 90 / ST_BATCH 18 a rank (180 / 36 global): one D+G step from
+     one state, global batch and noise against one process on the global
+     batch with the kernels, within the float32 tolerances or three times
+     the reordering yardstick (phase 7's, forced on); the ranks' parameters,
+     BN running statistics, SN u, Adam moments, gradients and metrics bit
+     for bit; each rank's launches a step as phase 6's; its ms (gloo stages
+     through the host: no speed figure);
+ 30. one rank in an NCCL group of one: the collectives run, and its step
+     equals one process's bit for bit; then timed as phase 6's, the
+     difference the price of the collectives;
+ 31. the Pororo CLI with two gloo ranks (CPCSV_COORDINATOR,
+     CPCSV_NUM_PROCESSES, CPCSV_PROCESS_ID, --backend gloo), final.yml
+     --synthetic 36: 2 epochs straight, and 1 plus an auto-resumed one equal
+     to them bit for bit; both ranks' metrics equal; rank 1 writes no file;
+     then --eval_fid 1 walks on rank 0 while rank 1 waits.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -181,10 +198,11 @@ TRAIN_CONFIGS = ("final.yml", "cascade.yml")  # phases 6-7, in this order
 BF16_CONFIGS = ("throughput.yml", "procedural.yml")  # COMPUTE_DTYPE bfloat16, phases 15-20
 THROUGHPUT_SYNTHETIC = 144  # phase 19's --synthetic: 2 story steps at ST_BATCH 72
 CLI_SYNTHETIC = 36  # phase 10's --synthetic: 2 story steps an epoch, one image batch
-# phase 11's tree: 306 train clips (17 steps of 18 stories), 54 test stories
-# (half the writer's default 48 episodes and 34 steps, to keep the run short)
-DISK_EPISODES = 24
-DISK_TRACED = (10, 5)  # phase 11: the first of its steps under the profiler, and how many
+# phase 11's tree: 204 train clips (11 steps of 18 stories), 36 test stories,
+# the fewest that give phase 13's FVD its 16 clips of FVD_FRAMES frames (a
+# third of the writer's default 48 episodes, to keep the run short)
+DISK_EPISODES = 16
+DISK_TRACED = (5, 5)  # phase 11: the first of its steps under the profiler, and how many
 # phase 11's one epoch leaves netG_epoch_0 and netG_epoch_1 (the final save)
 # of one state; phases 12-13 walk the latter alone
 WALKED = [1]
@@ -228,6 +246,10 @@ COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
 GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
 # (N, C, S) beside the step's BN shapes: one row, one channel, S not a
 # multiple of 4, short odd maps, and the dense heads' widths (S = 1)
+# phases 29-31: data parallelism over DP_WORLD processes sharing the card,
+# at DP_CONFIG's batches a rank; DP_SYNTHETIC stories give the CLI one step
+# an epoch at the global batch; a rank gets DP_TIMEOUT seconds
+DP_CONFIG, DP_WORLD, DP_SYNTHETIC, DP_TIMEOUT = "final.yml", 2, 36, 300
 EDGE_BN_SHAPES = ((1, 64, 4096), (90, 1, 1024), (7, 37, 5), (3, 5, 18), (2, 3, 2),
                   (90, 32768, 1), (18, 16384, 1), (90, 9, 1), (1, 1, 1))
 
@@ -782,6 +804,24 @@ def per_step_launches(state, infonce: bool = False) -> dict[str, int]:
     }
 
 
+@contextlib.contextmanager
+def final_saves_only():
+    """While open, the trainer's periodic checkpoint saves (the calls without
+    `completed`) are skipped and its final save runs: a one-epoch run's
+    epoch-0 snapshot holds the final save's state, and each save of a
+    full-width state is ~5 s."""
+    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+
+    real = CheckpointManager.save
+
+    def save(self, state, epoch, completed=None):
+        if completed is not None:
+            real(self, state, epoch, completed)
+
+    with mock.patch.object(CheckpointManager, "save", save):
+        yield
+
+
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
@@ -965,7 +1005,36 @@ def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespac
         step_ms=med * 1e3, busy_ms=busy)
 
 
-def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True) -> dict:
+def step_spread(a, b):
+    """(metrics: largest |a-b| / (|b| + 1e-3), accuracies aside;
+    accuracies: largest |a-b|; gradients: largest ‖a-b‖ / ‖b‖; gradients
+    that are 0 in exact arithmetic (‖b‖ under 1e-3 of the net's largest,
+    the Linear biases before a train-mode BN): largest ‖a-b‖ / the net's
+    largest ‖b‖; BN statistics: largest ‖a-b‖ / ‖b‖), and the tensors
+    with the largest gradient errors."""
+    m, m_key = max((abs(a[0][k] - b[0][k]) / (abs(b[0][k]) + 1e-3), k) for k in b[0]
+                   if not k.startswith("Accuracy/"))
+    acc = max(abs(a[0][k] - b[0][k]) for k in b[0] if k.startswith("Accuracy/"))
+    largest = {}
+    for (n, k), g in b[1].items():
+        largest[n] = max(largest.get(n, 0.0), float(g.norm()))
+    errs, zero_errs = [(0.0, None)], [(0.0, None)]
+    for key, g in b[1].items():
+        err, norm = float((a[1][key] - g).norm()), float(g.norm())
+        if norm >= 1e-3 * largest[key[0]]:
+            errs.append((err / norm, key))
+        else:
+            zero_errs.append((err / largest[key[0]], key))
+    st = max(float((a[2][key] - v).norm()) / float(v.norm()) for key, v in b[2].items())
+    errs.sort(key=lambda t: -t[0])
+    worst_zero = max(zero_errs, key=lambda t: t[0])
+    return ((m, acc, errs[0][0], worst_zero[0], st),
+            ([(".".join(key), f"{e:.2e}") for e, key in errs[:5] if key], worst_zero[1],
+             m_key))
+
+
+def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True,
+              noise=None, yard: bool = False) -> dict:
     """Phase 7 (17 at bfloat16): from one saved state and the same noise, one
     D+G step with the kernels against one with their plain versions swapped
     in (and one more with the kernels, which must give the same bits but for
@@ -988,8 +1057,11 @@ def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True) -> dict:
     clevr.yml (phase 27: over 12 seeds, `tools/twin_spread.py` on an H100,
     the plain pairs' gradient spread ran 3.1e-3 to 1.27e-2, above 1e-2 in
     three, the kernels' 0.5-1.1 times it; 1.15e-5 against the zero
-    gradients' 1e-5 in one). Returns the readings; `hold` False prints them
-    and holds nothing."""
+    gradients' 1e-5 in one). Returns the readings, the kernels' step among
+    them; `hold` False prints them and holds nothing. `noise` is the D and the
+    G step's draws (default: drawn from seed + 1); `yard` asks for the
+    yardstick whatever the config (phase 29 holds the data-parallel step to
+    it)."""
     import torch
 
     from cpcsv_tpu_torch.models import generator as generator_module
@@ -1001,9 +1073,10 @@ def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True) -> dict:
     nets = state.nets()
     b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE
     saved = save_twin(state)
-    g_noise = torch.Generator(device="cuda").manual_seed(seed + 1)
-    noise = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, g_noise),
-              state.gen.draw_noise(b_im, 1, g_noise)) for _ in range(2)]
+    if noise is None:
+        g_noise = torch.Generator(device="cuda").manual_seed(seed + 1)
+        noise = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, g_noise),
+                  state.gen.draw_noise(b_im, 1, g_noise)) for _ in range(2)]
 
     def plain_patches(reorder=None):
         """The plain versions; with `reorder` (REORDERINGS), their BN sums over
@@ -1042,43 +1115,16 @@ def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True) -> dict:
                 {(n, k): b.detach().clone() for n, net in nets.items()
                  for k, b in net.named_buffers() if k.endswith(("running_mean", "running_var"))})
 
-    def spread(a, b):
-        """(metrics: largest |a-b| / (|b| + 1e-3), accuracies aside;
-        accuracies: largest |a-b|; gradients: largest ‖a-b‖ / ‖b‖; gradients
-        that are 0 in exact arithmetic (‖b‖ under 1e-3 of the net's largest,
-        the Linear biases before a train-mode BN): largest ‖a-b‖ / the net's
-        largest ‖b‖; BN statistics: largest ‖a-b‖ / ‖b‖), and the tensors
-        with the largest gradient errors."""
-        m, m_key = max((abs(a[0][k] - b[0][k]) / (abs(b[0][k]) + 1e-3), k) for k in b[0]
-                       if not k.startswith("Accuracy/"))
-        acc = max(abs(a[0][k] - b[0][k]) for k in b[0] if k.startswith("Accuracy/"))
-        largest = {}
-        for (n, k), g in b[1].items():
-            largest[n] = max(largest.get(n, 0.0), float(g.norm()))
-        errs, zero_errs = [(0.0, None)], [(0.0, None)]
-        for key, g in b[1].items():
-            err, norm = float((a[1][key] - g).norm()), float(g.norm())
-            if norm >= 1e-3 * largest[key[0]]:
-                errs.append((err / norm, key))
-            else:
-                zero_errs.append((err / largest[key[0]], key))
-        st = max(float((a[2][key] - v).norm()) / float(v.norm()) for key, v in b[2].items())
-        errs.sort(key=lambda t: -t[0])
-        worst_zero = max(zero_errs, key=lambda t: t[0])
-        return ((m, acc, errs[0][0], worst_zero[0], st),
-                ([(".".join(key), f"{e:.2e}") for e, key in errs[:5] if key], worst_zero[1],
-                 m_key))
-
     saved_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # cuDNN's backward would add its own spread
     bf16 = cfg.COMPUTE_DTYPE == "bfloat16"
-    yard = bf16 or cfg.USE_SEQ_CONSISTENCY or run.name in F32_YARDSTICK
+    yard = yard or bf16 or cfg.USE_SEQ_CONSISTENCY or run.name in F32_YARDSTICK
     try:
         kern, kern_again, ref = twin(()), twin(()), twin(plain_patches())
         reordered = [twin(plain_patches(dims)) for dims in REORDERINGS] if yard else []
     finally:
         torch.backends.cudnn.deterministic = saved_det
-    (self_spread, _), (twin_spread, worst) = spread(kern_again, kern), spread(kern, ref)
+    (self_spread, _), (twin_spread, worst) = step_spread(kern_again, kern), step_spread(kern, ref)
     # float32, the kernels sum in other orders than the plain versions; the
     # step carries those last-bit differences through BN
     # divisions and two backward passes. The gradients of the motion GRU's
@@ -1088,7 +1134,7 @@ def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True) -> dict:
     # flipping at p = 0.5.
     tols, yardstick = (1e-4, 1e-2, 1e-2, 1e-5, 1e-4), None
     if yard:
-        pairs = [spread(a, b) for a, b in itertools.combinations([ref, *reordered], 2)]
+        pairs = [step_spread(a, b) for a, b in itertools.combinations([ref, *reordered], 2)]
         yardstick = [max(ys) for ys in zip(*(p[0] for p in pairs))]
         tols = tuple(max(t, 3 * y) for t, y in zip(tols, yardstick))
         print(f"{run.name}: {'bfloat16' if bf16 else 'float32'} yardstick, the plain step and "
@@ -1108,7 +1154,7 @@ def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True) -> dict:
         check(all(e <= t for e, t in zip(twin_spread, tols)),
               f"{run.name}: kernels vs plain step spread {twin_spread} above {tols}")
     return {"kernels_vs_plain": twin_spread, "tolerances": tols, "yardstick": yardstick,
-            "kernels_vs_kernels": self_spread}
+            "kernels_vs_kernels": self_spread, "kernels": kern}
 
 
 
@@ -1952,7 +1998,7 @@ def fvd_is_walks(card: str, run_dir: Path, data_dir: Path, seed: int, root: Path
                     host, "statistics", inception_score.inception_score_from_probs)),
             ]
             for obj, attr, key in (
-                    (drivers.Infer, "inference_samples", "generation and PNG writing"),
+                    (drivers.Infer, "_inference_samples", "generation and PNG writing"),
                     (drivers.Infer, "generate_story", "generation and PNG writing"),
                     (fvd.VideoGenerateDataset, "__getitem__", "PNG reading"),
                     (datasets.FolderImageDataset, "__getitem__", "PNG reading")):
@@ -2468,9 +2514,10 @@ def seq_cli(card: str, cfg_file: str, per_step: dict[str, int], seed: int,
                 work.mkdir()
                 os.chdir(work)
                 first = len(shuffles)
-                # the straight run is the reference: its saves (~5 s each) skipped
+                # the straight run is the reference: its saves (~5 s each)
+                # skipped; the resumed one's first run saves its final state only
                 with (mock.patch.object(CheckpointManager, "save", lambda *a, **k: None)
-                      if label == "straight" else contextlib.nullcontext()):
+                      if label == "straight" else final_saves_only()):
                     for extra in invocations:
                         main_pororo.main(args + extra)
                 runs[label] = (work / "output" / "torch" / cfg.CONFIG_NAME, shuffles[first:])
@@ -2916,7 +2963,7 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
                 t = time.perf_counter()
                 with mock.patch.dict(os.environ, env), (
                         mock.patch.object(CheckpointManager, "save", lambda *a, **k: None)
-                        if straight else contextlib.nullcontext()):
+                        if straight else final_saves_only()):
                     for extra in invocations:
                         states[label] = main_clevr.main(args + extra)
                 seconds[label] = time.perf_counter() - t
@@ -2968,8 +3015,8 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
            if r["tag"] == "perf/frames_per_sec"]
     print(f"CLEVR CLI [{card}]: 2 epochs of {steps_an_epoch} steps straight ({seconds['straight']:.2f} "
           f"s, the trace included, no saves) and 1 + an auto-resumed 1 ({seconds['resumed']:.2f} "
-          f"s, 3 saves): the state ({len(a)} tensors) and {len(records['straight'])} metrics "
-          "bit for bit; "
+          f"s, 2 saves: the first run's final and the resumed run's): the state ({len(a)} "
+          f"tensors) and {len(records['straight'])} metrics bit for bit; "
           f"frames/s " + ", ".join(f"epoch {r['step']} {r['value']:.1f}" for r in fps)
           + f"; launches {counts}")
 
@@ -2990,8 +3037,7 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
 
     # the walks at 4 frames a story, on the final snapshot alone
     run_dir = runs["resumed"]
-    for e in (0, 1):  # the one-epoch run's snapshots
-        (run_dir / "Model" / f"netG_epoch_{e}.pth").unlink()
+    (run_dir / "Model" / "netG_epoch_1.pth").unlink()  # the one-epoch run's final snapshot
     printed = io.StringIO()
     os.chdir(run_dir.parent.parent.parent)
     reset_counts()
@@ -3028,9 +3074,411 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
     return {k: counts[k] + walk_counts[k] for k in counts}
 
 
+# ------------------------------------------------------ 29-31: data parallel
+def launch_dp(mode: str, job: dict, root: Path, world: int, env=None):
+    """Start `world` ranks of this script (`--dp-worker mode`), each in its own
+    process on the one card, the job handed over in a file; returns a function
+    that waits for them (DP_TIMEOUT) and returns each rank's result. A rank
+    that fails fails the phase, its output's tail printed."""
+    import atexit
+
+    import torch
+
+    job_path = root / f"{mode}_job.pt"
+    torch.save(job, job_path)
+    procs, outs = [], []
+    atexit.register(kill_all, procs)  # a phase that fails while the ranks run stops them too
+    for rank in range(world):
+        out = root / f"{mode}_rank{rank}.pt"
+        cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker", mode, "--dp-rank",
+               str(rank), "--dp-world", str(world), "--dp-init",
+               f"file://{root / f'{mode}_rendezvous'}", "--dp-job", str(job_path),
+               "--dp-out", str(out)]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True, env={**os.environ, **(env(rank) if env else {})}))
+        outs.append(out)
+
+    def wait():
+        logs = []
+        try:
+            logs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+        finally:
+            kill_all(procs)  # no rank outlives its phase
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                print(f"{mode} rank {rank} exited {p.returncode}:\n{log[-6000:]}", flush=True)
+        check(all(p.returncode == 0 for p in procs), f"{mode}: a rank failed")
+        return [torch.load(o, weights_only=False) for o in outs]
+
+    return wait
+
+
+def kill_all(procs) -> None:
+    """Kill and reap every process of `procs` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def grad_bit_sums(state):
+    """int64 sums of the bit patterns of every parameter's gradient, in
+    `state.nets()` order: equal gradients give equal sums."""
+    import torch
+
+    return torch.stack([p.grad.contiguous().view(torch.int32).sum(dtype=torch.int64)
+                        for net in state.nets().values() for p in net.parameters()])
+
+
+def dp_worker(args) -> int:
+    """One rank of phases 29-31 (a process of its own, `launch_dp`):
+      steps: phase 29's D+G step on this rank's rows in a gloo group;
+      nccl:  phase 30's step in an NCCL group of one rank, then timed steps;
+      cli:   phase 31's CLI runs, the group formed by the CLI from the
+             CPCSV_* variables the parent set.
+    Writes its readings to --dp-out."""
+    import torch
+    import torch.distributed as dist
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.parallel import distributed
+    from cpcsv_tpu_torch.train.state import create_train_state, state_checksums
+    from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
+
+    job = torch.load(args.dp_job, weights_only=False)
+    rank, world = args.dp_rank, args.dp_world
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    if args.dp_worker in ("steps", "nccl"):
+        distributed.initialize_distributed(args.dp_init, world, rank, backend=job["backend"])
+    collectives = collections.Counter()
+    real_all_reduce = dist.all_reduce
+
+    def counted(tensor, *a, **k):
+        collectives["all_reduce"] += 1
+        collectives["bytes"] += tensor.numel() * tensor.element_size()
+        return real_all_reduce(tensor, *a, **k)
+
+    cfg = config_from_file(job["config"])
+    if args.dp_worker == "steps":
+        state = create_train_state(cfg, job["seed"])  # checks the replicas against rank 0's
+        out["init"] = state_checksums(state).cpu().numpy()
+        n_st, n_im = len(job["st"]["images"]) // world, len(job["im"]["images"]) // world
+        st = batch_to_device({k: v[rank * n_st:(rank + 1) * n_st] for k, v in job["st"].items()},
+                             torch.device("cuda"))
+        im = batch_to_device({k: v[rank * n_im:(rank + 1) * n_im] for k, v in job["im"].items()},
+                             torch.device("cuda"))
+        noise = [tuple(tuple(t.cuda() for t in draws) for draws in pair) for pair in job["noise"]]
+        d_step, g_step = make_train_steps(cfg)
+        out["expected"] = per_step_launches(state)
+        torch.cuda.synchronize()
+        reset_counts()  # the main path: this rank's step
+        t = time.perf_counter()
+        with mock.patch.object(dist, "all_reduce", counted):
+            _, dm = d_step(state, noise[0], st, im, LR_D)
+            _, gm = g_step(state, noise[1], st, im, LR_G)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t) * 1e3
+        out["counts"] = read_counts()
+        out["metrics"] = {k: float(v) for k, v in {**dm, **gm}.items()}
+        out["sums"] = state_checksums(state).cpu().numpy()
+        out["grad_bits"] = grad_bit_sums(state).cpu().numpy()
+        if rank == 0:
+            nets = state.nets()
+            out["grads"] = {(n, k): p.grad.cpu() for n, net in nets.items()
+                            for k, p in net.named_parameters()}
+            out["stats"] = {(n, k): b.cpu() for n, net in nets.items()
+                            for k, b in net.named_buffers()
+                            if k.endswith(("running_mean", "running_var"))}
+    elif args.dp_worker == "nccl":
+        state = create_train_state(cfg, job["seed"])
+        st_host, im_host = synthetic_batches(cfg, cfg.TRAIN.ST_BATCH_SIZE,
+                                             cfg.TRAIN.IM_BATCH_SIZE, job["seed"])
+        st, im = (batch_to_device(b, torch.device("cuda")) for b in (st_host, im_host))
+        rng = torch.Generator(device="cuda").manual_seed(job["seed"])
+        d_step, g_step = make_train_steps(cfg)
+        out["expected"] = per_step_launches(state)
+        reset_counts()  # the main path: one step held bit for bit, then the timed ones
+        with mock.patch.object(dist, "all_reduce", counted):
+            _, dm = d_step(state, rng, st, im, LR_D)
+            _, gm = g_step(state, rng, st, im, LR_G)
+        out["metrics"] = {k: float(v) for k, v in {**dm, **gm}.items()}
+        out["sums"] = state_checksums(state).cpu().numpy()
+        out["grad_bits"] = grad_bit_sums(state).cpu().numpy()
+        torch.backends.cudnn.deterministic = False  # timed as phase 6 runs
+        times = []
+        for _ in range(WARMUP_STEPS + TIMED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d_step(state, rng, st, im, LR_D)
+            g_step(state, rng, st, im, LR_G)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out["times"] = times
+        out["counts"] = read_counts()
+        out["steps"] = 1 + WARMUP_STEPS + TIMED_STEPS
+    else:
+        import builtins
+
+        from cpcsv_tpu_torch.cli import main_pororo
+        from cpcsv_tpu_torch.train import trainer as trainer_module
+        from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+
+        history, written, real_open = [], [], builtins.open
+        make_steps = trainer_module.make_train_steps
+
+        def spying_steps(cfg):
+            steps = make_steps(cfg)
+
+            def spy(step):
+                def run(*a):
+                    state, metrics = step(*a)
+                    history.append({k: float(v) for k, v in metrics.items()})
+                    return state, metrics
+                return run
+
+            return tuple(spy(s) for s in steps)
+
+        def spying_open(file, mode="r", *a, **k):
+            if (rank != 0 and isinstance(file, (str, os.PathLike))
+                    and any(m in mode for m in "wax+")
+                    and str(Path(file).resolve()).startswith(job["root"])):
+                written.append(str(file))
+            return real_open(file, mode, *a, **k)
+
+        reset_counts()  # the main path: every CLI run of this rank
+        with mock.patch.object(trainer_module, "make_train_steps", spying_steps), \
+                mock.patch.object(builtins, "open", spying_open):
+            for label, cwd, argv, saves in job["runs"]:
+                os.makedirs(cwd, exist_ok=True)
+                os.chdir(cwd)
+                if label == "walk" and rank == 0:  # walk the final snapshot alone
+                    model = Path(cwd) / "output" / "torch" / cfg.CONFIG_NAME / "Model"
+                    for f in model.glob("netG_epoch_*.pth"):
+                        if f.name != job["walked"]:
+                            f.unlink()
+                history.clear()
+                t = time.perf_counter()
+                with {"none": lambda: mock.patch.object(CheckpointManager, "save",
+                                                       lambda *a, **k: None),
+                      "final": final_saves_only,
+                      "all": contextlib.nullcontext}[saves]():
+                    returned = main_pororo.main(argv)
+                seconds = time.perf_counter() - t
+                out[label] = {"history": copy.deepcopy(history), "seconds": seconds}
+                if hasattr(returned, "nets"):
+                    out[label]["sums"] = state_checksums(returned).cpu().numpy()
+                else:
+                    out[label]["returned"] = returned
+        out["counts"] = read_counts()
+        out["written"] = written
+        out["collective_backend"] = dist.get_backend()
+    out["collectives"] = dict(collectives)
+    torch.save(out, args.dp_out)
+    distributed.destroy_distributed()
+    return 0
+
+
+def dp_step_phase(card: str, seed: int, root: Path) -> dict[str, int]:
+    """Phase 29: two gloo ranks sharing the card at full DP_CONFIG width, IM /
+    ST the config's a rank (global twice that), one D+G step from one state
+    (each rank builds it from the seed, and the group checks) and one global
+    batch and noise, against one process on the global batch with the
+    kernels (`twin_step` with the yardstick: the kernels' step, the plain
+    one and four with the BN sums reordered, cuDNN deterministic): metrics
+    and gradients within the float32 tolerances or three times the
+    yardstick. Both ranks' parameters, BN running statistics, SN u and Adam
+    moments, their gradients and metrics, bit for bit; each rank's BN
+    launches a step as phase 6's. Returns both ranks' launches."""
+    import torch
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.train.state import create_train_state, state_checksums
+    from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
+
+    cfg = config_from_file(DP_CONFIG)
+    b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE * DP_WORLD, cfg.TRAIN.IM_BATCH_SIZE * DP_WORLD
+    st_host, im_host = synthetic_batches(cfg, b_st, b_im, seed)
+    state = create_train_state(cfg, seed)
+    init = state_checksums(state).cpu().numpy()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    noise = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, gen), state.gen.draw_noise(b_im, 1, gen))
+             for _ in range(2)]
+    job = {"config": DP_CONFIG, "seed": seed, "backend": "gloo", "st": st_host, "im": im_host,
+           "noise": [tuple(tuple(t.cpu() for t in draws) for draws in pair) for pair in noise]}
+    t = time.perf_counter()
+    wait = launch_dp("steps", job, root, DP_WORLD)
+    # meanwhile, the one-process reference on the card
+    run = types.SimpleNamespace(
+        name=f"{DP_CONFIG} at {b_im} / {b_st} in one process", cfg=cfg, state=state,
+        st_batch=batch_to_device(st_host, torch.device("cuda")),
+        im_batch=batch_to_device(im_host, torch.device("cuda")),
+        d_step=make_train_steps(cfg)[0], g_step=make_train_steps(cfg)[1])
+    ref = twin_step(run, seed, noise=noise, yard=True)
+    ranks = wait()
+    seconds = time.perf_counter() - t
+    del run, state
+    torch.cuda.empty_cache()
+    r0, r1 = ranks
+    check((r0["init"] == init).all() and (r1["init"] == init).all(),
+          "phase 29: a rank built another initial state than one process from the seed")
+    same = (r0["metrics"] == r1["metrics"] and (r0["sums"] == r1["sums"]).all()
+            and (r0["grad_bits"] == r1["grad_bits"]).all())
+    check(same, "phase 29: the ranks' metrics, state or gradients differ")
+    for rank, r in enumerate(ranks):
+        got = {k: r["counts"][k] for k in r["expected"]}
+        check(got == r["expected"], f"phase 29 rank {rank}: launches {got}, a step {r['expected']}")
+    two = (r0["metrics"], {k: g.cuda() for k, g in r0["grads"].items()},
+           {k: b.cuda() for k, b in r0["stats"].items()})
+    errs, (worst, worst_zero, m_key) = step_spread(two, ref["kernels"])
+    tols = ref["tolerances"]
+    print(f"phase 29 [{card}]: {DP_WORLD} gloo ranks at {cfg.TRAIN.IM_BATCH_SIZE} / "
+          f"{cfg.TRAIN.ST_BATCH_SIZE} a rank against one process at {b_im} / {b_st}, one D+G "
+          "step from one state, batch and noise: largest metric error {:.3e} (tol {:.3e}, {}), "
+          "accuracy {:.3e} (tol {:.3e}), gradient {:.3e} (tol {:.3e}), zero gradient {:.3e} "
+          "(tol {:.3e}), BN statistics {:.3e} (tol {:.3e}); worst gradients {}".format(
+              errs[0], tols[0], m_key, errs[1], tols[1], errs[2], tols[2], errs[3], tols[3],
+              errs[4], tols[4], worst))
+    check(all(e <= tol for e, tol in zip(errs, tols)),
+          f"phase 29: two ranks vs one process {errs} above {tols}")
+    print(f"  the ranks' parameters, BN running statistics, SN u, Adam moments ({len(r0['sums'])} "
+          f"tensors), gradients and metrics bit for bit; launches a rank {r0['counts']} (a step: "
+          f"{r0['expected']}); all-reduces a rank a step {r0['collectives']['all_reduce']} "
+          f"({r0['collectives']['bytes'] / 2**30:.3f} GiB)")
+    print(f"  D+G step ms a rank [{card}]: " + ", ".join(f"{r['ms']:.2f}" for r in ranks)
+          + f" (the phase {seconds:.1f} s): gloo stages every all-reduce through the host and "
+          "the two ranks share one card, so this is no speed figure")
+    return {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+
+
+def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> dict[str, int]:
+    """Phase 30: one rank in an NCCL group of one (`initialize_distributed`),
+    so every collective runs: its D+G step of DP_CONFIG at the config's
+    batches from the seed equals one process's, bit for bit (metrics, state
+    checksums, gradients; cuDNN deterministic), an all-reduce of one rank
+    being exact. Then WARMUP_STEPS + TIMED_STEPS steps timed as phase 6's:
+    their median against phase 6's prices the collectives. Returns the
+    launches."""
+    import torch
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.train.state import create_train_state, state_checksums
+    from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
+
+    cfg = config_from_file(DP_CONFIG)
+    state = create_train_state(cfg, seed)
+    st_host, im_host = synthetic_batches(cfg, cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE,
+                                         seed)
+    st, im = (batch_to_device(b, torch.device("cuda")) for b in (st_host, im_host))
+    rng = torch.Generator(device="cuda").manual_seed(seed)
+    d_step, g_step = make_train_steps(cfg)
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, dm = d_step(state, rng, st, im, LR_D)
+        _, gm = g_step(state, rng, st, im, LR_G)
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    metrics = {k: float(v) for k, v in {**dm, **gm}.items()}
+    sums, bits = state_checksums(state).cpu().numpy(), grad_bit_sums(state).cpu().numpy()
+    del state
+    torch.cuda.empty_cache()
+    # the rank starts after the reference is done: nothing else runs beside its timed steps
+    (r,) = launch_dp("nccl", {"config": DP_CONFIG, "seed": seed, "backend": "nccl"}, root, 1)()
+    check(r["metrics"] == metrics and (r["sums"] == sums).all() and (r["grad_bits"] == bits).all(),
+          "phase 30: the NCCL rank's step differs from one process's")
+    expected = {k: v * r["steps"] for k, v in r["expected"].items()}
+    got = {k: r["counts"][k] for k in expected}
+    check(got == expected, f"phase 30: launches {got}, expected {expected}")
+    timed = r["times"][WARMUP_STEPS:]
+    med = sorted(timed)[len(timed) // 2]
+    print(f"phase 30 [{card}]: one NCCL rank's D+G step of {DP_CONFIG} equals one process's bit "
+          f"for bit ({len(metrics)} metrics, {len(sums)} state tensors, {len(bits)} gradients); "
+          f"{r['collectives']['all_reduce']} all-reduces a step "
+          f"({r['collectives']['bytes'] / 2**30:.3f} GiB); step {med:.2f} ms median of "
+          f"{TIMED_STEPS} (min {min(timed):.2f}, max {max(timed):.2f}) against phase 6's "
+          f"{phase6_ms:.2f} ms: {med - phase6_ms:+.2f} ms for the collectives of one rank")
+    return got
+
+
+def dp_cli_phase(card: str, seed: int, root: Path) -> dict[str, int]:
+    """Phase 31: the Pororo CLI with two gloo ranks on the card
+    (CPCSV_COORDINATOR / CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, --backend
+    gloo), DP_CONFIG --synthetic DP_SYNTHETIC (one step an epoch at the global
+    batch), cuDNN deterministic: 2 epochs straight (saves skipped), and in
+    another directory 1 epoch (its final save alone) plus an auto-resumed one, whose state and
+    metrics equal the straight run's bit for bit; the ranks' metrics equal
+    every step; rank 1 opens no file for writing; one metrics row a step;
+    then --eval_fid 1 on the final snapshot: rank 0 walks, rank 1 waits and
+    returns None. Returns both ranks' launches."""
+    import numpy as np
+
+    from cpcsv_tpu_torch.config import config_from_file
+
+    cfg = config_from_file(DP_CONFIG)
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / DP_CONFIG)
+    base = ["--cfg", cfg_file, "--synthetic", str(DP_SYNTHETIC), "--manualSeed", str(seed),
+            "--backend", "gloo"]
+    a, b = str(root / "cli_straight"), str(root / "cli_resumed")
+    # saves: the straight run's skipped, the first run's final one alone
+    runs = [("straight", a, base + ["--max_epoch", "2"], "none"),
+            ("first", b, base + ["--max_epoch", "1"], "final"),
+            ("resumed", b, base + ["--max_epoch", "2", "--continue_ckpt", "auto"], "all"),
+            ("walk", b, base + ["--eval_fid", "1"], "all")]
+    job = {"config": DP_CONFIG, "root": str(root), "runs": runs, "walked": "netG_epoch_2.pth"}
+    t = time.perf_counter()
+    r0, r1 = launch_dp("cli", job, root, DP_WORLD, env=lambda rank: {
+        "CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
+        "CPCSV_NUM_PROCESSES": str(DP_WORLD), "CPCSV_PROCESS_ID": str(rank)})()
+    seconds = time.perf_counter() - t
+    for label in ("straight", "first", "resumed"):
+        check(r0[label]["history"] == r1[label]["history"],
+              f"phase 31: the ranks' metrics differ in the {label} run")
+        check((r0[label]["sums"] == r1[label]["sums"]).all(),
+              f"phase 31: the ranks' states differ after the {label} run")
+    check((r0["resumed"]["sums"] == r0["straight"]["sums"]).all()
+          and r0["first"]["history"] + r0["resumed"]["history"] == r0["straight"]["history"],
+          "phase 31: 1 + an auto-resumed epoch differ from 2 straight ones")
+    check(r1["written"] == [], f"phase 31: rank 1 wrote {r1['written'][:5]}")
+    log = root / "cli_straight" / "output" / "torch" / cfg.CONFIG_NAME / "log" / "metrics.jsonl"
+    rows = [json.loads(line) for line in log.open()]
+    st_rows = [row for row in rows if row["tag"] == "st_D/loss"]
+    check(len(st_rows) == 2 and all(np.isfinite(row["value"]) for row in rows),
+          f"phase 31: {len(st_rows)} st_D/loss rows for 2 steps, or a non-finite value")
+    walked = r0["walk"]["returned"]
+    check(r1["walk"]["returned"] is None and len(walked) == 1 and walked[0]["epoch"] == 2
+          and np.isfinite(walked[0]["fid"]) and np.isfinite(walked[0]["vfid"]),
+          f"phase 31: the walk returned {walked} on rank 0, {r1['walk']['returned']} on rank 1")
+    steps = 4  # 2 + 1 + 1 epochs of one step
+    for rank, r in enumerate((r0, r1)):
+        got = r["counts"]
+        check(got["bn_stats"] == 95 * steps and got["bn_grad_reduce"] == 64 * steps
+              and got["dfn_backward"] == 2 * steps and got["dfn_forward"] >= 4 * steps,
+              f"phase 31 rank {rank}: launches {got} for {steps} steps")
+    print(f"phase 31 [{card}]: the CLI with {DP_WORLD} gloo ranks, {DP_CONFIG} --synthetic "
+          f"{DP_SYNTHETIC} (one step an epoch at {cfg.TRAIN.IM_BATCH_SIZE * DP_WORLD} / "
+          f"{cfg.TRAIN.ST_BATCH_SIZE * DP_WORLD}): the ranks' metrics and states equal; 1 + an "
+          f"auto-resumed epoch equal 2 straight ones bit for bit ({len(r0['resumed']['sums'])} "
+          f"tensors, {len(r0['straight']['history'])} step metrics); rank 1 wrote no file; "
+          f"--eval_fid on rank 0 while rank 1 waited: fid {walked[0]['fid']:.3f} fsd "
+          f"{walked[0]['vfid']:.3f} (random-init extractors); seconds a run on rank 0 "
+          + ", ".join(f"{k} {r0[k]['seconds']:.1f}" for k in ("straight", "first", "resumed",
+                                                               "walk"))
+          + f" (the phase {seconds:.1f} s); launches rank 0 {r0['counts']}, rank 1 {r1['counts']}")
+    return {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    # one rank of phases 29-31, started by the script itself (`launch_dp`)
+    parser.add_argument("--dp-worker", choices=("steps", "nccl", "cli"), help=argparse.SUPPRESS)
+    for flag, kind in (("--dp-rank", int), ("--dp-world", int), ("--dp-init", str),
+                       ("--dp-job", str), ("--dp-out", str)):
+        parser.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import numpy as np
@@ -3041,6 +3489,8 @@ def main() -> int:
     if not (REPO / "cpcsv_tpu_torch" / "csrc").is_dir():
         fail(f"{REPO} is not a checkout of the repository (no cpcsv_tpu_torch/)")
     sys.path.insert(0, str(REPO))
+    if args.dp_worker:
+        return dp_worker(args)
 
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
@@ -3558,6 +4008,23 @@ def main() -> int:
     print(f"launches of REMAT {remat['counts']}, ADAM_MU_DTYPE {adam_counts}, {CLEVR_CONFIG}'s "
           f"steps {clevr.record.train_counts}, its serving {clevr.served}, its CLI and walks "
           f"{clevr_cli_counts}")
+
+    # ------------------------------------------- 29-31. data parallelism
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_", dir=build_dir) as tmp:
+        phase(f"29. {DP_WORLD} gloo ranks on the card: a D+G step of {DP_CONFIG} against one "
+              "process on the global batch")
+        dp_counts = dp_step_phase(card, args.seed, Path(tmp))
+        phase("30. one NCCL rank: phase 6's step bit for bit, then timed")
+        nccl_counts = nccl_phase(card, args.seed, Path(tmp), runs[DP_CONFIG].step_ms)
+        phase(f"31. the CLI with {DP_WORLD} gloo ranks: 2 epochs, 1 + an auto-resumed one, "
+              "--eval_fid on rank 0")
+        dp_cli_counts = dp_cli_phase(card, args.seed, Path(tmp))
+    for name in kernels:
+        kernels[name]["launches"] += dp_counts[name] + nccl_counts[name] + dp_cli_counts[name]
+        kernels[name]["dp_launches"] = {"steps": dp_counts[name], "nccl": nccl_counts[name],
+                                        "cli": dp_cli_counts[name]}
+    print(f"launches of the data-parallel phases, summed over the ranks: the step {dp_counts}, "
+          f"NCCL {nccl_counts}, the CLI {dp_cli_counts}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

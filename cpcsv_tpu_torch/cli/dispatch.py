@@ -46,9 +46,13 @@ def add_compat_flags(parser):
 
 
 def add_device_flag(parser):
-    """--device: where the port runs, "cuda" unless the caller asks for "cpu"."""
+    """--device: where the port runs, "cuda" unless the caller asks for "cpu";
+    --backend: a multi-process run's torch.distributed backend (default NCCL
+    on CUDA, gloo on the CPU)."""
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu, the plain PyTorch path")
+    parser.add_argument("--backend", type=str, default=None, choices=("nccl", "gloo"),
+                        help="process group backend of a multi-process run")
     return parser
 
 

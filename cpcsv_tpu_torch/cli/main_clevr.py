@@ -7,7 +7,7 @@ stories, 8-d labels, *_mask.png):
       (--data_dir DIR | --synthetic N)
       [--max_epoch E] [--continue_ckpt auto|E] [--debug] [--manualSeed S]
       [--eval_fid 1 | --eval_fvd 1 | --eval_is 1 | --eval_ssim 1 | --load_ckpt E]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--backend nccl|gloo]
 
 --cfg defaults to configs/clevr.yml. --data_dir (or the config's DATA_DIR)
 reads a CLEVR-layout directory (`data/clevr.py`); `--synthetic N` trains on
@@ -15,7 +15,8 @@ the in-memory synthetic datasets at the config's VIDEO_LEN and dims instead.
 The seeds are the JAX CLI's: manualSeed + 10 for the image dataset's frame
 picks, manualSeed, + 1 and + 2 for the image, story and test loaders. Runs
 go under ./output/torch/{CONFIG_NAME} (./output/torch/debug with --debug),
-and the evaluation flags walk that directory's snapshots.
+and the evaluation flags walk that directory's snapshots. Several processes
+train data-parallel as the Pororo CLI's do (`cli/main_pororo.py`).
 """
 
 from __future__ import annotations
@@ -56,24 +57,24 @@ def parse_args(argv=None):
 
 def clevr_loaders(cfg, seed: int):
     """(image, story, test) loaders over the CLEVR directory cfg.DATA_DIR, as
-    the JAX package's CLI builds them for one process."""
+    the JAX package's CLI builds them: at the global batches, each process
+    reading its slice."""
     from cpcsv_tpu_torch.data.clevr import ClevrImageDataset, ClevrStoryDataset
-    from cpcsv_tpu_torch.data.loader import DataLoader
+    from cpcsv_tpu_torch.data.loader import training_loaders
 
-    im_bs, st_bs = cfg.TRAIN.IM_BATCH_SIZE, cfg.TRAIN.ST_BATCH_SIZE
     story = ClevrStoryDataset(cfg.DATA_DIR, "train", cfg.VIDEO_LEN, cfg.IMSIZE)
     image = ClevrImageDataset(cfg.DATA_DIR, "train", cfg.VIDEO_LEN, cfg.IMSIZE, cfg.SESIZE,
                               use_segment=cfg.SEGMENT_LEARNING, seed=seed + 10)
     test = ClevrStoryDataset(cfg.DATA_DIR, "test", cfg.VIDEO_LEN, cfg.IMSIZE)
-    return (DataLoader(image, im_bs, shuffle=True, drop_last=True, seed=seed),
-            DataLoader(story, st_bs, shuffle=True, drop_last=True, seed=seed + 1),
-            DataLoader(test, st_bs, shuffle=False, drop_last=True, seed=seed + 2))
+    return training_loaders(cfg, image, story, test, seed)
 
 
 def main(argv=None):
     from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.parallel.distributed import maybe_initialize_from_env
 
     args = parse_args(argv)
+    maybe_initialize_from_env(args.backend, args.device)  # as the Pororo CLI
     cfg = config_from_file(args.cfg_file)
     if args.data_dir:
         cfg = cfg.with_updates(DATA_DIR=args.data_dir)

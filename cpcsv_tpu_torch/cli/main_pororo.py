@@ -6,7 +6,7 @@ plus --device:
       (--data_dir DIR | --synthetic N)
       [--max_epoch E] [--continue_ckpt auto|E] [--debug] [--manualSeed S]
       [--eval_fid 1 | --eval_fvd 1 | --eval_is 1 | --eval_ssim 1 | --load_ckpt E]
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--backend nccl|gloo]
 
 --data_dir (or the config's DATA_DIR) reads a Pororo-protocol dataset from
 disk (`data/pororo.py`; `python -m cpcsv_tpu_torch.data.procedural DIR`
@@ -15,6 +15,16 @@ instead, built as the JAX package builds them. Runs go under
 ./output/torch/{CONFIG_NAME} (./output/torch/debug with --debug), apart from
 the JAX package's ./output/..., so that the two never share a
 last_epoch.txt; the evaluation flags walk the snapshots of that directory.
+
+Data-parallel training runs one process a rank, each with the same command
+and CPCSV_COORDINATOR=host:port, CPCSV_NUM_PROCESSES=W and
+CPCSV_PROCESS_ID=r (or under torchrun with CPCSV_DISTRIBUTED=1); the config's
+MESH_SHAPE ("" or "data:W") must span the W ranks. The batches in the config
+are each rank's, the global batch W times them. --backend names the process
+group's backend (NCCL on CUDA, gloo on the CPU by default; gloo lets several
+ranks share one GPU). Rank 0 alone writes the run directory, and the
+evaluation walks run on rank 0 over the whole test set while the others
+wait.
 """
 
 from __future__ import annotations
@@ -55,11 +65,12 @@ def parse_args(argv=None):
 
 def synthetic_loaders(cfg, n: int, seed: int):
     """(image, story, test) loaders over the synthetic datasets, as the JAX
-    package's CLI builds them for one device (main_pororo.py:73-102)."""
-    from cpcsv_tpu_torch.data.loader import DataLoader
+    package's CLI builds them (main_pororo.py:73-102): at the global batches,
+    each process reading its slice."""
+    from cpcsv_tpu_torch.data.loader import global_batches, training_loaders
     from cpcsv_tpu_torch.data.synthetic import SyntheticImageDataset, SyntheticStoryDataset
 
-    im_bs, st_bs = cfg.TRAIN.IM_BATCH_SIZE, cfg.TRAIN.ST_BATCH_SIZE
+    im_bs, st_bs = global_batches(cfg)
     story = SyntheticStoryDataset(max(n, st_bs), cfg.VIDEO_LEN, cfg.IMSIZE,
                                   cfg.TEXT.DIMENSION, cfg.LABEL_NUM)
     image = SyntheticImageDataset(max(n * 2, im_bs), cfg.VIDEO_LEN, cfg.IMSIZE, cfg.SESIZE,
@@ -67,15 +78,17 @@ def synthetic_loaders(cfg, n: int, seed: int):
                                   use_segment=cfg.SEGMENT_LEARNING)
     test = SyntheticStoryDataset(max(n // 4, st_bs), cfg.VIDEO_LEN, cfg.IMSIZE,
                                  cfg.TEXT.DIMENSION, cfg.LABEL_NUM, seed=99)
-    return (DataLoader(image, im_bs, shuffle=True, drop_last=True, seed=seed),
-            DataLoader(story, st_bs, shuffle=True, drop_last=True, seed=seed + 1),
-            DataLoader(test, st_bs, shuffle=False, drop_last=True, seed=seed + 2))
+    return training_loaders(cfg, image, story, test, seed)
 
 
 def main(argv=None):
     from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.parallel.distributed import maybe_initialize_from_env
 
     args = parse_args(argv)
+    # a multi-process run joins its process group before anything else
+    # (nothing happens unless CPCSV_COORDINATOR or CPCSV_DISTRIBUTED is set)
+    maybe_initialize_from_env(args.backend, args.device)
     cfg = config_from_file(args.cfg_file)
     if args.data_dir:
         cfg = cfg.with_updates(DATA_DIR=args.data_dir)

@@ -6,15 +6,22 @@ epoch) it draws the same batches in the same order as the JAX package's
 loader, so a run of the port and one of the JAX package see the same data.
 Items are dicts of numpy arrays, plus other fields (such as 'text') that are
 collated into lists.
+
+In a process group each rank reads its contiguous 1/W slice of every global
+batch, as the JAX package's per-host input pipeline does
+(`cpcsv_tpu/data/loader.py:31-61,86-112`), index for index.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Iterator, Mapping, Sequence
 
 import numpy as np
 
 from cpcsv_tpu_torch.data.prefetch import device_prefetch
+from cpcsv_tpu_torch.parallel.distributed import process_info
+from cpcsv_tpu_torch.parallel.mesh import mesh_size
 
 PREFETCH = 2  # batches a loader's background thread keeps ready
 
@@ -43,17 +50,20 @@ class DataLoader:
         process_index: int = 0,
         process_count: int = 1,
     ):
-        """`batch_size` is the global batch. `process_index` / `process_count`
-        keep the JAX package's signature for the multi-process slice; the
-        port runs one process and raises on anything else."""
-        if (process_index, process_count) != (0, 1):
-            raise NotImplementedError(
-                f"process {process_index} of {process_count}: the port's loader runs in "
-                "one process; per-process slices come with the DDP slice")
+        """`batch_size` is the global batch. With process_count > 1 (one
+        process a rank, `parallel.distributed.process_info()`), each process
+        reads only its contiguous 1/process_count slice of every global batch.
+        The shuffle stream derives from `seed` alone, never from the
+        process, so every rank draws the same global permutation."""
+        if process_count > 1 and batch_size % process_count != 0:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by process_count {process_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.process_index = process_index
+        self.process_count = process_count
         self._seed = seed
         self._rng = np.random.default_rng(seed)
 
@@ -69,7 +79,10 @@ class DataLoader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
-        if self.drop_last:
+        if self.drop_last or self.process_count > 1:
+            # several processes: a partial global batch cannot be split
+            # evenly, so it is dropped as drop_last would (every rank must
+            # agree on the batch count)
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
@@ -78,7 +91,23 @@ class DataLoader:
         if self.shuffle:
             self._rng.shuffle(idx)
         for b in range(len(self)):
-            yield idx[b * self.batch_size : (b + 1) * self.batch_size]
+            batch = idx[b * self.batch_size : (b + 1) * self.batch_size]
+            if self.process_count > 1:
+                local = len(batch) // self.process_count
+                lo = self.process_index * local
+                batch = batch[lo : lo + local]
+            yield batch
+
+    def unsliced(self) -> "DataLoader":
+        """This loader without the per-process slicing: full global batches
+        from the shuffle stream of `seed`. The centralized walks
+        (`evaluation/drivers.py`) run on rank 0 over it, the whole test set."""
+        if self.process_count == 1:
+            return self
+        full = copy.copy(self)
+        full.process_index, full.process_count = 0, 1
+        full._rng = np.random.default_rng(self._seed)
+        return full
 
     def __iter__(self) -> Iterator[dict]:
         # items are read and collated on a background thread, PREFETCH
@@ -88,6 +117,25 @@ class DataLoader:
             lambda idx: default_collate([self.dataset[int(i)] for i in idx]),
             depth=PREFETCH,
         )
+
+
+def global_batches(cfg) -> tuple[int, int]:
+    """(image, story) global batches: the config's per-rank batches times the
+    mesh's ranks, the reference's batch × num_gpu (main_pororo.py:64)."""
+    n = mesh_size(cfg.MESH_SHAPE)
+    return cfg.TRAIN.IM_BATCH_SIZE * n, cfg.TRAIN.ST_BATCH_SIZE * n
+
+
+def training_loaders(cfg, image, story, test, seed: int):
+    """(image, story, test) loaders at the global batches, shuffled from seed,
+    + 1 and + 2 (the test loader in order), each reading this process's
+    slice (`cpcsv_tpu/data/pororo.py:329-364`)."""
+    im_bs, st_bs = global_batches(cfg)
+    pi, pc = process_info()
+    kw = dict(drop_last=True, process_index=pi, process_count=pc)
+    return (DataLoader(image, im_bs, shuffle=True, seed=seed, **kw),
+            DataLoader(story, st_bs, shuffle=True, seed=seed + 1, **kw),
+            DataLoader(test, st_bs, shuffle=False, seed=seed + 2, **kw))
 
 
 class WrapAroundIterator:

@@ -288,10 +288,11 @@ class ImageDataset:
 
 def build_pororo_loaders(cfg, seed: int = 0):
     """(image, story, test) loaders over cfg.DATA_DIR (reference
-    main_pororo.py:97-121), for one process on one device: the batches are
-    the config's, as the JAX package's with a mesh of one. The datasets draw
-    from seed + 10, 11, 12 and the loaders shuffle from seed, + 1, + 2."""
-    from cpcsv_tpu_torch.data.loader import DataLoader
+    main_pororo.py:97-121), at the global batches (the config's times
+    mesh_size(MESH_SHAPE)), each process reading its slice
+    (`cpcsv_tpu/data/pororo.py:329-364`). The datasets draw from seed + 10,
+    11, 12 and the loaders shuffle from seed, + 1, + 2."""
+    from cpcsv_tpu_torch.data.loader import training_loaders
 
     dir_path = cfg.DATA_DIR
     counter = _load_npy_dict(join(dir_path, "frames_counter.npy"))
@@ -302,8 +303,4 @@ def build_pororo_loaders(cfg, seed: int = 0):
                          segment_name=cfg.TRAIN.SEGMENT_NAME, seed=seed + 11)
     base_test = VideoFolderDataset(dir_path, counter, min_len=4, data_type="test")
     test_story = StoryDataset(base_test, text, cfg.IMSIZE, seed=seed + 12)
-
-    im_bs, st_bs = cfg.TRAIN.IM_BATCH_SIZE, cfg.TRAIN.ST_BATCH_SIZE
-    return (DataLoader(image, im_bs, shuffle=True, drop_last=True, seed=seed),
-            DataLoader(story, st_bs, shuffle=True, drop_last=True, seed=seed + 1),
-            DataLoader(test_story, st_bs, shuffle=False, drop_last=True, seed=seed + 2))
+    return training_loaders(cfg, image, story, test_story, seed)

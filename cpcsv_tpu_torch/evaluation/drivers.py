@@ -26,9 +26,12 @@ by `utils.weights.generator_state_dict_from_jax`) or from the run directory
 `output_dir` (`load_ckpt=E`, `load_epoch(E)`, and the walks). Noise comes
 from one `torch.Generator` on the device, seeded with `seed`.
 
-One process runs a walk: the JAX package's multi-host barrier around the
-walks (`@_centralized`) comes with the DDP slice, and the port never wrote
-the JAX package's legacy params-only snapshots, so it does not read them.
+In a process group the walks and the --load_ckpt dump run on rank 0 alone,
+over the whole test set (`_centralized`, as the JAX package's); `Infer`
+takes any MESH_SHAPE and walks on its one device, as the JAX package's
+`make_eval_mesh` falls back to the local devices, with the same numbers.
+The port never wrote the JAX package's legacy params-only snapshots, so it
+does not read them.
 """
 
 from __future__ import annotations
@@ -62,8 +65,40 @@ from cpcsv_tpu_torch.evaluation.inception_score import inception_score
 from cpcsv_tpu_torch.evaluation.r2plus1d import make_fsd_extractor
 from cpcsv_tpu_torch.evaluation.ssim import ssim_score
 from cpcsv_tpu_torch.models.factory import generator_from_config
+from cpcsv_tpu_torch.parallel.distributed import is_distributed, process_info
+from cpcsv_tpu_torch.parallel.mesh import host_barrier
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.utils.image import save_all_img, save_png, save_story_results
+
+
+def _centralized(walk):
+    """A checkpoint walk (first argument the test loader) in a process group
+    (`cpcsv_tpu/evaluation/drivers.py:61-98`): every rank of a CLI run reaches
+    the same walk, which runs on rank 0 alone over the loader's unsliced
+    view, the whole test set (the reference evaluates on one GPU); the other
+    ranks wait and return None. The wait is a barrier of the host's gloo
+    group (`mesh.host_barrier`, CPCSV_EVAL_BARRIER_MIN's timeout), not a
+    NCCL collective, whose timeout a walk of minutes to hours would pass.
+    Without a group the walk runs as it is."""
+
+    @functools.wraps(walk)
+    def wrapper(self, loader, *args, **kwargs):
+        if not is_distributed():
+            return walk(self, loader, *args, **kwargs)
+        if process_info()[0] != 0:
+            host_barrier()
+            return None
+        try:
+            full = loader.unsliced() if hasattr(loader, "unsliced") else loader
+            return walk(self, full, *args, **kwargs)
+        finally:
+            try:
+                host_barrier()
+            except Exception as e:  # a waiter that gave up must not discard the walk
+                print(f"warning: the barrier after {walk.__name__} failed ({e}); "
+                      "the walk's results are intact")
+
+    return wrapper
 
 
 def _batch_motion_content(cfg: Config, batch):
@@ -172,11 +207,15 @@ class Infer:
                 story_id += 1
         return orig_dir, gen_dir
 
+    @_centralized
     def inference_samples(self, storyloader, save_path: str):
         """The --load_ckpt dump (reference miscc/utils.py:402): the generated
         frames as numbered PNGs in `save_path`, the real ones in
         <run>/Evaluation/ref. Both directories are cleared of PNGs first: a
         larger earlier dump would otherwise mix two models' frames."""
+        return self._inference_samples(storyloader, save_path)
+
+    def _inference_samples(self, storyloader, save_path: str):
         ref_dir = os.path.join(self.output_dir, "Evaluation", "ref")
         for d in (save_path, ref_dir):
             if os.path.isdir(d):
@@ -191,6 +230,7 @@ class Infer:
         return save_path, ref_dir
 
     # ------------------------------------------------------------------ walks
+    @_centralized
     def eval_fid2(self, testloader, epochs: Optional[list[int]] = None, batch_size: int = 50):
         """FID and FSD of each snapshot, newest first (reference
         inference.py:201-230): the test stories regenerated into
@@ -225,6 +265,7 @@ class Infer:
             print(f"epoch {epoch}: fid={fid:.3f} vfid/fsd={fsd:.3f}{tag}")
         return results
 
+    @_centralized
     def eval_is(self, testloader, epochs: Optional[list[int]] = None, batch_size: int = 32,
                 splits: int = 10):
         """Inception Score of each snapshot, newest first: the test stories
@@ -249,6 +290,7 @@ class Infer:
             print(f"epoch {epoch}: IS={mean:.3f}+-{std:.3f}{tag}")
         return results
 
+    @_centralized
     def eval_fvd(self, storyloader, epochs: Optional[list[int]] = None,
                  num_of_video: int = 272):
         """FVD of each snapshot, newest first (reference inference.py:128-141):
@@ -263,7 +305,7 @@ class Infer:
         results = []
         for epoch in epochs:
             self.load_epoch(epoch)
-            gen_dir, ref_dir = self.inference_samples(
+            gen_dir, ref_dir = self._inference_samples(
                 storyloader, os.path.join(self.eval_dir, f"fvd_epoch_{epoch}"))
             fvd = calculate_fvd(gen_dir, ref_dir, num_of_video=num_of_video, embedder=embedder)
             _append_row(csv_path, [epoch, fvd])
@@ -306,6 +348,7 @@ class Infer:
         n = n or len(ds)
         return ssim_score((ds[i] for i in range(n)), device=self.device)
 
+    @_centralized
     def eval_ssim_walk(self, testloader, epochs: Optional[list[int]] = None,
                        n: Optional[int] = None):
         """SSIM of each snapshot, newest first, appended to ssim_score.csv.

@@ -30,6 +30,17 @@ and the wrong head calls, so the head's statistics come from (pairs, fake).
 `dtype` is the compute dtype (cfg.COMPUTE_DTYPE; None = float32): every conv
 runs in it, with float32 parameters, so the features and logits come out in
 it; the losses take the logits to float32.
+
+In a process group (`parallel/`) each rank holds its rows of the global
+batch, and the pairs that cross ranks are built from the global index, as
+the JAX package's one program pairs the global batch: the wrong pairs
+(feature i, condition i + 1) take their conditions from the gathered global
+conditions (the D step's carry no gradient; the features are never
+gathered), so a rank's last feature meets the next rank's first condition
+and the last rank has one wrong pair fewer; whether there is a wrong pair
+at all is asked of the global batch; and InfoNCE's pair block is the rank's
+features against every global condition, (B/W, B), the head's BN over the
+B² global rows.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ import torch.nn as nn
 from cpcsv_tpu_torch.models.video_encoder import VideoEncoder
 from cpcsv_tpu_torch.ops.blocks import BatchNorm2d, Conv2d, Conv4x4s2
 from cpcsv_tpu_torch.ops.spectral_norm import SNConv2d
+from cpcsv_tpu_torch.parallel.distributed import is_distributed
+from cpcsv_tpu_torch.parallel.mesh import batch_rows, gather_rows, wrong_pair_rows
 
 LEAK = 0.2
 
@@ -53,10 +66,30 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 def pairwise_cond_logits(head: "DGetLogits", features: torch.Tensor,
                          conditions: torch.Tensor) -> torch.Tensor:
     """(B, B) logits of head(features_i, conditions_j): one call over B² rows,
-    features repeated i-major and conditions tiled."""
-    B = features.shape[0]
-    logits = head(features.repeat_interleave(B, dim=0), conditions.repeat(B, 1))
-    return logits.view(B, B)
+    features repeated i-major and conditions tiled; in a process group the
+    rank's (b, B) block, its b features against the B global conditions."""
+    conditions = gather_rows(conditions)
+    b, B = features.shape[0], conditions.shape[0]
+    logits = head(features.repeat_interleave(B, dim=0), conditions.repeat(b, 1))
+    return logits.view(b, B)
+
+
+def wrong_pair_logits(head: "DGetLogits", real_feat: torch.Tensor,
+                      cond: torch.Tensor) -> torch.Tensor:
+    """head(real_feat[i], cond[i + 1]) over the global batch's i < B − 1, this
+    rank's of them; empty logits where the global batch has one row: one
+    sample has no mismatched pair, and a train-mode BN over an empty batch
+    would write NaN into the head's running statistics."""
+    if not is_distributed():
+        if real_feat.shape[0] > 1:
+            return head(real_feat[:-1], cond[1:])
+        return real_feat.new_zeros((0,))
+    rows = batch_rows(real_feat.shape[0])
+    if rows.total == 1:
+        return real_feat.new_zeros((0,))
+    wrong = wrong_pair_rows(rows)
+    conds = gather_rows(cond)[wrong.lo + 1:wrong.lo + 1 + wrong.local]
+    return head(real_feat[:wrong.local], conds)
 
 
 def encoder64(in_channels: int, ndf: int, sn_first: bool,
@@ -127,12 +160,7 @@ class ImageDiscriminator(nn.Module):
         real_feat = self(real)
         fake_feat = self(fake)
         real_logits = self.get_cond_logits(real_feat, cond)
-        if real.shape[0] > 1:
-            wrong_logits = self.get_cond_logits(real_feat[:-1], cond[1:])
-        else:
-            # one sample has no mismatched pair; a train-mode BN over an empty
-            # batch would write NaN into the head's running statistics
-            wrong_logits = real_logits.new_zeros((0,))
+        wrong_logits = wrong_pair_logits(self.get_cond_logits, real_feat, cond)
         fake_logits = self.get_cond_logits(fake_feat, cond)
         return real_logits, wrong_logits, fake_logits, self.cate_logits(real_feat)
 
@@ -142,7 +170,8 @@ class ImageDiscriminator(nn.Module):
         return self.get_cond_logits(fake_feat, cond), self.cate_logits(fake_feat)
 
     def d_phase_infonce(self, real, fake, cond):
-        """InfoNCE D-update forwards: (pair logits (B, B), fake logits, cate
+        """InfoNCE D-update forwards: (pair logits (B, B), or the rank's
+        (B/W, B) block in a process group, fake logits, cate
         logits of the real features), order of `discriminators.py:212-222`."""
         real_feat = self(real)
         fake_feat = self(fake)
@@ -192,10 +221,7 @@ class StoryDiscriminator(nn.Module):
         real_feat = self(real)
         fake_feat = self(fake)
         real_logits = self.get_cond_logits(real_feat, cond)
-        if real.shape[0] > 1:
-            wrong_logits = self.get_cond_logits(real_feat[:-1], cond[1:])
-        else:  # see ImageDiscriminator.d_phase
-            wrong_logits = real_logits.new_zeros((0,))
+        wrong_logits = wrong_pair_logits(self.get_cond_logits, real_feat, cond)
         fake_logits = self.get_cond_logits(fake_feat, cond)
         return real_logits, wrong_logits, fake_logits, self.order_logits(shuffled)
 

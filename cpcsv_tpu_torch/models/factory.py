@@ -14,11 +14,14 @@ from cpcsv_tpu_torch.models.discriminators import (
     StoryDiscriminator,
 )
 from cpcsv_tpu_torch.models.generator import StoryGenerator
+from cpcsv_tpu_torch.parallel.mesh import check_data_axes, parse_mesh_shape
 
-# Keys of the JAX package that the port parses but does not honour yet: the
-# device mesh, which comes with the DDP slice. It must keep its default;
-# another value raises rather than being ignored.
-UNSUPPORTED_KEYS = ("MESH_SHAPE",)
+# MESH_SHAPE is honoured by data parallelism (`parallel/`): training takes ""
+# or "data:N" (`build_models`; the trainer also holds N to the world size),
+# while serving and the walks accept any well-formed mesh and run on their
+# one device, as the JAX package's `make_eval_mesh` falls back to the local
+# devices. A mesh with another axis, over which the JAX package only
+# replicates the forward, is the one value the port does not train.
 # The JAX package's TPU lowering choices, accepted at every value its config
 # accepts, each with one meaning in the port:
 #   SCAN_STEPS (K > 1: K D+G pairs a dispatch, lax.scan; else one): the
@@ -34,15 +37,8 @@ BN_BACKENDS = ("xla", "mxu", "pallas")
 
 def check_lowering_keys(cfg: Config) -> None:
     """ValueError where the JAX package would refuse a BN_BACKEND
-    (ADAM_MU_DTYPE: `train.state.make_adam`); NotImplementedError for
-    UNSUPPORTED_KEYS."""
-    default = Config()
-    for key in UNSUPPORTED_KEYS:
-        if getattr(cfg, key) != getattr(default, key):
-            raise NotImplementedError(
-                f"{key}={getattr(cfg, key)!r}: the port does not support this key; "
-                f"leave it at its default {getattr(default, key)!r}"
-            )
+    (ADAM_MU_DTYPE: `train.state.make_adam`) or a malformed MESH_SHAPE."""
+    parse_mesh_shape(cfg.MESH_SHAPE)
     if cfg.BN_BACKEND not in BN_BACKENDS:
         raise ValueError(f"BN_BACKEND must be 'xla', 'mxu' or 'pallas', got {cfg.BN_BACKEND!r}")
 
@@ -86,7 +82,9 @@ def build_models(cfg: Config):
     """(G, D_im, D_st, D_se) for training, on the CPU, their parameters
     float32, their compute in cfg.COMPUTE_DTYPE; D_se is None without
     SEGMENT_LEARNING, and D_st holds the order-consistency VideoEncoder with
-    USE_SEQ_CONSISTENCY (`cpcsv_tpu/models/factory.py:43-75`)."""
+    USE_SEQ_CONSISTENCY (`cpcsv_tpu/models/factory.py:43-75`).
+    NotImplementedError for a MESH_SHAPE with an axis other than `data`."""
+    check_data_axes(cfg.MESH_SHAPE)
     net_g = generator_from_config(cfg)
     kw = dict(ndf=cfg.GAN.DF_DIM, nef=cfg.GAN.CONDITION_DIM, text_dim=cfg.TEXT.DIMENSION,
               label_num=cfg.LABEL_NUM, dtype=compute_dtype(cfg))

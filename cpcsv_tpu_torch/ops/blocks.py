@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from cpcsv_tpu_torch.ops.batchnorm import (
     batch_norm_train,
+    global_rows,
     is_recomputing,
     update_running_stats,
 )
@@ -103,7 +104,7 @@ class _BatchNorm:
             y, mean, var = batch_norm_train(x, self.weight, self.bias, self.eps)
             if not is_recomputing():
                 update_running_stats(self.running_mean, self.running_var, mean, var,
-                                     x.numel() // x.shape[1])
+                                     global_rows(x))
                 self.num_batches_tracked.add_(1)
             return y
         shape = (1, -1) + (1,) * (x.dim() - 2)

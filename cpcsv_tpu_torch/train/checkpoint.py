@@ -24,6 +24,10 @@ restoring casts them to the dtype the state's optimizers were built with
 casts to the template, so a run may flip the key between resumes. A state
 saved by `torch.optim.Adam` loads as it is.
 
+In a process group rank 0 alone writes, and every rank meets the others at a
+host barrier after the last swap (`mesh.host_barrier`), so no rank reads a
+checkpoint before it is whole; every rank restores.
+
 Resume is exact: the trainer draws every epoch's noise and data order from
 (seed, epoch), so a resumed epoch E sees what an uninterrupted run's would.
 The one state not saved is the image loader's wrap-around position inside an
@@ -38,6 +42,8 @@ from typing import Optional
 
 import torch
 
+from cpcsv_tpu_torch.parallel.distributed import process_info
+from cpcsv_tpu_torch.parallel.mesh import host_barrier
 from cpcsv_tpu_torch.train.state import TrainState
 
 _LABEL = "COMPLETED_EPOCH"
@@ -70,8 +76,14 @@ class CheckpointManager:
         `completed` (default `epoch`). The end-of-run save keeps the
         reference's name netG_epoch_{MAX_EPOCH} with completed = MAX_EPOCH-1,
         so a rerun with a larger MAX_EPOCH resumes at MAX_EPOCH and skips no
-        epoch."""
-        completed = epoch if completed is None else completed
+        epoch. Rank 0 writes; every rank returns after the files are whole."""
+        try:
+            if process_info()[0] == 0:
+                self._write(state, epoch, epoch if completed is None else completed)
+        finally:  # a failed write still releases the other ranks
+            host_barrier()
+
+    def _write(self, state: TrainState, epoch: int, completed: int) -> None:
         self.save_generator(_cpu_state_dict(state.gen), epoch)
         nets = state.nets()
         for name, fname in D_FILES.items():

@@ -11,6 +11,10 @@ vectors live in its buffers, as its `batch_stats` and `spectral`
 collections do in JAX. Without SEGMENT_LEARNING there is no seg D: `d_se` is
 None, and `nets()` and `opts` leave it out (three Adams, not four), as the
 JAX state's `d_se` is None.
+
+In a process group every rank builds its state from the same seed, and
+`create_train_state` checks that they did (`check_replicas`): the steps
+keep the replicas equal bit for bit from there (`train/steps.py`).
 """
 
 from __future__ import annotations
@@ -19,12 +23,14 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.device import resolve_device
 from cpcsv_tpu_torch.models.factory import build_models
+from cpcsv_tpu_torch.parallel.distributed import is_distributed
 
 NETS = ("gen", "d_im", "d_st", "d_se")
 
@@ -151,7 +157,8 @@ def weights_init(net: nn.Module, generator: torch.Generator) -> None:
 def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = "cuda") -> TrainState:
     """The nets of `cfg` (`models.factory.build_models`), in train mode,
     initialised from `seed` on `device`, with their optimizers. It runs on
-    the card unless the caller passes device="cpu"."""
+    the card unless the caller passes device="cpu". In a process group it
+    checks that every rank built the same state."""
     dev = resolve_device(device)
     state = TrainState(*build_models(cfg), opts={})
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -159,4 +166,36 @@ def create_train_state(cfg: Config, seed: int = 0, device: str | torch.device = 
         net.to(dev).train()
         weights_init(net, generator)
         state.opts[name] = make_adam(net.parameters(), cfg.ADAM_MU_DTYPE)
+    check_replicas(state)
     return state
+
+
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def state_checksums(state: TrainState) -> torch.Tensor:
+    """int64 sums of the bit patterns of every tensor of the state (the nets'
+    parameters and buffers, the Adam states), one a tensor, on the nets'
+    device: integer sums, exact in any order, that two states equal bit for
+    bit share."""
+    dev = next(state.gen.parameters()).device
+    tensors = [t for net in state.nets().values() for t in net.state_dict().values()]
+    tensors += [v for opt in state.opts.values() for st in opt.state.values()
+                for v in st.values() if torch.is_tensor(v)]
+    return torch.stack([t.detach().to(dev).contiguous().view(_BITS[t.element_size()])
+                        .sum(dtype=torch.int64) for t in tensors])
+
+
+def check_replicas(state: TrainState) -> None:
+    """In a process group, RuntimeError unless every rank's state equals rank
+    0's bit for bit (rank 0's checksums broadcast and compared)."""
+    if not is_distributed():
+        return
+    ours = state_checksums(state)
+    ref = ours.clone()
+    dist.broadcast(ref, src=0)
+    if not torch.equal(ours, ref):
+        bad = int((ours != ref).sum())
+        raise RuntimeError(
+            f"rank {dist.get_rank()}: {bad} of {ours.numel()} state tensors differ from rank 0's; "
+            "every rank must build its state from the same config and seed")

@@ -49,6 +49,21 @@ batches enter as float32, every loss (the cascade MSEs included, as
 `cpcsv_tpu/train/steps.py:_mse`) is taken in float32, and the parameters,
 their gradients, the Adam moments and the BN running statistics stay
 float32.
+
+In a process group (`parallel/`) the batches are this rank's rows of the
+global batch (`data/loader.py` slices them), and the step is the JAX
+package's one program over the global batch, its collectives stated:
+  * the noise: the global batch's draws from `rng`, of which the rank keeps
+    its rows, so the draws do not depend on the rank count (explicit draws
+    are the global batch's too);
+  * each loss is this rank's share, its rows' sum over the global count
+    (`losses/gan_losses.py`), the BN statistics global (`ops/batchnorm.py`),
+    the cross-rank pairs from the global index (`models/discriminators.py`);
+  * `torch.autograd.grad` fires no DistributedDataParallel hook, and the
+    nets are not wrapped in one: after it each net's gradients are summed
+    over the ranks in one all-reduce of their concatenation, so every rank
+    takes the same Adam step and the parameters stay equal bit for bit;
+  * the metrics are the ranks' shares summed in one all-reduce a step.
 """
 
 from __future__ import annotations
@@ -60,10 +75,13 @@ from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.device import float32_math
 from cpcsv_tpu_torch.losses.gan_losses import (
     GLossOut,
+    batch_mean,
     discriminator_loss,
     generator_loss,
     kl_loss,
 )
+from cpcsv_tpu_torch.parallel.distributed import is_distributed
+from cpcsv_tpu_torch.parallel.mesh import all_reduce_sum_, batch_rows, wrong_pair_rows
 from cpcsv_tpu_torch.train.state import TrainState
 
 
@@ -82,24 +100,39 @@ def build_conditions(st_batch, im_batch, c_mu, cim_mu):
     return st_mu, torch.cat([im_motion, cim_mu], dim=1)
 
 
-def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.square(a.float() - b.float()))
+def _mse(a: torch.Tensor, b: torch.Tensor, rows=None) -> torch.Tensor:
+    return batch_mean(torch.square(a.float() - b.float()), rows)
 
 
-def _latent_loss(latents) -> torch.Tensor:
+def _latent_loss(latents, rows=None) -> torch.Tensor:
     (h1, h2, h3, h4), (g1, g2, g3, g4) = latents
-    return _mse(g1, h1) + _mse(g2, h2) + _mse(g3, h3) + _mse(g4, h4)
+    return _mse(g1, h1, rows) + _mse(g2, h2, rows) + _mse(g3, h3, rows) + _mse(g4, h4, rows)
+
+
+def _rows(batch: dict, key: str = "images"):
+    """This rank's `mesh.Rows` of the batch, None without a process group."""
+    return batch_rows(batch[key].shape[0]) if is_distributed() else None
+
+
+def _local_noise(noise, rows):
+    """This rank's rows of the global batch's draws."""
+    if rows is None:
+        return noise
+    return tuple(n[rows.lo:rows.lo + rows.local] for n in noise)
 
 
 def _sample_all(cfg: Config, net_g, rng, st_batch, im_batch):
     st_motion = torch.cat([st_batch["description"], st_batch["labels"]], dim=2)
     im_motion = torch.cat([im_batch["description"], im_batch["labels"]], dim=1)
     im_content = im_batch["content"][:, :, : cfg.TEXT.DIMENSION]
+    st_rows, im_rows = _rows(st_batch), _rows(im_batch)
     if isinstance(rng, torch.Generator):
-        st_noise = net_g.draw_noise(st_motion.shape[0], st_motion.shape[1], rng)
-        im_noise = net_g.draw_noise(im_motion.shape[0], 1, rng)
+        st_noise = net_g.draw_noise(st_rows.total if st_rows else st_motion.shape[0],
+                                    st_motion.shape[1], rng)
+        im_noise = net_g.draw_noise(im_rows.total if im_rows else im_motion.shape[0], 1, rng)
     else:
         st_noise, im_noise = rng
+    st_noise, im_noise = _local_noise(st_noise, st_rows), _local_noise(im_noise, im_rows)
     # the cascade reads the story call's mask and latents in the G step
     st_out = net_g.sample_videos(st_motion, st_batch["description"], seg=cfg.CASCADE_MODEL,
                                  noise=st_noise)
@@ -110,14 +143,28 @@ def _sample_all(cfg: Config, net_g, rng, st_batch, im_batch):
 def _step(net, opt, loss, lr: float) -> None:
     """One optimizer step of `net` on d loss / d params. Gradients go to this
     net only; a parameter the loss does not reach steps with a zero gradient,
-    as optax's Adam does."""
+    as optax's Adam does. In a process group the gradients are summed over
+    the ranks first, in one all-reduce of their concatenation."""
     params = list(net.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [g if g is not None else torch.zeros_like(p) for p, g in zip(params, grads)]
+    if is_distributed():
+        flat = all_reduce_sum_(torch.cat([g.reshape(-1) for g in grads]))
+        grads = [f.view_as(p) for f, p in zip(flat.split([p.numel() for p in params]), params)]
     for p, g in zip(params, grads):
-        p.grad = g if g is not None else torch.zeros_like(p)
+        p.grad = g
     for group in opt.param_groups:
         group["lr"] = float(lr)
     opt.step()
+
+
+def _reduce_metrics(metrics: dict) -> dict:
+    """The metrics' ranks' shares summed, in one all-reduce; without a
+    process group the metrics as they are."""
+    if not is_distributed():
+        return metrics
+    values = all_reduce_sum_(torch.stack([v.detach().float().reshape(()) for v in metrics.values()]))
+    return dict(zip(metrics, values.unbind()))
 
 
 def make_train_steps(cfg: Config):
@@ -133,10 +180,11 @@ def make_train_steps(cfg: Config):
         seg Ds get None (dispatch on `is not None`, not on truthiness)."""
         net.train()
         story = extra is not None
+        rows = batch_rows(real.shape[0]) if is_distributed() else None
         args = (real, fake, cond) + ((extra.get("shuffled"),) if story else ())
         if nce:
             pair, fake_logits, third = net.d_phase_infonce(*args)
-            real_logits, wrong_logits = torch.diagonal(pair), None
+            real_logits, wrong_logits = torch.diagonal(pair, offset=rows.lo if rows else 0), None
         else:
             real_logits, wrong_logits, fake_logits, third = net.d_phase(*args)
             pair = None
@@ -145,7 +193,8 @@ def make_train_steps(cfg: Config):
         out = discriminator_loss(real_logits, wrong_logits, fake_logits, cate, cate_labels, order,
                                  extra.get("order_labels") if story else None,
                                  cfg.CONSISTENCY_RATIO, pair_logits=pair,
-                                 infonce_temperature=cfg.INFONCE_TEMPERATURE)
+                                 infonce_temperature=cfg.INFONCE_TEMPERATURE, rows=rows,
+                                 wrong_rows=wrong_pair_rows(rows) if rows else None)
         _step(net, opt, out.total, lr)
         return out
 
@@ -176,7 +225,7 @@ def make_train_steps(cfg: Config):
             "st_D/loss": st.total, "st_D/real": st.real, "st_D/fake": st.fake,
             "st_D/order": st.consistency,
         })
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, _reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     def g_step(state: TrainState, rng, st_batch, im_batch, lr_g):
         device = next(state.gen.parameters()).device
@@ -188,18 +237,20 @@ def make_train_steps(cfg: Config):
             st_mu, im_mu = build_conditions(st_batch, im_batch, st_out.c_mu, im_out.c_mu)
             st_mu, im_mu = st_mu.detach(), im_mu.detach()  # the reference detaches them
             labels = im_batch["labels"]
+            st_rows, im_rows = _rows(st_batch), _rows(im_batch)
             if use_segment:
-                se_g = generator_loss(*state.d_se.g_phase(im_out.seg, im_mu), labels)
+                se_g = generator_loss(*state.d_se.g_phase(im_out.seg, im_mu), labels,
+                                      rows=im_rows)
             else:
                 zero = im_mu.new_zeros(())
                 se_g = GLossOut(zero, zero, zero)
-            im_g = generator_loss(*state.d_im.g_phase(im_out.image, im_mu), labels)
+            im_g = generator_loss(*state.d_im.g_phase(im_out.image, im_mu), labels, rows=im_rows)
             fake_logits, cons_fake, cons_real = state.d_st.g_phase(st_out.image, st_mu,
                                                                    st_batch["images"])
             st_g = generator_loss(fake_logits, None, None, cons_fake, cons_real,
-                                  cfg.CONSISTENCY_RATIO)
-            im_kl = kl_loss(im_out.c_mu, im_out.c_logvar)
-            st_kl = kl_loss(st_out.c_mu, st_out.c_logvar)
+                                  cfg.CONSISTENCY_RATIO, rows=st_rows)
+            im_kl = kl_loss(im_out.c_mu, im_out.c_logvar, im_rows)
+            st_kl = kl_loss(st_out.c_mu, st_out.c_logvar, st_rows)
             total = im_g.total + im_kl * kl + (se_g.total * seg_w + st_g.total * img_w + st_kl * kl)
             cascade = {}
             if cfg.CASCADE_MODEL:
@@ -207,10 +258,10 @@ def make_train_steps(cfg: Config):
                 recon_real = state.gen.train_autoencoder(se_real)
                 recon_fake = state.gen.train_autoencoder(im_out.seg)
                 cascade = {
-                    "G/image_vae_loss": _latent_loss(im_out.latents),
-                    "G/video_vae_loss": _latent_loss(st_out.latents),
-                    "G/reconstruct_loss": (_mse(recon_real, se_real)
-                                           + _mse(recon_fake, im_out.seg)) / 2.0,
+                    "G/image_vae_loss": _latent_loss(im_out.latents, im_rows),
+                    "G/video_vae_loss": _latent_loss(st_out.latents, st_rows),
+                    "G/reconstruct_loss": (_mse(recon_real, se_real, im_rows)
+                                           + _mse(recon_fake, im_out.seg, im_rows)) / 2.0,
                 }
                 total = total + (cascade["G/video_vae_loss"]
                                  + cascade["G/reconstruct_loss"]) * cfg.RECONSTRUCT_LOSS
@@ -225,6 +276,6 @@ def make_train_steps(cfg: Config):
             "G/gan_loss": im_g.total + (img_w * st_g.total + se_g.total * seg_w),
             "G/loss": total,
         }
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, _reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     return d_step, g_step

@@ -35,8 +35,23 @@ torch.profiler into that directory (`utils/profiling.py`), as
 short for that says so at its end.
 
 SCAN_STEPS, the JAX package's K updates in one dispatch, is the same sequence
-of updates; the port runs it one D+G pair at a time. Refused, naming the
-slice that brings it: a MESH_SHAPE.
+of updates; the port runs it one D+G pair at a time.
+
+Data-parallel (`parallel/`): every rank runs this loop on its slice of the
+global batches (`data/loader.py`), and cfg.MESH_SHAPE must span the
+process group (`mesh.check_training_mesh`). Each rank draws the global
+batch's noise from the epoch's generator and keeps its rows
+(`train/steps.py`), so the draws do not depend on the rank count. The
+seq-consistency host shuffle runs on each rank's own stories with the same
+`default_rng([seed, epoch])`, a story's partner drawn among that rank's
+stories: deliberately what each JAX process does to its local slice
+(`cpcsv_tpu/train/trainer.py:127-134`), so the shuffles of a W-rank run are
+those of the JAX package's W-process run, not of a one-process run. Rank 0
+alone writes the run directory: `setting.yml` and the sources, the logger,
+the sample grids, the checkpoints (`train/checkpoint.py`; every rank
+restores), the profile trace. The in-training FID/FSD runs on rank 0 over
+the whole test set, as the JAX hook scores it, writing the real side's
+`.cache` file, and the other ranks receive its scores.
 """
 
 from __future__ import annotations
@@ -62,8 +77,10 @@ from cpcsv_tpu_torch.evaluation.drivers import (
 )
 from cpcsv_tpu_torch.evaluation.ssim import ssim_score
 from cpcsv_tpu_torch.losses.shuffle import create_random_shuffle
+from cpcsv_tpu_torch.parallel.distributed import process_info
+from cpcsv_tpu_torch.parallel.mesh import broadcast_from_rank0, check_training_mesh, mesh_size
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
-from cpcsv_tpu_torch.train.state import TrainState, create_train_state
+from cpcsv_tpu_torch.train.state import TrainState, check_replicas, create_train_state
 from cpcsv_tpu_torch.train.steps import make_train_steps
 from cpcsv_tpu_torch.utils.image import save_image_results, save_story_results
 from cpcsv_tpu_torch.utils.logging import MetricsLogger
@@ -93,12 +110,13 @@ def epoch_seed(seed: int, epoch: int, stream: int) -> int:
     return int(np.random.SeedSequence([seed, epoch, stream]).generate_state(1, np.uint64)[0])
 
 
-def refuse_unported(cfg: Config) -> None:
-    """NotImplementedError for what the port's trainer does not do yet."""
-    if cfg.MESH_SHAPE:
-        raise NotImplementedError(
-            f"MESH_SHAPE={cfg.MESH_SHAPE!r}: multi-device training comes with the DDP slice "
-            "(torch.distributed); the port trains on one device")
+class _NoLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def add_scalar(self, *_) -> None: ...
+    def add_scalars(self, *_) -> None: ...
+    def add_image(self, *_) -> None: ...
+    def flush(self) -> None: ...
 
 
 class GANTrainer:
@@ -111,9 +129,10 @@ class GANTrainer:
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
-        refuse_unported(cfg)
+        check_training_mesh(cfg.MESH_SHAPE)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rank = process_info()[0]
         self.output_dir = output_dir
         self.model_dir = os.path.join(output_dir, "Model")
         self.image_dir = os.path.join(output_dir, "Image")
@@ -123,7 +142,8 @@ class GANTrainer:
             os.makedirs(d, exist_ok=True)
 
         # run-dir self-archiving (reference trainer.py:55-61)
-        if cfg_file and not os.path.exists(os.path.join(output_dir, "setting.yml")):
+        if (cfg_file and self.rank == 0
+                and not os.path.exists(os.path.join(output_dir, "setting.yml"))):
             shutil.copyfile(cfg_file, os.path.join(output_dir, "setting.yml"))
             pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
             shutil.copyfile(os.path.join(pkg, "models", "generator.py"),
@@ -136,14 +156,15 @@ class GANTrainer:
         self.seed = seed
         self.d_step, self.g_step = make_train_steps(cfg)
         self.ckpt = CheckpointManager(self.model_dir)
-        self.logger = MetricsLogger(self.log_dir)
+        self.logger = MetricsLogger(self.log_dir) if self.rank == 0 else _NoLogger()
         self._eval_extractors = None  # the in-training FID/FSD's, built at its first call
         self._np_rng = np.random.default_rng(seed)  # reseeded every epoch
 
     def _augment_story_host(self, st_batch: dict) -> dict:
         """With USE_SEQ_CONSISTENCY, the story batch with `shuffled` stories
         and their `order_labels` added, drawn on the host from the epoch's
-        numpy generator; otherwise the batch as it is."""
+        numpy generator (in a process group, the rank's own stories: see the
+        module's docstring); otherwise the batch as it is."""
         if not self.cfg.USE_SEQ_CONSISTENCY:
             return st_batch
         shuffled, order_labels = create_random_shuffle(st_batch["images"], rng=self._np_rng)
@@ -171,6 +192,7 @@ class GANTrainer:
             last = self.ckpt.last_epoch()
             if last is not None:
                 self.ckpt.restore(state)
+                check_replicas(state)
                 start_epoch = last + 1
                 print(f"Auto-resume from epoch {start_epoch}")
         elif self.continue_ckpt:
@@ -178,6 +200,7 @@ class GANTrainer:
             # epoch trained again (the reference's semantics, trainer.py:232-235)
             start_epoch = int(self.continue_ckpt)
             self.ckpt.restore(state, epoch=start_epoch)
+            check_replicas(state)
             print(f"Continue training from epoch {start_epoch}")
 
         image_iter = WrapAroundIterator(imageloader)
@@ -185,7 +208,7 @@ class GANTrainer:
         num_step = len(storyloader)
         c_time = time.time()
         print(f"LR DECAY EPOCH: {cfg.TRAIN.LR_DECAY_EPOCH}")
-        profile_dir = profile_env_dir()  # armed until one trace is written
+        profile_dir = profile_env_dir() if self.rank == 0 else None  # armed until one trace
 
         for epoch in range(start_epoch, self.max_epoch):
             start_t = time.time()
@@ -240,7 +263,7 @@ class GANTrainer:
                 profile_dir = None
 
             # ---- epoch sample grid (reference trainer.py:437-444)
-            if last_st_host is not None:
+            if last_st_host is not None and self.rank == 0:
                 self._log_epoch_samples(state, epoch, last_st_host)
 
             self.logger.add_scalar("learning/generator", lr_g, epoch)
@@ -252,7 +275,8 @@ class GANTrainer:
 
             epoch_time = time.time() - start_t
             total_mins = int((time.time() - c_time) / 60)
-            frames_per_step = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
+            frames_per_step = (cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN
+                               + cfg.TRAIN.IM_BATCH_SIZE) * mesh_size(cfg.MESH_SHAPE)
             fps = num_step * frames_per_step / max(epoch_time, 1e-9)
             self.logger.add_scalar("perf/frames_per_sec", fps, epoch)
             self.logger.add_scalar("perf/epoch_seconds", epoch_time, epoch)
@@ -303,25 +327,33 @@ class GANTrainer:
         """SSIM of the test stories regenerated by the eval-mode generator,
         noise seeded 5678 + epoch, logged as Evaluation/ssim (reference
         trainer.py:176-185, whose call is commented out at :472: called on
-        demand, not by `train`)."""
-        generator = torch.Generator(device=self.device).manual_seed(5678 + epoch)
-        with self._eval_mode(state) as gen:
-            ds = StoryGANSSIMDataset(gen, testloader.dataset, generator,
-                                     text_dim=self.cfg.TEXT.DIMENSION)
-            value = ssim_score((ds[i] for i in range(len(ds))), device=self.device)
+        demand, not by `train`). Computed on rank 0, sent to the others."""
+        value = None
+        if self.rank == 0:
+            generator = torch.Generator(device=self.device).manual_seed(5678 + epoch)
+            with self._eval_mode(state) as gen:
+                ds = StoryGANSSIMDataset(gen, testloader.dataset, generator,
+                                         text_dim=self.cfg.TEXT.DIMENSION)
+                value = ssim_score((ds[i] for i in range(len(ds))), device=self.device)
+        value = broadcast_from_rank0(value)
         self.logger.add_scalar("Evaluation/ssim", value, epoch)
         return value
 
     def calculate_vfid(self, state: TrainState, epoch: int, testloader) -> dict:
         """The epoch's FID and FSD over the test set, the eval-mode generator's
         noise seeded 1234 + epoch (`drivers.evaluate_fid_fsd_in_memory`),
-        logged as Evaluation/vfid and Evaluation/fid."""
-        if self._eval_extractors is None:
-            self._eval_extractors = make_in_memory_extractors(self.device)
-        generator = torch.Generator(device=self.device).manual_seed(1234 + epoch)
-        with self._eval_mode(state) as gen:
-            scores = evaluate_fid_fsd_in_memory(self.cfg, gen, testloader, generator,
-                                                extractors=self._eval_extractors)
+        logged as Evaluation/vfid and Evaluation/fid. Computed on rank 0 (the
+        only rank that writes the real side's .cache files), sent to the
+        others, which wait for it on the host."""
+        scores = None
+        if self.rank == 0:
+            if self._eval_extractors is None:
+                self._eval_extractors = make_in_memory_extractors(self.device)
+            generator = torch.Generator(device=self.device).manual_seed(1234 + epoch)
+            with self._eval_mode(state) as gen:
+                scores = evaluate_fid_fsd_in_memory(self.cfg, gen, testloader, generator,
+                                                    extractors=self._eval_extractors)
+        scores = broadcast_from_rank0(scores)
         self.logger.add_scalar("Evaluation/vfid", scores["fsd"], epoch)
         self.logger.add_scalar("Evaluation/fid", scores["fid"], epoch)
         return scores

@@ -10,6 +10,10 @@ against the plain versions in the `cuda`-marked test, which skips without a
 card; JAX is reached through fixtures, so that test runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_bn.py -m cuda
+
+The `cuda`-marked two-rank check runs the kernels in two gloo ranks sharing
+the card (`tests/_torch_parallel_worker.py`), each on its rows of a map, and
+holds the all-reduced statistics against one process on the whole map.
 """
 
 from unittest import mock
@@ -480,3 +484,61 @@ def test_cuda_kernels_at_the_video_encoder_maps(dtype):
                                                bn.running_mean, bn.running_var)]
         for a, r in zip(out["kernel"], out["plain"]):
             torch.testing.assert_close(a, r, **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_bn_sums_all_reduced_across_two_ranks(tmp_path):
+    """Two gloo ranks sharing the card, each a process running the BN kernels on
+    its rows of a full-width map (the step's (18, 992, 4x4) and (90, 128,
+    8x8), split evenly; and (9, 64, 8x8) all on rank 0, rank 1's map empty):
+    the forward's (s, q, M) and the backward's (sdy, sdyx) all-reduced. Each
+    rank's y and dx against one process's rows of the whole map, the ranks'
+    dscale and dbias added against one process's, the running statistics
+    equal on both ranks and close to one process's; one launch of each
+    kernel a rank with rows, none on an empty map."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    rng = np.random.default_rng(3)
+    cases = []
+    for (N, C, H), split in (((18, 992, 4), None), ((90, 128, 8), None), ((9, 64, 8), "rank 0")):
+        x = (rng.standard_normal((N, C, H, H)) * 1.5 + 0.5).astype(np.float32)
+        w = rng.standard_normal((N, C, H, H)).astype(np.float32)
+        cases.append({"x": x, "w": w, "split": [N, 0] if split else [N // 2, N - N // 2]})
+    job_path = tmp_path / "job.pt"
+    torch.save({"root": str(tmp_path), "device": "cuda", "bn": cases}, job_path)
+    worker = Path(__file__).with_name("_torch_parallel_worker.py")
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), "bn", str(rank), "2", f"file://{tmp_path / 'rendezvous'}",
+         str(job_path), str(tmp_path / f"rank{rank}.pt")], env={**os.environ},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)["cases"] for r in range(2)]
+    for i, case in enumerate(cases):
+        r0, r1 = ranks[0][i], ranks[1][i]
+        one = blocks.BatchNorm2d(case["x"].shape[1]).cuda().train()
+        x = torch.from_numpy(case["x"]).cuda().requires_grad_()
+        y = one(x)
+        (y * torch.from_numpy(case["w"]).cuda()).sum().backward()
+        n0 = case["split"][0]
+        ref = {"y": y.detach().cpu().numpy(), "dx": x.grad.cpu().numpy()}
+        for key in ("y", "dx"):  # float32 sums over the ranks in another order
+            scale = np.abs(ref[key]).max()
+            np.testing.assert_allclose(np.concatenate([r0[key], r1[key]]), ref[key],
+                                       rtol=1e-4, atol=1e-5 * scale, err_msg=f"case {i} {key}")
+            assert r1[key].shape[0] == case["split"][1]
+        for key, grad in (("dscale", one.weight.grad), ("dbias", one.bias.grad)):
+            np.testing.assert_allclose(r0[key] + r1[key], grad.cpu().numpy(), rtol=1e-4,
+                                       atol=1e-5 * float(grad.abs().max()), err_msg=key)
+        for key in ("running_mean", "running_var"):
+            np.testing.assert_array_equal(r0[key], r1[key])
+            np.testing.assert_allclose(r0[key], getattr(one, key).cpu().numpy(), rtol=1e-5,
+                                       atol=1e-6)
+        assert r0["launches"] == {"bn_stats": 1, "bn_grad_reduce": 1}
+        assert r1["launches"] == ({"bn_stats": 0, "bn_grad_reduce": 0} if n0 == len(case["x"])
+                                  else {"bn_stats": 1, "bn_grad_reduce": 1})

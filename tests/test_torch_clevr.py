@@ -109,15 +109,16 @@ def test_clevr_loaders_match_the_jax_cli(clevr_tree):
 
 def test_clevr_flag_surface_matches_jax_cli():
     """Every flag of `cpcsv_tpu/cli/main_clevr.py`, the same defaults (the
-    config file clevr.yml) and parsing, and --device beside them."""
+    config file clevr.yml) and parsing, and --device and --backend (a multi-process run's
+    torch.distributed backend) beside them."""
     argv = ["--cfg", "x.yml", "--continue_ckpt", "auto", "--debug", "--eval_ssim", "1",
             "--manualSeed", "3", "--synthetic", "8", "--max_epoch", "2", "--gpu", "1",
             "--data_dir", "d", "--load_ckpt", "4"]
     ours, ref = vars(main_clevr.parse_args(argv)), vars(jax_main_clevr.parse_args(argv))
-    assert ours.pop("device") == "cuda"
+    assert ours.pop("device") == "cuda" and ours.pop("backend") is None
     assert ours == ref
     ours, ref = vars(main_clevr.parse_args([])), vars(jax_main_clevr.parse_args([]))
-    assert ours.pop("device") == "cuda"
+    assert ours.pop("device") == "cuda" and ours.pop("backend") is None
     assert os.path.basename(ours.pop("cfg_file")) == os.path.basename(ref.pop("cfg_file")) \
         == "clevr.yml"
     assert ours == ref

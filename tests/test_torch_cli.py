@@ -105,13 +105,14 @@ def test_flag_surface_matches_jax_cli():
             "--manualSeed", "3", "--synthetic", "8", "--max_epoch", "2", "--gpu", "1",
             "--data_dir", "d", "--load_ckpt", "4"]
     ours, ref = vars(main_pororo.parse_args(argv)), vars(jax_main_pororo.parse_args(argv))
-    assert ours.pop("device") == "cuda"
+    assert ours.pop("device") == "cuda" and ours.pop("backend") is None
     assert ours == ref
     ours, ref = vars(main_pororo.parse_args([])), vars(jax_main_pororo.parse_args([]))
-    assert ours.pop("device") == "cuda"
+    assert ours.pop("device") == "cuda" and ours.pop("backend") is None
     assert os.path.basename(ours.pop("cfg_file")) == os.path.basename(ref.pop("cfg_file"))
     assert ours == ref
     assert main_pororo.parse_args(["--device", "cpu"]).device == "cpu"
+    assert main_pororo.parse_args(["--backend", "gloo"]).backend == "gloo"
 
 
 def test_cli_run_writes_the_artifacts(straight):

@@ -76,11 +76,30 @@ def test_sample_videos_np_holds_float32(cascade_setup, monkeypatch):
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
 
 
-@pytest.mark.parametrize("key,value", [("MESH_SHAPE", "data:4")])
+@pytest.mark.parametrize("key,value", [("MESH_SHAPE", "data"), ("MESH_SHAPE", "data:0")])
 def test_generator_refuses_keys_it_does_not_honour(key, value):
+    """A malformed MESH_SHAPE raises wherever the config is read; a
+    well-formed one is honoured (`test_generator_and_infer_take_any_mesh`)."""
     cfg = config_from_file("final.yml").with_updates(GAN=TINY, **{key: value})
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(ValueError, match=key):
         generator_from_config(cfg)
+
+
+@pytest.mark.parametrize("mesh_shape", ["data:4", "data:4,model:2"])
+def test_generator_and_infer_take_any_mesh(mesh_shape):
+    """Serving and the walks accept any well-formed MESH_SHAPE and run on
+    their one device, as the JAX package's `make_eval_mesh` falls back to
+    the local devices; training refuses an axis other than `data`."""
+    from cpcsv_tpu_torch.models.factory import build_models
+
+    cfg = config_from_file("final.yml").with_updates(GAN=TINY, MESH_SHAPE=mesh_shape)
+    infer = Infer(cfg, device="cpu")
+    assert infer.net_g is not None
+    if "model" in mesh_shape:
+        with pytest.raises(NotImplementedError, match="data-parallel only"):
+            build_models(cfg)
+    else:
+        assert build_models(cfg)[0] is not None
 
 
 @functools.lru_cache(maxsize=None)

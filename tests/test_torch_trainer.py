@@ -100,13 +100,28 @@ def test_sample_grids_match_jax(tmp_path):
                                   jax_image.save_image_results(masks[::-1], masks, 5))
 
 
-@pytest.mark.parametrize("update,match", [
-    ({"MESH_SHAPE": "data:4"}, "DDP slice"),
+@pytest.mark.parametrize("update,error,match", [
+    ({"MESH_SHAPE": "data:4"}, ValueError, "spans 4 ranks but the run has 1 process"),
+    ({"MESH_SHAPE": "data:1,model:2"}, NotImplementedError, r"axes \['model'\]"),
+    ({"MESH_SHAPE": "data"}, ValueError, "NAME:SIZE"),
 ])
-def test_trainer_refuses_what_it_does_not_do(update, match, tmp_path, monkeypatch):
+def test_trainer_refuses_what_it_does_not_do(update, error, match, tmp_path, monkeypatch):
+    """MESH_SHAPE is honoured (`parallel/`): a mesh that does not span the
+    process group, one with an axis other than `data`, or a malformed one
+    raises; none turns into a one-process run."""
     cfg = tiny_cfg().with_updates(**update)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         GANTrainer(cfg, str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("mesh_shape", ["", "data:1"])
+def test_trainer_takes_a_mesh_of_one_process(mesh_shape, tmp_path):
+    """A one-process run with MESH_SHAPE "" or "data:1" builds its trainer as
+    before: rank 0 of 1, the metrics logger and the run directory."""
+    trainer = GANTrainer(tiny_cfg().with_updates(MESH_SHAPE=mesh_shape), str(tmp_path),
+                         device="cpu")
+    assert trainer.rank == 0 and (tmp_path / "Model").is_dir()
+    assert type(trainer.logger).__name__ == "MetricsLogger"
 
 
 def test_trainer_without_a_card_raises(monkeypatch, tmp_path):
