@@ -134,7 +134,7 @@ Phases, each of which exits non-zero on failure:
      epochs straight with CPCSV_PROFILE_DIR set (the trainer's trace of
      steps 2-5, the BN and DFN kernels in it), 1 plus an auto-resumed epoch
      whose state and metrics equal the straight run's bit for bit, and its
-     final snapshot walked with --eval_fid 1 and --eval_ssim 1;
+     final snapshot walked with --eval_ssim 1;
  29. data parallelism (`cpcsv_tpu_torch/parallel/`): two gloo ranks, each a
      process of this script sharing the card, at full final.yml width and
      IM_BATCH 90 / ST_BATCH 18 a rank (180 / 36 global): one D+G step from
@@ -144,14 +144,33 @@ Phases, each of which exits non-zero on failure:
      BN running statistics, SN u, Adam moments, gradients and metrics bit
      for bit; each rank's launches a step as phase 6's; its ms (gloo stages
      through the host: no speed figure);
- 30. one rank in an NCCL group of one: the collectives run, and its step
-     equals one process's bit for bit; then timed as phase 6's, the
-     difference the price of the collectives;
+ 30. one rank in an NCCL group of one, its data group the whole world
+     (the default group, as every mesh of one data group keeps): the
+     collectives run, and its step equals one process's bit for bit; then
+     timed as phase 6's, the difference the price of the collectives;
  31. the Pororo CLI with two gloo ranks (CPCSV_COORDINATOR,
      CPCSV_NUM_PROCESSES, CPCSV_PROCESS_ID, --backend gloo), final.yml
      --synthetic 36: 2 epochs straight, and 1 plus an auto-resumed one equal
      to them bit for bit; both ranks' metrics equal; rank 1 writes no file;
-     then --eval_fid 1 walks on rank 0 while rank 1 waits.
+     then --eval_fid 1 walks on rank 0 while rank 1 waits;
+ 32. a mesh with a model axis (MESH_SHAPE's other axes replicate): phase
+     29's two ranks, after their step, run the same global batch and noise
+     under data:1,model:2 at 90 / 18 a device, each rank the whole 180 / 36,
+     bit for bit phase 29's one process (metrics, state checksums,
+     gradients); then four gloo ranks under data:2,model:2 at 45 / 9 a
+     device, each the data shard of phase 29's rank, bit for bit phase 29's
+     two ranks; the replicas bit for bit, 95 / 64 BN launches a rank a step;
+ 33. (in phase 31's launch) the Pororo CLI on the two ranks under
+     data:1,model:2, one epoch, against a one-process CLI run at the doubled
+     batches in a process beside them: every step's metrics and the state
+     bit for bit; rank 1 writes no file;
+ 34. the paths the CPU tests held alone before: REMAT on cascade.yml (after
+     7) and at bfloat16 on throughput.yml (after 17, against phase 17's
+     yardstick), as phase 25 without its timing; ADAM_MU_DTYPE bfloat16 on
+     throughput.yml, one step of each and the Adam state's bytes; the CLEVR
+     CLI --data_dir on a CLEVR-layout tree written into a temporary
+     directory (CLEVR_DISK stories, the loaders' fixed id ranges cut to
+     them), one epoch, then --eval_fid 1 on its snapshot.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -250,6 +269,12 @@ GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
 # at DP_CONFIG's batches a rank; DP_SYNTHETIC stories give the CLI one step
 # an epoch at the global batch; a rank gets DP_TIMEOUT seconds
 DP_CONFIG, DP_WORLD, DP_SYNTHETIC, DP_TIMEOUT = "final.yml", 2, 36, 300
+# phases 32-33: the meshes with a model axis, on DP_WORLD and twice as many
+# ranks: the same global batch as phase 29's
+DP_MODEL, DP_FOUR = "data:1,model:2", "data:2,model:2"
+# phase 34: the CLEVR tree's train and test stories (4 story steps and one
+# image batch of clevr.yml an epoch; 2 test batches)
+CLEVR_DISK = (64, 32)
 EDGE_BN_SHAPES = ((1, 64, 4096), (90, 1, 1024), (7, 37, 5), (3, 5, 18), (2, 3, 2),
                   (90, 32768, 1), (18, 16384, 1), (90, 9, 1), (1, 1, 1))
 
@@ -1058,16 +1083,18 @@ def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True,
     the plain pairs' gradient spread ran 3.1e-3 to 1.27e-2, above 1e-2 in
     three, the kernels' 0.5-1.1 times it; 1.15e-5 against the zero
     gradients' 1e-5 in one). Returns the readings, the kernels' step among
-    them; `hold` False prints them and holds nothing. `noise` is the D and the
-    G step's draws (default: drawn from seed + 1); `yard` asks for the
-    yardstick whatever the config (phase 29 holds the data-parallel step to
-    it)."""
+    them (each step's metrics, gradients, BN statistics and state
+    checksums); `hold` False prints them and holds nothing. `noise` is the D
+    and the G step's draws (default: drawn from seed + 1); `yard` asks for
+    the yardstick whatever the config (phase 29 holds the data-parallel step
+    to it)."""
     import torch
 
     from cpcsv_tpu_torch.models import generator as generator_module
     from cpcsv_tpu_torch.ops import batchnorm
     from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
     from cpcsv_tpu_torch.ops.dynamic_filter import dynamic_filter_conv1d_plain
+    from cpcsv_tpu_torch.train.state import state_checksums
 
     state, cfg = run.state, run.cfg
     nets = state.nets()
@@ -1113,7 +1140,8 @@ def twin_step(run: types.SimpleNamespace, seed: int, hold: bool = True,
                 {(n, k): p.grad.detach().clone() for n, net in nets.items()
                  for k, p in net.named_parameters()},
                 {(n, k): b.detach().clone() for n, net in nets.items()
-                 for k, b in net.named_buffers() if k.endswith(("running_mean", "running_var"))})
+                 for k, b in net.named_buffers() if k.endswith(("running_mean", "running_var"))},
+                state_checksums(state).cpu().numpy())
 
     saved_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True  # cuDNN's backward would add its own spread
@@ -2647,10 +2675,11 @@ def save_twin(state):
             {n: copy.deepcopy(opt.state_dict()) for n, opt in state.opts.items()})
 
 
-def time_steps(run: types.SimpleNamespace, steps: int = WARMUP_STEPS + TIMED_STEPS):
+def time_steps(run: types.SimpleNamespace, steps: int = WARMUP_STEPS + TIMED_STEPS,
+               warmup: int = WARMUP_STEPS):
     """`steps` D+G steps of phase 6's record on its batches: (ms of the timed
-    ones, host clock between synchronises, peak device memory in bytes,
-    launches)."""
+    ones, those after the first `warmup`, host clock between synchronises,
+    peak device memory in bytes, launches)."""
     import torch
 
     rng = torch.Generator(device="cuda").manual_seed(1)
@@ -2665,24 +2694,28 @@ def time_steps(run: types.SimpleNamespace, steps: int = WARMUP_STEPS + TIMED_STE
         run.g_step(run.state, rng, run.st_batch, run.im_batch, LR_G)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-    return times[WARMUP_STEPS:], torch.cuda.max_memory_allocated(), read_counts()
+    return times[warmup:], torch.cuda.max_memory_allocated(), read_counts()
 
 
 def median(xs):
     return sorted(xs)[len(xs) // 2]
 
 
-def remat_phase(run: types.SimpleNamespace, card: str, seed: int) -> dict:
-    """Phase 25, on phase 6's final.yml record: REMAT, the generator's up
-    blocks recomputed in the G step's backward (`torch.utils.checkpoint`).
-    From one saved state and the same noise, one D+G step without and one
-    with it (cuDNN deterministic): the same metrics, gradients and BN
-    running statistics at the float32 tolerances, and the BN state
-    (running statistics, num_batches_tracked) bit for bit, the recompute
-    writing none; each BN wrapper at each shape of the REMAT step one kernel
-    node in a CUDA graph; then 2 warm-up and 5 timed D+G steps of each, ms a
-    step and peak memory, the launches against the count from the code.
-    Returns {"counts": launches, "per_step": launches a step with REMAT}."""
+def remat_phase(run: types.SimpleNamespace, card: str, seed: int, tols=None,
+                timed: bool = True) -> dict:
+    """Phase 25, on phase 6's final.yml record (phase 34: on cascade.yml's,
+    and on throughput.yml's at bfloat16): REMAT, the generator's up blocks
+    recomputed in the G step's backward (`torch.utils.checkpoint`). From one
+    saved state and the same noise, one D+G step without and one with it
+    (cuDNN deterministic): the same metrics and gradients at the float32
+    tolerances, or with `tols` at bfloat16 within phase 17's tolerances
+    (`twin_step`'s, three times the reordering yardstick) by `step_spread`,
+    and the BN state (running statistics, num_batches_tracked) bit for bit,
+    the recompute writing none; each BN wrapper at each shape of the REMAT
+    step one kernel node in a CUDA graph; then, if `timed`, 2 warm-up and 5
+    timed D+G steps of each, ms a step and peak memory, the launches against
+    the count from the code. Returns {"counts": launches, "per_step":
+    launches a step with REMAT}."""
     import torch
 
     state, cfg = run.state, run.cfg
@@ -2717,34 +2750,51 @@ def remat_phase(run: types.SimpleNamespace, card: str, seed: int) -> dict:
     finally:
         torch.backends.cudnn.deterministic = saved_det
         state.gen.remat = False
-    metric_err = max(abs(remat[0][k] - plain[0][k]) / (abs(plain[0][k]) + 1e-3)
-                     for k in plain[0])
-    grad_err = max(float((remat[1][k] - g).norm() / (g.norm() + 1e-12)) for k, g in plain[1].items()
-                   if float(g.norm()) > 0)
+    if tols is None:  # float32: the fixed tolerances
+        metric_err = max(abs(remat[0][k] - plain[0][k]) / (abs(plain[0][k]) + 1e-3)
+                         for k in plain[0])
+        grad_err = max(float((remat[1][k] - g).norm() / (g.norm() + 1e-12))
+                       for k, g in plain[1].items() if float(g.norm()) > 0)
+        check(metric_err <= 1e-4 and grad_err <= 1e-2,
+              f"{run.name} REMAT vs none: metric error {metric_err:.3e} (tol 1e-4), gradient "
+              f"{grad_err:.3e} (tol 1e-2)")
+        held = (f"largest metric error {metric_err:.3e} (tol 1e-4), gradient {grad_err:.3e} "
+                "(tol 1e-2)")
+    else:  # bfloat16: phase 17's tolerances, the spreads of `step_spread`
+        def statistics(reading):
+            return {k: v for k, v in reading[2].items() if not k[1].endswith("tracked")}
+
+        errs, _ = step_spread((remat[0], remat[1], statistics(remat)),
+                              (plain[0], plain[1], statistics(plain)))
+        check(all(e <= t for e, t in zip(errs, tols)),
+              f"{run.name} REMAT vs none: spread {errs} above phase 17's tolerances {tols}")
+        held = ("spread (metric, accuracy, gradient, zero gradient, BN statistics) "
+                + ", ".join(f"{e:.3e} (tol {t:.3e})" for e, t in zip(errs, tols))
+                + ", against phase 17's yardstick tolerances")
     bn_equal = all(torch.equal(remat[2][k], v) for k, v in plain[2].items())
     bitwise = (remat[0] == plain[0] and all(torch.equal(remat[1][k], v)
                                             for k, v in plain[1].items()))
-    check(metric_err <= 1e-4 and grad_err <= 1e-2,
-          f"REMAT vs none: metric error {metric_err:.3e} (tol 1e-4), gradient {grad_err:.3e} "
-          "(tol 1e-2)")
-    check(bn_equal, "REMAT: the BN running statistics or num_batches_tracked differ from the "
-                    "step without it: the recompute wrote BN state")
+    check(bn_equal, f"{run.name} REMAT: the BN running statistics or num_batches_tracked differ "
+                    "from the step without it: the recompute wrote BN state")
     check(plain[3] == run.expected and remat[3] == expected,
-          f"launches of one step: without REMAT {plain[3]}, with {remat[3]}, expected {expected}")
+          f"{run.name} launches of one step: without REMAT {plain[3]}, with {remat[3]}, "
+          f"expected {expected}")
     step_calls = {k: dict(sorted(c.items())) for k, c in remat[4].items()}
     new_shapes = {k: set(c) - set(run.step_calls[k]) for k, c in step_calls.items()}
     check(not any(new_shapes.values()), f"REMAT gave the BN kernels new shapes {new_shapes}")
-    nodes = bn_graph_nodes(step_calls, torch.float32)
+    nodes = bn_graph_nodes(step_calls, torch.bfloat16 if tols is not None else torch.float32)
     check(all(n == {GRAPH_KERNEL_NODE: 1} for n in nodes.values()),
           f"REMAT: a BN call's CUDA graph holds other than one kernel node: {nodes}")
     print(f"{run.name} REMAT vs none, one D+G step from one state and noise, cuDNN deterministic "
-          f"[{card}]: largest metric error {metric_err:.3e} (tol 1e-4), gradient "
-          f"{grad_err:.3e} (tol 1e-2), {'bitwise' if bitwise else 'not bitwise'}; BN running "
+          f"[{card}]: {held}, {'bitwise' if bitwise else 'not bitwise'}; BN running "
           f"statistics and num_batches_tracked bit for bit: {bn_equal}; launches a step "
           f"{plain[3]} without, {remat[3]} with (from the code: {expected}); bn_stats calls by "
           f"shape with REMAT: " + ", ".join(f"{sh} x{n}" for sh, n in step_calls["bn_stats"].items())
           + f"; one kernel node a call at each of {len(nodes)} (kernel, shape)s")
     out = {"counts": {k: plain[3][k] + remat[3][k] for k in plain[3]}, "per_step": expected}
+    restore_twin(state, saved)
+    if not timed:
+        return out
     for remat_on in (False, True):
         restore_twin(state, saved)
         state.gen.remat = remat_on
@@ -2768,14 +2818,17 @@ def remat_phase(run: types.SimpleNamespace, card: str, seed: int) -> dict:
     return out
 
 
-def adam_mu_phase(run: types.SimpleNamespace, card: str, root: Path) -> dict:
-    """Phase 26, on phase 6's final.yml record: ADAM_MU_DTYPE bfloat16, the
-    four Adams with their first moments in bfloat16, loaded from the float32
-    states (cast on load). The optimizer state's bytes and 2 warm-up and 5
-    timed D+G steps of each, ms a step; finite metrics, bfloat16 first and
-    float32 second moments after the steps; a save at bfloat16 through
-    `CheckpointManager` restored into float32 optimizers, each first moment
-    cast back to float32 with the same values. Returns the launches."""
+def adam_mu_phase(run: types.SimpleNamespace, card: str, root: Path, timed: bool = True) -> dict:
+    """Phase 26, on phase 6's final.yml record (phase 34: on throughput.yml's
+    at bfloat16, `timed` False): ADAM_MU_DTYPE bfloat16, the four Adams with
+    their first moments in bfloat16, loaded from the float32 states (cast on
+    load). The optimizer state's bytes and 2 warm-up and 5 timed D+G steps
+    of each (unless `timed`: one step each, the first after the optimizers
+    are made), ms a step; finite
+    parameters, bfloat16 first and float32 second moments after the steps;
+    if `timed`, a save at bfloat16 through `CheckpointManager` restored into
+    float32 optimizers, each first moment cast back to float32 with the same
+    values. Returns the launches."""
     import torch
 
     from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
@@ -2797,7 +2850,7 @@ def adam_mu_phase(run: types.SimpleNamespace, card: str, root: Path) -> dict:
         state.opts = opts
         restore_twin(state, saved)
         torch.cuda.empty_cache()
-        times, peak, counts = time_steps(run)
+        times, peak, counts = time_steps(run) if timed else time_steps(run, 1, 0)
         counts_all.update(counts)
         moments = [(st["exp_avg"].dtype, st["exp_avg_sq"].dtype) for opt in opts.values()
                    for st in opt.state.values()]
@@ -2806,10 +2859,18 @@ def adam_mu_phase(run: types.SimpleNamespace, card: str, root: Path) -> dict:
         check(all(bool(torch.isfinite(p).all()) for net in state.nets().values()
                   for p in net.parameters()), f"ADAM_MU_DTYPE {mu}: a parameter is not finite")
         out[mu] = (median(times), state_bytes(opts), peak)
-        print(f"{run.name} ADAM_MU_DTYPE {mu} [{card}]: D+G step {median(times):.2f} ms median of "
-              f"{TIMED_STEPS} (min {min(times):.2f}, max {max(times):.2f}); Adam state "
+        timing = (f"D+G step {median(times):.2f} ms median of {TIMED_STEPS} (min "
+                  f"{min(times):.2f}, max {max(times):.2f})" if timed else
+                  f"one D+G step {times[0]:.2f} ms (the first with these optimizers)")
+        print(f"{run.name} ADAM_MU_DTYPE {mu} [{card}]: {timing}; Adam state "
               f"{state_bytes(opts) / 2**30:.3f} GiB (first and second moments of the 4 nets); "
-              f"peak device memory {peak / 2**30:.3f} GiB")
+              f"peak device memory {peak / 2**30:.3f} GiB; launches {counts}")
+    if not timed:
+        print(f"{run.name} ADAM_MU_DTYPE bfloat16 against float32 [{card}]: "
+              f"{out['bfloat16'][1] / out['float32'][1]:.3f}x the Adam state bytes")
+        state.opts = {n: make_adam(net.parameters(), "float32") for n, net in state.nets().items()}
+        restore_twin(state, saved)
+        return dict(counts_all)
     ckpt = CheckpointManager(str(root / "adam_mu"))
     t = time.perf_counter()
     ckpt.save(state, 0)
@@ -2929,8 +2990,8 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
     one file, steps 2-5 of epoch 0, the BN and DFN kernels by name, as many
     as four steps launch (a lost event lowers the count, none raises it).
     Then the resumed run's final snapshot (the others removed) walked with
-    --eval_fid 1 and --eval_ssim 1 at 4 frames a story, random-init
-    extractors. Returns the launches."""
+    --eval_ssim 1 at 4 frames a story (phase 34 walks a CLEVR snapshot with
+    --eval_fid). Returns the launches."""
     import numpy as np
     import torch
 
@@ -3045,54 +3106,146 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
         with warnings.catch_warnings(), contextlib.redirect_stdout(printed):
             warnings.simplefilter("ignore")
             t = time.perf_counter()
-            fid_rows = main_clevr.main(args + ["--eval_fid", "1"])
-            fid_s = time.perf_counter() - t
-            t = time.perf_counter()
             ssim_rows = main_clevr.main(args + ["--eval_ssim", "1"])
             ssim_s = time.perf_counter() - t
         walk_counts = read_counts()
     finally:
         os.chdir(cwd)
     n_test = max(CLEVR_SYNTHETIC // 4, cfg.TRAIN.ST_BATCH_SIZE)  # the CLI's test set
-    check([r["epoch"] for r in fid_rows] == [2] and [r["epoch"] for r in ssim_rows] == [2]
-          and all(np.isfinite([r["fid"], r["vfid"]]).all() and r["fid_random_init"]
-                  and r["fsd_random_init"] for r in fid_rows)
-          and all(np.isfinite(r["ssim"]) for r in ssim_rows),
-          f"CLEVR walks: FID rows {fid_rows}, SSIM rows {ssim_rows}")
-    # the FID walk generates the loader's batches, SSIM the dataset in chunks of 64
-    walk_expected = {"dfn_forward": n_test // cfg.TRAIN.ST_BATCH_SIZE + -(-n_test // 64),
-                     "dfn_backward": 0,
+    check([r["epoch"] for r in ssim_rows] == [2] and all(np.isfinite(r["ssim"]) for r in ssim_rows),
+          f"CLEVR walk: SSIM rows {ssim_rows}")
+    # the SSIM walk generates the dataset in chunks of 64
+    walk_expected = {"dfn_forward": -(-n_test // 64), "dfn_backward": 0,
                      "bn_stats": 0, "bn_grad_reduce": 0}
     check(walk_counts == walk_expected,
-          f"CLEVR walks: launches {walk_counts}, expected {walk_expected}")
-    print(f"CLEVR walks of epoch 2's snapshot at {cfg.VIDEO_LEN} frames a story, {n_test} "
-          f"test stories [{card}]: --eval_fid fid {fid_rows[0]['fid']!r} fsd "
-          f"{fid_rows[0]['vfid']!r} (random-init extractors) in {fid_s:.2f} s; --eval_ssim "
-          f"{ssim_rows[0]['ssim']!r} in {ssim_s:.2f} s; launches {walk_counts}")
+          f"CLEVR walk: launches {walk_counts}, expected {walk_expected}")
+    print(f"CLEVR walk of epoch 2's snapshot at {cfg.VIDEO_LEN} frames a story, {n_test} "
+          f"test stories [{card}]: --eval_ssim {ssim_rows[0]['ssim']!r} in {ssim_s:.2f} s; "
+          f"launches {walk_counts}")
     for label in runs:
         shutil.rmtree(root / f"clevr_cli_{label}")
     return {k: counts[k] + walk_counts[k] for k in counts}
 
 
+def write_clevr_tree(root: Path, train: int, test: int, seed: int) -> Path:
+    """A CLEVR-layout tree (`data/clevr.py`): `train` stories from id 1 and
+    `test` from id 10001, 4 frames each (160 x 120 PNGs and L masks, half
+    CLEVR's 320 x 240 a side) and their 18-d attribute codes, drawn from
+    `seed`."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    root.mkdir()
+    codes = {}
+    for sid in [*range(1, train + 1), *range(10001, 10001 + test)]:
+        for t in range(1, 5):
+            Image.fromarray(rng.integers(0, 255, (120, 160, 3), dtype=np.uint8)).save(
+                root / ("CLEVR_new_%06d_%d.png" % (sid, t)))
+            Image.fromarray(rng.integers(0, 255, (120, 160), dtype=np.uint8), "L").save(
+                root / ("CLEVR_new_%06d_%d_mask.png" % (sid, t)))
+            codes["%d_%d" % (sid, t)] = (rng.random(18) < 0.3).astype(np.float32)
+    np.save(root / "CLEVR_dict.npy", codes)
+    return root
+
+
+def clevr_disk(card: str, per_step: dict[str, int], seed: int, root: Path) -> dict[str, int]:
+    """Phase 34, the CLEVR loaders from disk: `cli.main_clevr --data_dir` at
+    full clevr.yml width on a tree of CLEVR_DISK stories written here, the
+    loaders' fixed id ranges (train 1-10000, test 10001-13000) cut to the
+    tree's, for one epoch (its final save alone): the launches against the
+    steps and the sample grid, finite metrics under the v1 tags, the
+    snapshot; then --eval_fid 1 on that snapshot, random-init extractors.
+    Returns the launches."""
+    import numpy as np
+
+    from cpcsv_tpu_torch.cli import main_clevr
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data import clevr as clevr_data
+
+    train, test = CLEVR_DISK
+    tree = write_clevr_tree(root / "clevr_tree", train, test, seed)
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / CLEVR_CONFIG)
+    cfg = config_from_file(cfg_file)
+    args = ["--cfg", cfg_file, "--data_dir", str(tree), "--manualSeed", str(seed)]
+    work = root / "clevr_disk"
+    work.mkdir()
+    printed, cwd, seconds = io.StringIO(), os.getcwd(), {}
+    ranges = {"train": (1, 1 + train), "test": (10001, 10001 + test)}
+    try:
+        os.chdir(work)
+        with mock.patch.dict(clevr_data.ID_RANGES, ranges), contextlib.redirect_stdout(printed):
+            reset_counts()  # the main path: the CLI's epoch
+            t = time.perf_counter()
+            with final_saves_only():
+                main_clevr.main(args + ["--max_epoch", "1"])
+            seconds["epoch"] = time.perf_counter() - t
+            counts = read_counts()
+            reset_counts()  # the main path: the walk
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t = time.perf_counter()
+                fid_rows = main_clevr.main(args + ["--eval_fid", "1"])
+                seconds["walk"] = time.perf_counter() - t
+            walk_counts = read_counts()
+    finally:
+        os.chdir(cwd)
+    lines = [line for line in printed.getvalue().splitlines() if line.startswith("----[")]
+    print(f"{CLEVR_CONFIG} --data_dir CLI output [{card}]:\n  " + "\n  ".join(lines))
+    run_dir = work / "output" / "torch" / cfg.CONFIG_NAME
+    steps = train // cfg.TRAIN.ST_BATCH_SIZE
+    expected = {k: v * steps for k, v in per_step.items()}
+    expected["dfn_forward"] += 1  # the epoch's sample grid
+    check(counts == expected, f"CLEVR --data_dir: launches {counts}, expected {expected}")
+    records = [json.loads(line) for line in (run_dir / "log" / "metrics.jsonl").open()]
+    tags = {r["tag"] for r in records}
+    want = set(CASCADE_TAGS) - set(CASCADE_G_TAGS)
+    check(tags == want and all(np.isfinite(r["value"]) for r in records)
+          and sum(r["tag"] == "st_D/loss" for r in records) == steps,
+          f"CLEVR --data_dir: tags missing {want - tags}, extra {tags - want}, or a non-finite "
+          f"value, or other than {steps} steps logged")
+    check((run_dir / "Model" / "netG_epoch_1.pth").is_file(),
+          "CLEVR --data_dir: no final snapshot")
+    n_batches = test // cfg.TRAIN.ST_BATCH_SIZE
+    check([r["epoch"] for r in fid_rows] == [1]
+          and all(np.isfinite([r["fid"], r["vfid"]]).all() and r["fid_random_init"]
+                  and r["fsd_random_init"] for r in fid_rows)
+          and walk_counts == {"dfn_forward": n_batches, "dfn_backward": 0, "bn_stats": 0,
+                              "bn_grad_reduce": 0},
+          f"CLEVR --data_dir --eval_fid: rows {fid_rows}, launches {walk_counts}")
+    fps = next(r["value"] for r in records if r["tag"] == "perf/frames_per_sec")
+    print(f"CLEVR --data_dir [{card}]: {train} train and {test} test stories of 4 160 x 120 "
+          f"frames on disk, one epoch of {steps} D+G steps at {cfg.TRAIN.IM_BATCH_SIZE} / "
+          f"{cfg.TRAIN.ST_BATCH_SIZE}: {fps:.1f} frames/s (perf/frames_per_sec), "
+          f"{seconds['epoch']:.2f} s with the state's init and final save; launches {counts}; "
+          f"--eval_fid of its snapshot over {n_batches} test batches: fid "
+          f"{fid_rows[0]['fid']!r} fsd {fid_rows[0]['vfid']!r} (random-init extractors) in "
+          f"{seconds['walk']:.2f} s, launches {walk_counts}")
+    shutil.rmtree(work)
+    shutil.rmtree(tree)
+    return {k: counts[k] + walk_counts[k] for k in counts}
+
+
 # ------------------------------------------------------ 29-31: data parallel
-def launch_dp(mode: str, job: dict, root: Path, world: int, env=None):
-    """Start `world` ranks of this script (`--dp-worker mode`), each in its own
-    process on the one card, the job handed over in a file; returns a function
-    that waits for them (DP_TIMEOUT) and returns each rank's result. A rank
-    that fails fails the phase, its output's tail printed."""
+def launch_dp(tag: str, job: dict, root: Path, world: int, env=None, mode: str = None):
+    """Start `world` ranks of this script (`--dp-worker mode`, `tag` unless
+    named), each in its own process on the one card, the job handed over in
+    a file named by `tag`; returns a function that waits for them
+    (DP_TIMEOUT) and returns each rank's result. A rank that fails fails the
+    phase, its output's tail printed."""
     import atexit
 
     import torch
 
-    job_path = root / f"{mode}_job.pt"
+    job_path = root / f"{tag}_job.pt"
     torch.save(job, job_path)
     procs, outs = [], []
     atexit.register(kill_all, procs)  # a phase that fails while the ranks run stops them too
     for rank in range(world):
-        out = root / f"{mode}_rank{rank}.pt"
-        cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker", mode, "--dp-rank",
-               str(rank), "--dp-world", str(world), "--dp-init",
-               f"file://{root / f'{mode}_rendezvous'}", "--dp-job", str(job_path),
+        out = root / f"{tag}_rank{rank}.pt"
+        cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--dp-worker", mode or tag,
+               "--dp-rank", str(rank), "--dp-world", str(world), "--dp-init",
+               f"file://{root / f'{tag}_rendezvous'}", "--dp-job", str(job_path),
                "--dp-out", str(out)]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True, env={**os.environ, **(env(rank) if env else {})}))
@@ -3106,8 +3259,8 @@ def launch_dp(mode: str, job: dict, root: Path, world: int, env=None):
             kill_all(procs)  # no rank outlives its phase
         for rank, (p, log) in enumerate(zip(procs, logs)):
             if p.returncode != 0:
-                print(f"{mode} rank {rank} exited {p.returncode}:\n{log[-6000:]}", flush=True)
-        check(all(p.returncode == 0 for p in procs), f"{mode}: a rank failed")
+                print(f"{tag} rank {rank} exited {p.returncode}:\n{log[-6000:]}", flush=True)
+        check(all(p.returncode == 0 for p in procs), f"{tag}: a rank failed")
         return [torch.load(o, weights_only=False) for o in outs]
 
     return wait
@@ -3131,11 +3284,14 @@ def grad_bit_sums(state):
 
 
 def dp_worker(args) -> int:
-    """One rank of phases 29-31 (a process of its own, `launch_dp`):
-      steps: phase 29's D+G step on this rank's rows in a gloo group;
+    """One rank of phases 29-33 (a process of its own, `launch_dp`):
+      steps: phase 29's D+G step on this rank's data shard in a gloo group
+             under the job's MESH_SHAPE ("" or phase 32's DP_FOUR), and with
+             the job's "model" (phase 32's DP_MODEL) the same step again from
+             the same state, each rank the whole global batch;
       nccl:  phase 30's step in an NCCL group of one rank, then timed steps;
-      cli:   phase 31's CLI runs, the group formed by the CLI from the
-             CPCSV_* variables the parent set.
+      cli:   phase 31's and 33's CLI runs, the group formed by the CLI from
+             the CPCSV_* variables the parent set (none: one process).
     Writes its readings to --dp-out."""
     import torch
     import torch.distributed as dist
@@ -3143,6 +3299,7 @@ def dp_worker(args) -> int:
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.data.synthetic import synthetic_batches
     from cpcsv_tpu_torch.parallel import distributed
+    from cpcsv_tpu_torch.parallel.mesh import mesh_layout
     from cpcsv_tpu_torch.train.state import create_train_state, state_checksums
     from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
 
@@ -3150,40 +3307,59 @@ def dp_worker(args) -> int:
     rank, world = args.dp_rank, args.dp_world
     out = {}
     torch.backends.cudnn.deterministic = True
-    if args.dp_worker in ("steps", "nccl"):
+    cfg = config_from_file(job["config"]).with_updates(
+        MESH_SHAPE=job.get("mesh", ""), **({"TRAIN": job["train"]} if "train" in job else {}))
+    if args.dp_worker in ("steps", "nccl"):  # the steps form their mesh's data groups
         distributed.initialize_distributed(args.dp_init, world, rank, backend=job["backend"])
     collectives = collections.Counter()
     real_all_reduce = dist.all_reduce
+
+    def data_group_ranks():
+        """The ranks of this rank's data group (None: the default group, every rank)."""
+        group = distributed.data_group()
+        return list(range(world)) if group is None else dist.get_process_group_ranks(group)
 
     def counted(tensor, *a, **k):
         collectives["all_reduce"] += 1
         collectives["bytes"] += tensor.numel() * tensor.element_size()
         return real_all_reduce(tensor, *a, **k)
 
-    cfg = config_from_file(job["config"])
-    if args.dp_worker == "steps":
-        state = create_train_state(cfg, job["seed"])  # checks the replicas against rank 0's
-        out["init"] = state_checksums(state).cpu().numpy()
-        n_st, n_im = len(job["st"]["images"]) // world, len(job["im"]["images"]) // world
-        st = batch_to_device({k: v[rank * n_st:(rank + 1) * n_st] for k, v in job["st"].items()},
+    def step_on(state, step_cfg, rows):
+        """One D+G step of `step_cfg` on `rows` of the job's global batches,
+        with the job's noise: its readings, the launches counted."""
+        st = batch_to_device({k: v[rows(len(v))] for k, v in job["st"].items()},
                              torch.device("cuda"))
-        im = batch_to_device({k: v[rank * n_im:(rank + 1) * n_im] for k, v in job["im"].items()},
+        im = batch_to_device({k: v[rows(len(v))] for k, v in job["im"].items()},
                              torch.device("cuda"))
         noise = [tuple(tuple(t.cuda() for t in draws) for draws in pair) for pair in job["noise"]]
-        d_step, g_step = make_train_steps(cfg)
-        out["expected"] = per_step_launches(state)
+        d_step, g_step = make_train_steps(step_cfg)
         torch.cuda.synchronize()
         reset_counts()  # the main path: this rank's step
+        collectives.clear()
         t = time.perf_counter()
         with mock.patch.object(dist, "all_reduce", counted):
             _, dm = d_step(state, noise[0], st, im, LR_D)
             _, gm = g_step(state, noise[1], st, im, LR_G)
         torch.cuda.synchronize()
-        out["ms"] = (time.perf_counter() - t) * 1e3
-        out["counts"] = read_counts()
-        out["metrics"] = {k: float(v) for k, v in {**dm, **gm}.items()}
-        out["sums"] = state_checksums(state).cpu().numpy()
-        out["grad_bits"] = grad_bit_sums(state).cpu().numpy()
+        return {"ms": (time.perf_counter() - t) * 1e3, "counts": read_counts(),
+                "metrics": {k: float(v) for k, v in {**dm, **gm}.items()},
+                "sums": state_checksums(state).cpu().numpy(),
+                "grad_bits": grad_bit_sums(state).cpu().numpy(),
+                "collectives": dict(collectives),
+                "data_group": data_group_ranks()}
+
+    if args.dp_worker == "steps":
+        state = create_train_state(cfg, job["seed"])  # checks the replicas against rank 0's
+        out["init"] = state_checksums(state).cpu().numpy()
+        out["expected"] = per_step_launches(state)
+        saved = save_twin(state) if job.get("model") else None
+        layout = mesh_layout(cfg.MESH_SHAPE, rank, world)
+
+        def shard(n):
+            local = n // layout.data_count
+            return slice(layout.data_index * local, (layout.data_index + 1) * local)
+
+        out.update(step_on(state, cfg, shard))
         if rank == 0:
             nets = state.nets()
             out["grads"] = {(n, k): p.grad.cpu() for n, net in nets.items()
@@ -3191,6 +3367,10 @@ def dp_worker(args) -> int:
             out["stats"] = {(n, k): b.cpu() for n, net in nets.items()
                             for k, b in net.named_buffers()
                             if k.endswith(("running_mean", "running_var"))}
+        if saved is not None:  # phase 32: a model axis, every rank the whole batch
+            restore_twin(state, saved)
+            out["model"] = step_on(state, cfg.with_updates(MESH_SHAPE=job["model"]),
+                                   lambda n: slice(0, n))
     elif args.dp_worker == "nccl":
         state = create_train_state(cfg, job["seed"])
         st_host, im_host = synthetic_batches(cfg, cfg.TRAIN.ST_BATCH_SIZE,
@@ -3203,6 +3383,7 @@ def dp_worker(args) -> int:
         with mock.patch.object(dist, "all_reduce", counted):
             _, dm = d_step(state, rng, st, im, LR_D)
             _, gm = g_step(state, rng, st, im, LR_G)
+        out["data_group"] = data_group_ranks()
         out["metrics"] = {k: float(v) for k, v in {**dm, **gm}.items()}
         out["sums"] = state_checksums(state).cpu().numpy()
         out["grad_bits"] = grad_bit_sums(state).cpu().numpy()
@@ -3273,14 +3454,13 @@ def dp_worker(args) -> int:
                     out[label]["returned"] = returned
         out["counts"] = read_counts()
         out["written"] = written
-        out["collective_backend"] = dist.get_backend()
-    out["collectives"] = dict(collectives)
+    out.setdefault("collectives", dict(collectives))
     torch.save(out, args.dp_out)
     distributed.destroy_distributed()
     return 0
 
 
-def dp_step_phase(card: str, seed: int, root: Path) -> dict[str, int]:
+def dp_step_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict]:
     """Phase 29: two gloo ranks sharing the card at full DP_CONFIG width, IM /
     ST the config's a rank (global twice that), one D+G step from one state
     (each rank builds it from the seed, and the group checks) and one global
@@ -3290,7 +3470,10 @@ def dp_step_phase(card: str, seed: int, root: Path) -> dict[str, int]:
     and gradients within the float32 tolerances or three times the
     yardstick. Both ranks' parameters, BN running statistics, SN u and Adam
     moments, their gradients and metrics, bit for bit; each rank's BN
-    launches a step as phase 6's. Returns both ranks' launches."""
+    launches a step as phase 6's. The ranks then run phase 32's DP_MODEL
+    step. Returns both ranks' launches of phase 29's step, and for phase 32
+    the job, the ranks' readings and the one-process step's (metrics, state
+    checksums, gradients' bit sums)."""
     import torch
 
     from cpcsv_tpu_torch.config import config_from_file
@@ -3309,7 +3492,7 @@ def dp_step_phase(card: str, seed: int, root: Path) -> dict[str, int]:
     job = {"config": DP_CONFIG, "seed": seed, "backend": "gloo", "st": st_host, "im": im_host,
            "noise": [tuple(tuple(t.cpu() for t in draws) for draws in pair) for pair in noise]}
     t = time.perf_counter()
-    wait = launch_dp("steps", job, root, DP_WORLD)
+    wait = launch_dp("steps", {**job, "model": DP_MODEL}, root, DP_WORLD)
     # meanwhile, the one-process reference on the card
     run = types.SimpleNamespace(
         name=f"{DP_CONFIG} at {b_im} / {b_st} in one process", cfg=cfg, state=state,
@@ -3348,14 +3531,89 @@ def dp_step_phase(card: str, seed: int, root: Path) -> dict[str, int]:
           f"{r0['expected']}); all-reduces a rank a step {r0['collectives']['all_reduce']} "
           f"({r0['collectives']['bytes'] / 2**30:.3f} GiB)")
     print(f"  D+G step ms a rank [{card}]: " + ", ".join(f"{r['ms']:.2f}" for r in ranks)
-          + f" (the phase {seconds:.1f} s): gloo stages every all-reduce through the host and "
-          "the two ranks share one card, so this is no speed figure")
-    return {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+          + f" (the phase {seconds:.1f} s, phase 32's first step included): gloo stages every "
+          "all-reduce through the host and the two ranks share one card, so this is no speed "
+          "figure")
+    kern = ref["kernels"]
+    one = (kern[0], kern[3], torch.stack([g.contiguous().view(torch.int32).sum(dtype=torch.int64)
+                                          for g in kern[1].values()]).cpu().numpy())
+    return ({k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]},
+            {"job": job, "ranks": ranks, "one": one})
+
+
+def model_axis_phase(card: str, root: Path, p29: dict) -> dict[str, int]:
+    """Phase 32, a mesh with a model axis: (a) phase 29's two ranks' step
+    under DP_MODEL, each rank the whole global batch in a data group of
+    itself, against phase 29's one process on that batch; (b) 2 × DP_WORLD
+    gloo ranks under DP_FOUR at half the config's batches a device, rank r
+    on data shard r // 2 in the data group {r % 2, r % 2 + 2}, against phase
+    29's rank r // 2. Each bit for bit: metrics, state checksums,
+    gradients' bit sums (cuDNN deterministic; a data group of one rank adds
+    nothing, and a sum of two operands does not depend on their order); each
+    rank's BN launches a step as phase 6's. Returns the launches of both."""
+    import dataclasses
+
+    from cpcsv_tpu_torch.config import config_from_file
+
+    def same(r, ref) -> bool:
+        return (r["metrics"] == ref[0] and (r["sums"] == ref[1]).all()
+                and (r["grad_bits"] == ref[2]).all())
+
+    ranks, one = p29["ranks"], p29["one"]
+    for rank, r in enumerate(ranks):
+        m = r["model"]
+        check(same(m, one), f"phase 32 rank {rank}: the {DP_MODEL} step differs from one "
+                            "process's on the same global batch")
+        check(m["data_group"] == [rank], f"phase 32 rank {rank}: data group {m['data_group']}")
+        got = {k: m["counts"][k] for k in r["expected"]}
+        check(got == r["expected"], f"phase 32 rank {rank}: launches {got}, a step "
+                                    f"{r['expected']}")
+    cfg = config_from_file(DP_CONFIG)
+    print(f"phase 32 [{card}]: {DP_WORLD} gloo ranks under MESH_SHAPE {DP_MODEL} at "
+          f"{cfg.TRAIN.IM_BATCH_SIZE} / {cfg.TRAIN.ST_BATCH_SIZE} a device, each rank the "
+          f"{cfg.TRAIN.IM_BATCH_SIZE * DP_WORLD} / {cfg.TRAIN.ST_BATCH_SIZE * DP_WORLD} global "
+          f"batch, one D+G step bit for bit phase 29's one process ({len(one[0])} metrics, "
+          f"{len(one[1])} state tensors, {len(one[2])} gradients) on both ranks; data groups "
+          f"{[r['model']['data_group'] for r in ranks]}; launches a rank "
+          f"{ranks[0]['model']['counts']}; {ranks[0]['model']['collectives']['all_reduce']} "
+          f"all-reduces a rank ({ranks[0]['model']['collectives']['bytes'] / 2**30:.3f} GiB); "
+          "ms a rank " + ", ".join(f"{r['model']['ms']:.2f}" for r in ranks))
+    half = dataclasses.replace(cfg.TRAIN, IM_BATCH_SIZE=cfg.TRAIN.IM_BATCH_SIZE // 2,
+                               ST_BATCH_SIZE=cfg.TRAIN.ST_BATCH_SIZE // 2)
+    world = 2 * DP_WORLD
+    t = time.perf_counter()
+    four = launch_dp("four", {**p29["job"], "mesh": DP_FOUR, "train": half}, root, world,
+                     mode="steps")()
+    seconds = time.perf_counter() - t
+    for rank, r in enumerate(four):
+        ref = ranks[rank // 2]
+        check(same(r, (ref["metrics"], ref["sums"], ref["grad_bits"])),
+              f"phase 32 rank {rank} of {world} under {DP_FOUR}: its step differs from phase "
+              f"29's rank {rank // 2}")
+        check(r["data_group"] == [rank % 2, rank % 2 + 2],
+              f"phase 32 rank {rank} of {world}: data group {r['data_group']}")
+        got = {k: r["counts"][k] for k in r["expected"]}
+        check(got == r["expected"], f"phase 32 rank {rank} of {world}: launches {got}, a step "
+                                    f"{r['expected']}")
+    print(f"phase 32 [{card}]: {world} gloo ranks under MESH_SHAPE {DP_FOUR} at "
+          f"{half.IM_BATCH_SIZE} / {half.ST_BATCH_SIZE} a device (the same global batch), rank r "
+          f"the data shard of phase 29's rank r // 2: one D+G step bit for bit that rank's on "
+          f"all {world}; data groups {[r['data_group'] for r in four]}; launches a rank "
+          f"{four[0]['counts']}; {four[0]['collectives']['all_reduce']} all-reduces a rank "
+          f"({four[0]['collectives']['bytes'] / 2**30:.3f} GiB); ms a rank "
+          + ", ".join(f"{r['ms']:.2f}" for r in four) + f" (the launch {seconds:.1f} s; no speed "
+          "figure: the ranks share one card and gloo stages through the host)")
+    counts = {k: sum(r["model"]["counts"][k] for r in ranks) for k in ranks[0]["model"]["counts"]}
+    for r in four:
+        for k in counts:
+            counts[k] += r["counts"][k]
+    return counts
 
 
 def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> dict[str, int]:
-    """Phase 30: one rank in an NCCL group of one (`initialize_distributed`),
-    so every collective runs: its D+G step of DP_CONFIG at the config's
+    """Phase 30: one rank in an NCCL group of one (`initialize_distributed`;
+    its data group is the whole world, the default group), so every
+    collective runs: its D+G step of DP_CONFIG at the config's
     batches from the seed equals one process's, bit for bit (metrics, state
     checksums, gradients; cuDNN deterministic), an all-reduce of one rank
     being exact. Then WARMUP_STEPS + TIMED_STEPS steps timed as phase 6's:
@@ -3390,12 +3648,14 @@ def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> dict[str, 
     (r,) = launch_dp("nccl", {"config": DP_CONFIG, "seed": seed, "backend": "nccl"}, root, 1)()
     check(r["metrics"] == metrics and (r["sums"] == sums).all() and (r["grad_bits"] == bits).all(),
           "phase 30: the NCCL rank's step differs from one process's")
+    check(r["data_group"] == [0], f"phase 30: the NCCL rank's data group {r['data_group']}")
     expected = {k: v * r["steps"] for k, v in r["expected"].items()}
     got = {k: r["counts"][k] for k in expected}
     check(got == expected, f"phase 30: launches {got}, expected {expected}")
     timed = r["times"][WARMUP_STEPS:]
     med = sorted(timed)[len(timed) // 2]
-    print(f"phase 30 [{card}]: one NCCL rank's D+G step of {DP_CONFIG} equals one process's bit "
+    print(f"phase 30 [{card}]: one NCCL rank, its collectives in its data group, the whole "
+          f"world ({r['data_group']}, the default group): its D+G step of {DP_CONFIG} equals one process's bit "
           f"for bit ({len(metrics)} metrics, {len(sums)} state tensors, {len(bits)} gradients); "
           f"{r['collectives']['all_reduce']} all-reduces a step "
           f"({r['collectives']['bytes'] / 2**30:.3f} GiB); step {med:.2f} ms median of "
@@ -3404,7 +3664,7 @@ def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> dict[str, 
     return got
 
 
-def dp_cli_phase(card: str, seed: int, root: Path) -> dict[str, int]:
+def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict[str, int]]:
     """Phase 31: the Pororo CLI with two gloo ranks on the card
     (CPCSV_COORDINATOR / CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, --backend
     gloo), DP_CONFIG --synthetic DP_SYNTHETIC (one step an epoch at the global
@@ -3413,26 +3673,47 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> dict[str, int]:
     metrics equal the straight run's bit for bit; the ranks' metrics equal
     every step; rank 1 opens no file for writing; one metrics row a step;
     then --eval_fid 1 on the final snapshot: rank 0 walks, rank 1 waits and
-    returns None. Returns both ranks' launches."""
+    returns None. Phase 33 in the same processes: one epoch of DP_CONFIG
+    under MESH_SHAPE DP_MODEL (its final save alone), against one process
+    (a third, beside them) at the doubled batches, its saves skipped: the
+    steps' metrics and the final state bit for bit on both ranks. Returns
+    the launches of phase 31 and of phase 33, summed over the processes."""
     import numpy as np
+    import yaml
 
     from cpcsv_tpu_torch.config import config_from_file
 
     cfg = config_from_file(DP_CONFIG)
     cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / DP_CONFIG)
-    base = ["--cfg", cfg_file, "--synthetic", str(DP_SYNTHETIC), "--manualSeed", str(seed),
-            "--backend", "gloo"]
+    seeded = ["--synthetic", str(DP_SYNTHETIC), "--manualSeed", str(seed)]
+    base = ["--cfg", cfg_file, *seeded, "--backend", "gloo"]
     a, b = str(root / "cli_straight"), str(root / "cli_resumed")
+    # phase 33's configs: DP_CONFIG under DP_MODEL, and at the doubled batches
+    # in one process
+    raw = yaml.safe_load(Path(cfg_file).read_text())
+    model_file, one_file = root / "model_axis.yml", root / "one_process.yml"
+    model_file.write_text(yaml.safe_dump({**raw, "MESH_SHAPE": DP_MODEL}))
+    one_file.write_text(yaml.safe_dump({**raw, "TRAIN": {
+        **raw["TRAIN"], "IM_BATCH_SIZE": cfg.TRAIN.IM_BATCH_SIZE * DP_WORLD,
+        "ST_BATCH_SIZE": cfg.TRAIN.ST_BATCH_SIZE * DP_WORLD}}))
     # saves: the straight run's skipped, the first run's final one alone
     runs = [("straight", a, base + ["--max_epoch", "2"], "none"),
             ("first", b, base + ["--max_epoch", "1"], "final"),
             ("resumed", b, base + ["--max_epoch", "2", "--continue_ckpt", "auto"], "all"),
-            ("walk", b, base + ["--eval_fid", "1"], "all")]
+            ("walk", b, base + ["--eval_fid", "1"], "all"),
+            ("model", str(root / "cli_model"),
+             ["--cfg", str(model_file), *seeded, "--backend", "gloo", "--max_epoch", "1"],
+             "final")]
     job = {"config": DP_CONFIG, "root": str(root), "runs": runs, "walked": "netG_epoch_2.pth"}
+    one_job = {"config": DP_CONFIG, "root": str(root), "runs": [
+        ("model", str(root / "cli_one"), ["--cfg", str(one_file), *seeded, "--max_epoch", "1"],
+         "none")]}
     t = time.perf_counter()
-    r0, r1 = launch_dp("cli", job, root, DP_WORLD, env=lambda rank: {
+    wait = launch_dp("cli", job, root, DP_WORLD, env=lambda rank: {
         "CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
-        "CPCSV_NUM_PROCESSES": str(DP_WORLD), "CPCSV_PROCESS_ID": str(rank)})()
+        "CPCSV_NUM_PROCESSES": str(DP_WORLD), "CPCSV_PROCESS_ID": str(rank)})
+    (one,) = launch_dp("cli_one", one_job, root, 1, mode="cli")()
+    r0, r1 = wait()
     seconds = time.perf_counter() - t
     for label in ("straight", "first", "resumed"):
         check(r0[label]["history"] == r1[label]["history"],
@@ -3452,7 +3733,7 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> dict[str, int]:
     check(r1["walk"]["returned"] is None and len(walked) == 1 and walked[0]["epoch"] == 2
           and np.isfinite(walked[0]["fid"]) and np.isfinite(walked[0]["vfid"]),
           f"phase 31: the walk returned {walked} on rank 0, {r1['walk']['returned']} on rank 1")
-    steps = 4  # 2 + 1 + 1 epochs of one step
+    steps = 5  # 2 + 1 + 1 epochs of one step, and phase 33's one
     for rank, r in enumerate((r0, r1)):
         got = r["counts"]
         check(got["bn_stats"] == 95 * steps and got["bn_grad_reduce"] == 64 * steps
@@ -3467,8 +3748,30 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> dict[str, int]:
           f"{walked[0]['vfid']:.3f} (random-init extractors); seconds a run on rank 0 "
           + ", ".join(f"{k} {r0[k]['seconds']:.1f}" for k in ("straight", "first", "resumed",
                                                                "walk"))
-          + f" (the phase {seconds:.1f} s); launches rank 0 {r0['counts']}, rank 1 {r1['counts']}")
-    return {k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}
+          + f" (the phase with 33's run {seconds:.1f} s); launches rank 0 {r0['counts']}, rank 1 "
+          f"{r1['counts']} (33's step among them)")
+    phase(f"33. the CLI on {DP_WORLD} gloo ranks under MESH_SHAPE {DP_MODEL} (in phase 31's "
+          "launch), one epoch, against one process at the doubled batches")
+    for rank, r in enumerate((r0, r1)):
+        check(r["model"]["history"] == one["model"]["history"]
+              and len(one["model"]["history"]) == 2
+              and (r["model"]["sums"] == one["model"]["sums"]).all(),
+              f"phase 33 rank {rank}: the {DP_MODEL} epoch differs from one process's at the "
+              "doubled batches")
+    check(one["counts"]["bn_stats"] == 95 and one["counts"]["bn_grad_reduce"] == 64,
+          f"phase 33: the one process launched {one['counts']} in its step")
+    model_file.unlink()
+    one_file.unlink()
+    print(f"phase 33 [{card}]: the CLI on {DP_WORLD} gloo ranks under MESH_SHAPE {DP_MODEL}, "
+          f"{DP_CONFIG} --synthetic {DP_SYNTHETIC} at {cfg.TRAIN.IM_BATCH_SIZE} / "
+          f"{cfg.TRAIN.ST_BATCH_SIZE} a device, one epoch of one step, each rank the "
+          f"{cfg.TRAIN.IM_BATCH_SIZE * DP_WORLD} / {cfg.TRAIN.ST_BATCH_SIZE * DP_WORLD} batch: "
+          f"the metrics and the state ({len(one['model']['sums'])} tensors) bit for bit one "
+          f"process's at {cfg.TRAIN.IM_BATCH_SIZE * DP_WORLD} / "
+          f"{cfg.TRAIN.ST_BATCH_SIZE * DP_WORLD}, on both ranks; rank 1 wrote no file; seconds "
+          f"rank 0 {r0['model']['seconds']:.1f} (its final save included), one process "
+          f"{one['model']['seconds']:.1f} (no save); launches of the one process {one['counts']}")
+    return ({k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}, one["counts"])
 
 
 def main() -> int:
@@ -3779,6 +4082,9 @@ def main() -> int:
         run = train_at_full_width(name, args.seed, card)
         phase(f"7. one D+G step of {name}, kernels vs plain versions")
         twin_step(run, args.seed)
+        if name == "cascade.yml":
+            phase("34. REMAT on cascade.yml: a step against one without")
+            remat_cascade = remat_phase(run, card, args.seed, timed=False)
         if name == "final.yml":
             phase("25. REMAT on final.yml: a step against one without, then timed")
             remat = remat_phase(run, card, args.seed)
@@ -3805,7 +4111,12 @@ def main() -> int:
               f"{frames / run.step_ms * 1e3:.1f} frames/s ({frames} frames a step)")
         lowering_step_ms[name] = lowering_steps(run, card)
         phase(f"17. one D+G step of {name} at bfloat16, kernels vs plain versions")
-        twin_step(run, args.seed)
+        tolerances = twin_step(run, args.seed)["tolerances"]
+        if name == "throughput.yml":
+            phase("34. REMAT on throughput.yml at bfloat16, against phase 17's yardstick; "
+                  "ADAM_MU_DTYPE bfloat16, a step and the Adam state's bytes")
+            remat_bf16 = remat_phase(run, card, args.seed, tols=tolerances, timed=False)
+            adam_bf16 = adam_mu_phase(run, card, build_dir, timed=False)
         runs_bf16[name] = types.SimpleNamespace(
             expected=run.expected, step_calls=run.step_calls, train_counts=run.train_counts,
             step_ms=run.step_ms, busy_ms=run.busy_ms)
@@ -3981,15 +4292,23 @@ def main() -> int:
           "kernels at its shapes, serving")
     clevr = clevr_step(card, gen, floor, args.seed)
     phase(f"28. the CLEVR CLI: --synthetic {CLEVR_SYNTHETIC}, 2 epochs with CPCSV_PROFILE_DIR, "
-          "then 1 and an auto-resumed epoch; --eval_fid, --eval_ssim")
+          "then 1 and an auto-resumed epoch; --eval_ssim")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_clevr_", dir=build_dir) as tmp:
         clevr_cli_counts = clevr_cli(card, clevr.record.expected, args.seed, Path(tmp))
+        phase(f"34. the CLEVR CLI from disk: --data_dir on a tree of {sum(CLEVR_DISK)} stories, "
+              "one epoch, then --eval_fid")
+        clevr_disk_counts = clevr_disk(card, clevr.record.expected, args.seed, Path(tmp))
     for name in kernels:
+        bf16 = remat_bf16["counts"][name] + adam_bf16[name]
         kernels[name]["launches"] += (remat["counts"][name] + adam_counts[name]
                                       + clevr.record.train_counts[name] + clevr.served[name]
-                                      + clevr_cli_counts[name])
+                                      + clevr_cli_counts[name] + remat_cascade["counts"][name]
+                                      + bf16 + clevr_disk_counts[name])
+        kernels[name]["bf16_launches"] += bf16
         kernels[name]["clevr_step_launches"] = clevr.record.expected[name]
         kernels[name]["remat_step_launches"] = remat["per_step"][name]
+        kernels[name]["remat_cascade_step_launches"] = remat_cascade["per_step"][name]
+        kernels[name]["remat_bf16_step_launches"] = remat_bf16["per_step"][name]
     for name in ("bn_stats", "bn_grad_reduce"):
         shape = clevr.largest[name]["shape"]
         _, _, kernel_ms, library_ms, bound = clevr.per_shape[name, shape]
@@ -4006,25 +4325,35 @@ def main() -> int:
             "clevr_plain_ms": t.plain_ms, "clevr_bound_ms": t.bound_ms,
             "clevr_bound_by": t.bound_by, "clevr_library_ms": t.library_ms})
     print(f"launches of REMAT {remat['counts']}, ADAM_MU_DTYPE {adam_counts}, {CLEVR_CONFIG}'s "
-          f"steps {clevr.record.train_counts}, its serving {clevr.served}, its CLI and walks "
-          f"{clevr_cli_counts}")
+          f"steps {clevr.record.train_counts}, its serving {clevr.served}, its CLI and walk "
+          f"{clevr_cli_counts}; phase 34: REMAT on cascade.yml {remat_cascade['counts']}, on "
+          f"throughput.yml {remat_bf16['counts']}, ADAM_MU_DTYPE on throughput.yml {adam_bf16}, "
+          f"the CLEVR CLI from disk {clevr_disk_counts}")
 
     # ------------------------------------------- 29-31. data parallelism
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_", dir=build_dir) as tmp:
         phase(f"29. {DP_WORLD} gloo ranks on the card: a D+G step of {DP_CONFIG} against one "
               "process on the global batch")
-        dp_counts = dp_step_phase(card, args.seed, Path(tmp))
-        phase("30. one NCCL rank: phase 6's step bit for bit, then timed")
+        dp_counts, p29 = dp_step_phase(card, args.seed, Path(tmp))
+        phase(f"32. a model axis: {DP_WORLD} gloo ranks under {DP_MODEL} (in phase 29's launch) "
+              f"against one process, {2 * DP_WORLD} under {DP_FOUR} against phase 29's "
+              f"{DP_WORLD}")
+        model_counts = model_axis_phase(card, Path(tmp), p29)
+        del p29
+        phase("30. one NCCL rank, its data group the world: phase 6's step bit for bit, then timed")
         nccl_counts = nccl_phase(card, args.seed, Path(tmp), runs[DP_CONFIG].step_ms)
         phase(f"31. the CLI with {DP_WORLD} gloo ranks: 2 epochs, 1 + an auto-resumed one, "
               "--eval_fid on rank 0")
-        dp_cli_counts = dp_cli_phase(card, args.seed, Path(tmp))
+        dp_cli_counts, one_cli_counts = dp_cli_phase(card, args.seed, Path(tmp))
     for name in kernels:
-        kernels[name]["launches"] += dp_counts[name] + nccl_counts[name] + dp_cli_counts[name]
+        kernels[name]["launches"] += (dp_counts[name] + nccl_counts[name] + dp_cli_counts[name]
+                                      + model_counts[name] + one_cli_counts[name])
         kernels[name]["dp_launches"] = {"steps": dp_counts[name], "nccl": nccl_counts[name],
-                                        "cli": dp_cli_counts[name]}
+                                        "cli": dp_cli_counts[name], "model": model_counts[name],
+                                        "cli_one_process": one_cli_counts[name]}
     print(f"launches of the data-parallel phases, summed over the ranks: the step {dp_counts}, "
-          f"NCCL {nccl_counts}, the CLI {dp_cli_counts}")
+          f"the model axis {model_counts}, NCCL {nccl_counts}, the CLI {dp_cli_counts} (phase "
+          f"33's step among them), phase 33's one process {one_cli_counts}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

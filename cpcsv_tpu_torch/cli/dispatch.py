@@ -56,12 +56,31 @@ def add_device_flag(parser):
     return parser
 
 
+# the evaluation flags in the ladder's order, each with its `Infer` walk
+WALKS = (("eval_fid", "eval_fid2"), ("eval_fvd", "eval_fvd"), ("eval_is", "eval_is"),
+         ("eval_ssim", "eval_ssim_walk"))
+
+
+def _walk(args):
+    return next((method for flag, method in WALKS if getattr(args, flag)), None)
+
+
+def loader_shard(args):
+    """The data shard the CLI's loaders read (`data.loader.training_loaders`):
+    None, the training mesh's, for a training run; (rank, world) for the
+    walks and --load_ckpt's dump, which read the test set whole on rank 0
+    and take any well-formed mesh."""
+    if _walk(args) is None and args.load_ckpt is None:
+        return None
+    from cpcsv_tpu_torch.parallel.distributed import process_info
+
+    return process_info()
+
+
 def dispatch(cfg, args, output_dir, imageloader, storyloader, testloader):
     """The reference's ladder: an evaluation walk, else --load_ckpt's sample
     dump, else training; the walks run on args.device as training does."""
-    walks = (("eval_fid", "eval_fid2"), ("eval_fvd", "eval_fvd"), ("eval_is", "eval_is"),
-             ("eval_ssim", "eval_ssim_walk"))
-    walk = next((method for flag, method in walks if getattr(args, flag)), None)
+    walk = _walk(args)
     if walk or args.load_ckpt is not None:
         from cpcsv_tpu_torch.evaluation.drivers import Infer
 

@@ -32,6 +32,7 @@ from cpcsv_tpu_torch.cli.dispatch import (
     add_device_flag,
     add_eval_flags,
     dispatch,
+    loader_shard,
 )
 from cpcsv_tpu_torch.cli.main_pororo import synthetic_loaders
 
@@ -55,10 +56,10 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def clevr_loaders(cfg, seed: int):
+def clevr_loaders(cfg, seed: int, shard=None):
     """(image, story, test) loaders over the CLEVR directory cfg.DATA_DIR, as
     the JAX package's CLI builds them: at the global batches, each process
-    reading its slice."""
+    reading its data shard (`data.loader.training_loaders`)."""
     from cpcsv_tpu_torch.data.clevr import ClevrImageDataset, ClevrStoryDataset
     from cpcsv_tpu_torch.data.loader import training_loaders
 
@@ -66,7 +67,7 @@ def clevr_loaders(cfg, seed: int):
     image = ClevrImageDataset(cfg.DATA_DIR, "train", cfg.VIDEO_LEN, cfg.IMSIZE, cfg.SESIZE,
                               use_segment=cfg.SEGMENT_LEARNING, seed=seed + 10)
     test = ClevrStoryDataset(cfg.DATA_DIR, "test", cfg.VIDEO_LEN, cfg.IMSIZE)
-    return training_loaders(cfg, image, story, test, seed)
+    return training_loaders(cfg, image, story, test, seed, shard)
 
 
 def main(argv=None):
@@ -86,9 +87,10 @@ def main(argv=None):
     output_dir = os.path.join(".", "output", "torch",
                               "debug" if args.debug else cfg.CONFIG_NAME)
     if args.synthetic:
-        loaders = synthetic_loaders(cfg, args.synthetic, args.manualSeed)
+        loaders = synthetic_loaders(cfg, args.synthetic, args.manualSeed,
+                                    loader_shard(args))
     elif cfg.DATA_DIR:
-        loaders = clevr_loaders(cfg, args.manualSeed)
+        loaders = clevr_loaders(cfg, args.manualSeed, loader_shard(args))
     else:
         raise ValueError(
             "no data: pass --data_dir DIR (or set DATA_DIR in the config) for the CLEVR "

@@ -19,8 +19,12 @@ last_epoch.txt; the evaluation flags walk the snapshots of that directory.
 Data-parallel training runs one process a rank, each with the same command
 and CPCSV_COORDINATOR=host:port, CPCSV_NUM_PROCESSES=W and
 CPCSV_PROCESS_ID=r (or under torchrun with CPCSV_DISTRIBUTED=1); the config's
-MESH_SHAPE ("" or "data:W") must span the W ranks. The batches in the config
-are each rank's, the global batch W times them. --backend names the process
+MESH_SHAPE ("", every rank on `data`, or named axes such as
+"data:4,model:2") must have a `data` axis and span the W ranks, the product
+of its axis sizes. The batches in the config are each rank's, the global
+batch W times them; a rank reads its shard on the `data` axis and the ranks
+of the other axes replicate it, as the JAX package's mesh does (the same
+global batch and numbers, no speed-up from the replicas). --backend names the process
 group's backend (NCCL on CUDA, gloo on the CPU by default; gloo lets several
 ranks share one GPU). Rank 0 alone writes the run directory, and the
 evaluation walks run on rank 0 over the whole test set while the others
@@ -40,6 +44,7 @@ from cpcsv_tpu_torch.cli.dispatch import (
     add_device_flag,
     add_eval_flags,
     dispatch,
+    loader_shard,
 )
 
 
@@ -63,10 +68,10 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def synthetic_loaders(cfg, n: int, seed: int):
+def synthetic_loaders(cfg, n: int, seed: int, shard=None):
     """(image, story, test) loaders over the synthetic datasets, as the JAX
     package's CLI builds them (main_pororo.py:73-102): at the global batches,
-    each process reading its slice."""
+    each process reading its data shard (`data.loader.training_loaders`)."""
     from cpcsv_tpu_torch.data.loader import global_batches, training_loaders
     from cpcsv_tpu_torch.data.synthetic import SyntheticImageDataset, SyntheticStoryDataset
 
@@ -78,7 +83,7 @@ def synthetic_loaders(cfg, n: int, seed: int):
                                   use_segment=cfg.SEGMENT_LEARNING)
     test = SyntheticStoryDataset(max(n // 4, st_bs), cfg.VIDEO_LEN, cfg.IMSIZE,
                                  cfg.TEXT.DIMENSION, cfg.LABEL_NUM, seed=99)
-    return training_loaders(cfg, image, story, test, seed)
+    return training_loaders(cfg, image, story, test, seed, shard)
 
 
 def main(argv=None):
@@ -100,11 +105,12 @@ def main(argv=None):
     output_dir = os.path.join(".", "output", "torch",
                               "debug" if args.debug else cfg.CONFIG_NAME)
     if args.synthetic:
-        loaders = synthetic_loaders(cfg, args.synthetic, args.manualSeed)
+        loaders = synthetic_loaders(cfg, args.synthetic, args.manualSeed,
+                                    loader_shard(args))
     elif cfg.DATA_DIR:
         from cpcsv_tpu_torch.data.pororo import build_pororo_loaders
 
-        loaders = build_pororo_loaders(cfg, args.manualSeed)
+        loaders = build_pororo_loaders(cfg, args.manualSeed, loader_shard(args))
     else:
         raise ValueError(
             "no data: pass --data_dir DIR (or set DATA_DIR in the config) for the Pororo "

@@ -7,9 +7,12 @@ loader, so a run of the port and one of the JAX package see the same data.
 Items are dicts of numpy arrays, plus other fields (such as 'text') that are
 collated into lists.
 
-In a process group each rank reads its contiguous 1/W slice of every global
-batch, as the JAX package's per-host input pipeline does
-(`cpcsv_tpu/data/loader.py:31-61,86-112`), index for index.
+In a process group each rank reads its data shard, the contiguous 1/D slice
+of every global batch at its index d on the mesh's `data` axis
+(`parallel/mesh.py`; D = W, the world size, without other axes), as the JAX
+package's per-host input pipeline does (`cpcsv_tpu/data/loader.py:31-61,86-112`),
+index for index. The replicas of a shard (the ranks that differ only on the
+other axes) read the same rows.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 
 from cpcsv_tpu_torch.data.prefetch import device_prefetch
 from cpcsv_tpu_torch.parallel.distributed import process_info
-from cpcsv_tpu_torch.parallel.mesh import mesh_size
+from cpcsv_tpu_torch.parallel.mesh import mesh_layout, mesh_size
 
 PREFETCH = 2  # batches a loader's background thread keeps ready
 
@@ -50,9 +53,10 @@ class DataLoader:
         process_index: int = 0,
         process_count: int = 1,
     ):
-        """`batch_size` is the global batch. With process_count > 1 (one
-        process a rank, `parallel.distributed.process_info()`), each process
-        reads only its contiguous 1/process_count slice of every global batch.
+        """`batch_size` is the global batch. With process_count > 1 (the data
+        shards, `training_loaders`), the process reads only
+        shard process_index, its contiguous 1/process_count slice of every
+        global batch.
         The shuffle stream derives from `seed` alone, never from the
         process, so every rank draws the same global permutation."""
         if process_count > 1 and batch_size % process_count != 0:
@@ -126,12 +130,18 @@ def global_batches(cfg) -> tuple[int, int]:
     return cfg.TRAIN.IM_BATCH_SIZE * n, cfg.TRAIN.ST_BATCH_SIZE * n
 
 
-def training_loaders(cfg, image, story, test, seed: int):
+def training_loaders(cfg, image, story, test, seed: int, shard=None):
     """(image, story, test) loaders at the global batches, shuffled from seed,
-    + 1 and + 2 (the test loader in order), each reading this process's
-    slice (`cpcsv_tpu/data/pororo.py:329-364`)."""
+    + 1 and + 2 (the test loader in order), each reading data shard
+    `shard` = (index, count) (`cpcsv_tpu/data/pororo.py:329-364`). None is
+    this rank's shard of the training mesh cfg.MESH_SHAPE (`mesh_layout`,
+    which raises for a mesh training refuses); the walks, which read the
+    test set whole, pass (rank, world) and take any well-formed mesh."""
     im_bs, st_bs = global_batches(cfg)
-    pi, pc = process_info()
+    if shard is None:
+        layout = mesh_layout(cfg.MESH_SHAPE, *process_info())
+        shard = layout.data_index, layout.data_count
+    pi, pc = shard
     kw = dict(drop_last=True, process_index=pi, process_count=pc)
     return (DataLoader(image, im_bs, shuffle=True, seed=seed, **kw),
             DataLoader(story, st_bs, shuffle=True, seed=seed + 1, **kw),

@@ -286,11 +286,11 @@ class ImageDataset:
         return out
 
 
-def build_pororo_loaders(cfg, seed: int = 0):
+def build_pororo_loaders(cfg, seed: int = 0, shard=None):
     """(image, story, test) loaders over cfg.DATA_DIR (reference
     main_pororo.py:97-121), at the global batches (the config's times
-    mesh_size(MESH_SHAPE)), each process reading its slice
-    (`cpcsv_tpu/data/pororo.py:329-364`). The datasets draw from seed + 10,
+    mesh_size(MESH_SHAPE)), each process reading its data shard
+    (`data.loader.training_loaders`, `cpcsv_tpu/data/pororo.py:329-364`). The datasets draw from seed + 10,
     11, 12 and the loaders shuffle from seed, + 1, + 2."""
     from cpcsv_tpu_torch.data.loader import training_loaders
 
@@ -303,4 +303,4 @@ def build_pororo_loaders(cfg, seed: int = 0):
                          segment_name=cfg.TRAIN.SEGMENT_NAME, seed=seed + 11)
     base_test = VideoFolderDataset(dir_path, counter, min_len=4, data_type="test")
     test_story = StoryDataset(base_test, text, cfg.IMSIZE, seed=seed + 12)
-    return training_loaders(cfg, image, story, test_story, seed)
+    return training_loaders(cfg, image, story, test_story, seed, shard)

@@ -31,16 +31,17 @@ and the wrong head calls, so the head's statistics come from (pairs, fake).
 runs in it, with float32 parameters, so the features and logits come out in
 it; the losses take the logits to float32.
 
-In a process group (`parallel/`) each rank holds its rows of the global
-batch, and the pairs that cross ranks are built from the global index, as
+In a process group (`parallel/`) each rank holds its data shard of the
+global batch, and the pairs that cross shards are built from the global
+index (the gathers run over the rank's data group, `mesh.gather_rows`), as
 the JAX package's one program pairs the global batch: the wrong pairs
 (feature i, condition i + 1) take their conditions from the gathered global
 conditions (the D step's carry no gradient; the features are never
-gathered), so a rank's last feature meets the next rank's first condition
-and the last rank has one wrong pair fewer; whether there is a wrong pair
+gathered), so a shard's last feature meets the next shard's first condition
+and the last shard has one wrong pair fewer; whether there is a wrong pair
 at all is asked of the global batch; and InfoNCE's pair block is the rank's
-features against every global condition, (B/W, B), the head's BN over the
-B² global rows.
+features against every global condition, (B/D, B) for D shards, the head's
+BN over the B² global rows.
 """
 
 from __future__ import annotations

@@ -14,14 +14,15 @@ from cpcsv_tpu_torch.models.discriminators import (
     StoryDiscriminator,
 )
 from cpcsv_tpu_torch.models.generator import StoryGenerator
-from cpcsv_tpu_torch.parallel.mesh import check_data_axes, parse_mesh_shape
+from cpcsv_tpu_torch.parallel.mesh import parse_mesh_shape
 
-# MESH_SHAPE is honoured by data parallelism (`parallel/`): training takes ""
-# or "data:N" (`build_models`; the trainer also holds N to the world size),
-# while serving and the walks accept any well-formed mesh and run on their
-# one device, as the JAX package's `make_eval_mesh` falls back to the local
-# devices. A mesh with another axis, over which the JAX package only
-# replicates the forward, is the one value the port does not train.
+# MESH_SHAPE is honoured by data parallelism (`parallel/`): training takes
+# any mesh with a `data` axis that spans the process group, sharding the
+# batches over `data` and replicating over the other axes
+# (`mesh.check_training_mesh`, which the trainer and the steps call), while
+# serving and the walks accept any well-formed mesh and run on their one
+# device, as the JAX package's `make_eval_mesh` falls back to the local
+# devices.
 # The JAX package's TPU lowering choices, accepted at every value its config
 # accepts, each with one meaning in the port:
 #   SCAN_STEPS (K > 1: K D+G pairs a dispatch, lax.scan; else one): the
@@ -82,9 +83,7 @@ def build_models(cfg: Config):
     """(G, D_im, D_st, D_se) for training, on the CPU, their parameters
     float32, their compute in cfg.COMPUTE_DTYPE; D_se is None without
     SEGMENT_LEARNING, and D_st holds the order-consistency VideoEncoder with
-    USE_SEQ_CONSISTENCY (`cpcsv_tpu/models/factory.py:43-75`).
-    NotImplementedError for a MESH_SHAPE with an axis other than `data`."""
-    check_data_axes(cfg.MESH_SHAPE)
+    USE_SEQ_CONSISTENCY (`cpcsv_tpu/models/factory.py:43-75`)."""
     net_g = generator_from_config(cfg)
     kw = dict(ndf=cfg.GAN.DF_DIM, nef=cfg.GAN.CONDITION_DIM, text_dim=cfg.TEXT.DIMENSION,
               label_num=cfg.LABEL_NUM, dtype=compute_dtype(cfg))

@@ -37,7 +37,9 @@ BN computes as before but writes no state, so the running statistics and
 
 In a process group (`parallel/`) the statistics are the global batch's, as
 the JAX package's one SPMD program computes them over the sharded batch.
-Each rank's kernels reduce its own rows, and then:
+Each rank's kernels reduce its own rows, and then, over the rank's data
+group (`mesh.all_reduce_sum_`; the replicas on a mesh's other axes reduce
+the same rows apart):
 
   * forward: (s, q) and the row count M are all-reduced in one call, one
     buffer of 2C + 1 floats. M is all-reduced, not taken as W × the local
@@ -198,11 +200,11 @@ def global_rows(x: torch.Tensor):
 def update_running_stats(running_mean, running_var, mean, var, M) -> None:
     """In place: ra = 0.9·ra + 0.1·batch, the variance Bessel-corrected. M is
     an int, or the global M as a 1-element tensor, whose factor M / max(M − 1, 1)
-    is formed in float64 and rounded once to float32, as a Python float
-    multiplies a float32 tensor."""
+    is formed in float64 and rounded once to var's dtype, as a Python float
+    multiplies a float32 (or float64) tensor."""
     if torch.is_tensor(M):
         m = M.double()
-        bessel = (m / torch.clamp(m - 1, min=1)).float()
+        bessel = (m / torch.clamp(m - 1, min=1)).to(var.dtype)
     else:
         bessel = M / max(M - 1, 1)
     running_mean.mul_(1.0 - MOMENTUM).add_(mean, alpha=MOMENTUM)

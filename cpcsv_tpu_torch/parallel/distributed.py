@@ -13,6 +13,15 @@ writes and the centralized walks wait there, on the host, with a timeout of
 CPCSV_EVAL_BARRIER_MIN minutes (240 when unset), since rank 0's walk can
 take hours and NCCL's collectives would time out long before.
 
+The collectives of a training step run over the rank's data group
+(`parallel/mesh.py`). `form_data_groups` forms a mesh's data groups where
+the training steps and the trainer first name the mesh
+(`mesh.check_training_mesh`), every rank creating every group in the same
+order (`dist.new_subgroups_by_enumeration`, which works under NCCL and
+gloo), each partition once. A mesh whose one data group is the whole world
+("", "data:W") keeps the default group and forms none. Before any mesh is
+named the data group is the whole world.
+
 Nothing here falls back to one process: a failed `init_process_group`, a
 half-set environment or a world size that does not match the run raises.
 """
@@ -27,6 +36,8 @@ import torch
 import torch.distributed as dist
 
 _host_group = None  # the gloo group of the host-side barriers, set at initialization
+_data_groups = {}  # every partition of the ranks formed into data groups -> this rank's group
+_data = None  # (group, index, count) of this rank's data group; None: the whole world
 
 
 def barrier_timeout() -> datetime.timedelta:
@@ -77,6 +88,41 @@ def initialize_distributed(
     _host_group = dist.new_group(backend="gloo", timeout=barrier_timeout())
 
 
+def form_data_groups(groups) -> None:
+    """Make `groups` (a partition of the ranks, each group in data order)
+    the data groups of the collectives (`data_group`, `data_info`). The
+    first call with a partition is collective: every rank makes it with the
+    same groups in the same order. Later calls switch back to the groups
+    already formed. One group of every rank, in rank order, is the default
+    group: nothing is formed and the collectives stay on the whole world."""
+    global _data
+    groups = tuple(tuple(g) for g in groups)
+    if groups == (tuple(range(dist.get_world_size())),):
+        _data = None
+        return
+    if groups not in _data_groups:
+        _data_groups[groups] = dist.new_subgroups_by_enumeration([list(g) for g in groups])[0]
+    rank = dist.get_rank()
+    mine = next(g for g in groups if rank in g)
+    _data = (_data_groups[groups], mine.index(rank), len(mine))
+
+
+def data_group():
+    """The group of this rank's collectives: its data group, or None (the
+    whole world) where that is the whole world, before a mesh is named or
+    without a process group."""
+    return _data[0] if _data is not None and is_distributed() else None
+
+
+def data_info() -> tuple[int, int]:
+    """(this rank's index in its data group, the group's size): the data
+    shard a rank reads and the number of shards; (rank, world size) where
+    the group is the whole world, (0, 1) without a process group."""
+    if _data is None or not is_distributed():
+        return process_info()
+    return _data[1], _data[2]
+
+
 def maybe_initialize_from_env(backend: Optional[str] = None, device: str = "cuda") -> bool:
     """CLI hook: join the process group when the environment asks for it.
     Returns True if it did.
@@ -125,7 +171,8 @@ def host_group():
 
 def destroy_distributed() -> None:
     """Leave the process group (tests and scripts that run several in turn)."""
-    global _host_group
+    global _host_group, _data
     if is_distributed():
         dist.destroy_process_group()
-    _host_group = None
+    _host_group, _data = None, None
+    _data_groups.clear()

@@ -1,48 +1,72 @@
 """Data parallelism over the process group (counterpart of
 `cpcsv_tpu/parallel/mesh.py`).
 
-The JAX package shards every batch over a one-axis device mesh and lets XLA
-insert the collectives of one SPMD program over the global batch. The port
-runs one process per GPU, each on its contiguous 1/W of the global batch
-(W the world size), and states every collective the global program needs:
+The JAX package shards every batch over the `data` axis of a device mesh
+and lets XLA insert the collectives of one SPMD program over the global
+batch. The port runs one process per GPU, each on its contiguous 1/D of the
+global batch (D the size of the `data` axis: the world size W unless the
+mesh has other axes), and states every collective the global program needs:
 the BN sums (`ops/batchnorm.py`), the conditions of the wrong pairs and of
 InfoNCE's pair matrix (`models/discriminators.py`), the loss counts and
 metrics (`losses/gan_losses.py`, `train/steps.py`) and the gradients
 (`train/steps.py:_step`). The contract is the JAX package's: a run on W
 ranks equals a one-process run on the same global batches up to the order
-of its reductions, since every loss is its rows' sum over the global count.
+of its reductions, since every loss is its rows' sum over the global count
+(and bit for bit where D is 1).
 
 Every gather is a sum-all-reduce of a zero-padded buffer: gloo does only
 `broadcast` and `all_reduce` on CUDA tensors, so the same code runs under
 gloo on the CPU, under gloo with several ranks sharing one GPU, and under
 NCCL. Without a process group nothing here issues a collective.
 
-MESH_SHAPE is "" (every rank on the `data` axis) or "data:N". The JAX
-package also takes other axes, over which it only replicates the forward;
-training in the port refuses them.
+MESH_SHAPE "a:n,b:m,..." lays the W = n·m·... ranks out as the JAX package
+lays out its devices (`cpcsv_tpu/parallel/mesh.py:make_mesh`): rank r sits
+at `np.unravel_index(r, (n, m, ...))`, the axes in MESH_SHAPE order, and ""
+is every rank on `data`. A training mesh has a `data` axis: a rank reads
+data shard d of D (d its coordinate on `data`, D that axis's size), every
+other axis replicates, as the JAX trainer shards its batches over
+P("data") and replicates its parameters. Each collective of a step runs
+over the rank's data group, the D ranks that share all its other
+coordinates (`distributed.form_data_groups`), so that the ranks of a group
+compute the JAX program over the global batch and the groups repeat one
+another bit for bit. Serving and the walks take any well-formed mesh and
+run on their one device.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from cpcsv_tpu_torch.parallel.distributed import host_group, is_distributed, process_info
+from cpcsv_tpu_torch.parallel.distributed import (
+    data_group,
+    data_info,
+    form_data_groups,
+    host_group,
+    is_distributed,
+    process_info,
+)
 
 DATA_AXIS = "data"
 
 
 def parse_mesh_shape(mesh_shape: str) -> list[tuple[str, int]]:
-    """"data:4,model:2" -> [("data", 4), ("model", 2)]; "" -> []."""
+    """"data:4,model:2" -> [("data", 4), ("model", 2)]; "" -> []. ValueError
+    for a malformed axis or a name given twice (as `jax.sharding.Mesh`)."""
     axes = []
     for item in filter(None, mesh_shape.split(",")):
         name, _, size = item.partition(":")
         if not name or not size.isdigit() or int(size) < 1:
             raise ValueError(f"MESH_SHAPE {mesh_shape!r}: each axis is NAME:SIZE, SIZE >= 1")
         axes.append((name.strip(), int(size)))
+    names = [name for name, _ in axes]
+    if len(set(names)) != len(names):
+        raise ValueError(f"MESH_SHAPE {mesh_shape!r}: an axis is named twice in {names}")
     return axes
 
 
@@ -54,27 +78,54 @@ def mesh_size(mesh_shape: str = "") -> int:
     return math.prod(size for _, size in axes) if axes else process_info()[1]
 
 
-def check_data_axes(mesh_shape: str) -> None:
-    """NotImplementedError for a mesh with an axis other than `data`."""
-    other = [name for name, _ in parse_mesh_shape(mesh_shape) if name != DATA_AXIS]
-    if other:
-        raise NotImplementedError(
-            f"MESH_SHAPE {mesh_shape!r}: the port trains data-parallel only, on the "
-            f"'{DATA_AXIS}' axis; the axes {other} (over which the JAX package replicates the "
-            "forward) are not supported")
+class MeshLayout(NamedTuple):
+    """Rank `rank`'s place in a training mesh: its coordinate on each axis,
+    its data index and the data axis's size, and every data group (ranks in
+    data order; the groups in C order of the other axes' coordinates)."""
+
+    axes: tuple[tuple[str, int], ...]
+    coords: tuple[int, ...]
+    data_index: int
+    data_count: int
+    groups: tuple[tuple[int, ...], ...]
 
 
-def check_training_mesh(mesh_shape: str) -> None:
-    """A training run's mesh must span exactly the process group, as the JAX
-    trainer's strict `make_mesh`: a mismatch would change the global batch."""
-    check_data_axes(mesh_shape)
-    world = process_info()[1]
-    if mesh_size(mesh_shape) != world:
+def mesh_layout(mesh_shape: str, rank: int, world: int) -> MeshLayout:
+    """The layout of a training mesh over `world` ranks, as seen by `rank`.
+    ValueError for a malformed mesh, one with no `data` axis (the JAX
+    trainer's batches cannot be placed on P("data") there), or one that
+    does not span the world (a strict `make_mesh`: another size would change
+    the global batch)."""
+    axes = tuple(parse_mesh_shape(mesh_shape)) or ((DATA_AXIS, world),)
+    names, sizes = [n for n, _ in axes], [s for _, s in axes]
+    if DATA_AXIS not in names:
+        raise ValueError(f"MESH_SHAPE {mesh_shape!r} has no '{DATA_AXIS}' axis: training shards "
+                         f"its batches over '{DATA_AXIS}'")
+    if math.prod(sizes) != world:
         raise ValueError(
-            f"MESH_SHAPE {mesh_shape!r} spans {mesh_size(mesh_shape)} ranks but the run has "
+            f"MESH_SHAPE {mesh_shape!r} spans {math.prod(sizes)} ranks but the run has "
             f"{world} process{'es' if world > 1 else ''}: launch one process a rank "
             "(CPCSV_COORDINATOR / CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, or torchrun with "
             "CPCSV_DISTRIBUTED=1)")
+    k = names.index(DATA_AXIS)
+    coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
+    others = [range(s) for i, s in enumerate(sizes) if i != k]
+    groups = tuple(
+        tuple(int(np.ravel_multi_index((*other[:k], d, *other[k:]), sizes))
+              for d in range(sizes[k]))
+        for other in itertools.product(*others))
+    return MeshLayout(axes, coords, coords[k], sizes[k], groups)
+
+
+def check_training_mesh(mesh_shape: str) -> MeshLayout:
+    """This rank's layout of a training run's mesh (`mesh_layout`, which
+    raises where the JAX trainer would refuse the mesh); in a process group
+    its data groups become the collectives' (formed the first time a mesh is
+    named: every rank calls this in the same order)."""
+    layout = mesh_layout(mesh_shape, *process_info())
+    if is_distributed():
+        form_data_groups(layout.groups)
+    return layout
 
 
 class Rows(NamedTuple):
@@ -86,9 +137,10 @@ class Rows(NamedTuple):
 
 
 def batch_rows(local: int) -> Rows:
-    """This rank's rows of a batch split evenly, `local` rows a rank."""
-    rank, world = process_info()
-    return Rows(rank * local, local, local * world)
+    """This rank's rows of a batch split evenly over the data axis, `local`
+    rows a data shard: the replicas of a shard hold the same rows."""
+    index, count = data_info()
+    return Rows(index * local, local, local * count)
 
 
 def wrong_pair_rows(rows: Rows) -> Rows:
@@ -100,22 +152,24 @@ def wrong_pair_rows(rows: Rows) -> Rows:
 
 
 def all_reduce_sum_(buf: torch.Tensor) -> torch.Tensor:
-    """In place, the sum of `buf` over the ranks (nothing without a group)."""
+    """In place, the sum of `buf` over this rank's data group (nothing
+    without a process group)."""
     if is_distributed():
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=data_group())
     return buf
 
 
 def gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's `t` (the same number of rows on each) stacked in rank
-    order, as the sum-all-reduce of a zero buffer holding this rank's rows;
-    `t` itself without a group. Takes no gradient."""
+    """The `t` of every rank of this rank's data group (the same number of
+    rows on each) stacked in data order, as the sum-all-reduce of a zero
+    buffer holding this rank's rows; `t` itself without a group. Takes no
+    gradient."""
     if not is_distributed():
         return t
     lo, n, total = batch_rows(t.shape[0])
     buf = t.new_zeros((total, *t.shape[1:]))
     buf[lo:lo + n] = t.detach()
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=data_group())
     return buf
 
 

@@ -50,9 +50,11 @@ batches enter as float32, every loss (the cascade MSEs included, as
 their gradients, the Adam moments and the BN running statistics stay
 float32.
 
-In a process group (`parallel/`) the batches are this rank's rows of the
-global batch (`data/loader.py` slices them), and the step is the JAX
-package's one program over the global batch, its collectives stated:
+In a process group (`parallel/`) the batches are this rank's data shard of
+the global batch (`data/loader.py` slices them), and the step is the JAX
+package's one program over the global batch, its collectives stated over the
+rank's data group (the ranks of the other mesh axes, replicas, repeat the
+same work on the same rows and noise, as the JAX program does there):
   * the noise: the global batch's draws from `rng`, of which the rank keeps
     its rows, so the draws do not depend on the rank count (explicit draws
     are the global batch's too);
@@ -61,9 +63,9 @@ package's one program over the global batch, its collectives stated:
     the cross-rank pairs from the global index (`models/discriminators.py`);
   * `torch.autograd.grad` fires no DistributedDataParallel hook, and the
     nets are not wrapped in one: after it each net's gradients are summed
-    over the ranks in one all-reduce of their concatenation, so every rank
-    takes the same Adam step and the parameters stay equal bit for bit;
-  * the metrics are the ranks' shares summed in one all-reduce a step.
+    over the data group in one all-reduce of their concatenation, so every
+    rank takes the same Adam step and the parameters stay equal bit for bit;
+  * the metrics are the data group's shares summed in one all-reduce a step.
 """
 
 from __future__ import annotations
@@ -80,8 +82,13 @@ from cpcsv_tpu_torch.losses.gan_losses import (
     generator_loss,
     kl_loss,
 )
-from cpcsv_tpu_torch.parallel.distributed import is_distributed
-from cpcsv_tpu_torch.parallel.mesh import all_reduce_sum_, batch_rows, wrong_pair_rows
+from cpcsv_tpu_torch.parallel.distributed import form_data_groups, is_distributed
+from cpcsv_tpu_torch.parallel.mesh import (
+    all_reduce_sum_,
+    batch_rows,
+    check_training_mesh,
+    wrong_pair_rows,
+)
 from cpcsv_tpu_torch.train.state import TrainState
 
 
@@ -144,7 +151,7 @@ def _step(net, opt, loss, lr: float) -> None:
     """One optimizer step of `net` on d loss / d params. Gradients go to this
     net only; a parameter the loss does not reach steps with a zero gradient,
     as optax's Adam does. In a process group the gradients are summed over
-    the ranks first, in one all-reduce of their concatenation."""
+    the data group first, in one all-reduce of their concatenation."""
     params = list(net.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [g if g is not None else torch.zeros_like(p) for p, g in zip(params, grads)]
@@ -159,8 +166,8 @@ def _step(net, opt, loss, lr: float) -> None:
 
 
 def _reduce_metrics(metrics: dict) -> dict:
-    """The metrics' ranks' shares summed, in one all-reduce; without a
-    process group the metrics as they are."""
+    """The metrics' shares summed over the data group, in one all-reduce;
+    without a process group the metrics as they are."""
     if not is_distributed():
         return metrics
     values = all_reduce_sum_(torch.stack([v.detach().float().reshape(()) for v in metrics.values()]))
@@ -170,9 +177,18 @@ def _reduce_metrics(metrics: dict) -> dict:
 def make_train_steps(cfg: Config):
     """(d_step, g_step), each (state, rng, st_batch, im_batch, lr) ->
     (state, metrics). Unlike the JAX package's, it takes no models: the nets
-    are modules that live in the state."""
+    are modules that live in the state. cfg.MESH_SHAPE must be a training
+    mesh of the process group (`mesh.check_training_mesh`); each step runs
+    its collectives over that mesh's data groups."""
     seg_w, img_w, kl = cfg.SEGMENT_RATIO, cfg.IMAGE_RATIO, cfg.TRAIN.COEFF.KL
     use_segment, nce = cfg.SEGMENT_LEARNING, cfg.USE_INFONCE
+    layout = check_training_mesh(cfg.MESH_SHAPE)
+
+    def on_mesh():
+        """In a process group, this mesh's data groups become the
+        collectives' (steps of another mesh may have run since)."""
+        if is_distributed():
+            form_data_groups(layout.groups)
 
     def d_update(net, opt, real, fake, cond, cate_labels, lr, extra=None):
         """One D's Adam step (`cpcsv_tpu/train/steps.py:one_d`). `extra` is the
@@ -199,6 +215,7 @@ def make_train_steps(cfg: Config):
         return out
 
     def d_step(state: TrainState, rng, st_batch, im_batch, lr_d):
+        on_mesh()
         device = next(state.gen.parameters()).device
         st_batch, im_batch = batch_to_device(st_batch, device), batch_to_device(im_batch, device)
         with float32_math():
@@ -228,6 +245,7 @@ def make_train_steps(cfg: Config):
         return state, _reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
     def g_step(state: TrainState, rng, st_batch, im_batch, lr_g):
+        on_mesh()
         device = next(state.gen.parameters()).device
         st_batch, im_batch = batch_to_device(st_batch, device), batch_to_device(im_batch, device)
         with float32_math():

@@ -37,16 +37,20 @@ short for that says so at its end.
 SCAN_STEPS, the JAX package's K updates in one dispatch, is the same sequence
 of updates; the port runs it one D+G pair at a time.
 
-Data-parallel (`parallel/`): every rank runs this loop on its slice of the
-global batches (`data/loader.py`), and cfg.MESH_SHAPE must span the
-process group (`mesh.check_training_mesh`). Each rank draws the global
+Data-parallel (`parallel/`): every rank runs this loop on its data shard of
+the global batches (`data/loader.py`), and cfg.MESH_SHAPE must be a mesh
+with a `data` axis that spans the process group (`mesh.check_training_mesh`,
+which forms its data groups); the ranks of its other axes replicate their
+shard's work, so the global batch and the numbers are the JAX run's on the
+same mesh, with no speed-up from the replicas. Each rank draws the global
 batch's noise from the epoch's generator and keeps its rows
 (`train/steps.py`), so the draws do not depend on the rank count. The
 seq-consistency host shuffle runs on each rank's own stories with the same
 `default_rng([seed, epoch])`, a story's partner drawn among that rank's
 stories: deliberately what each JAX process does to its local slice
 (`cpcsv_tpu/train/trainer.py:127-134`), so the shuffles of a W-rank run are
-those of the JAX package's W-process run, not of a one-process run. Rank 0
+those of the JAX package's W-process run, not of a one-process run (the
+replicas of a shard shuffle the same stories the same way). Rank 0
 alone writes the run directory: `setting.yml` and the sources, the logger,
 the sample grids, the checkpoints (`train/checkpoint.py`; every rank
 restores), the profile trace. The in-training FID/FSD runs on rank 0 over

@@ -4,17 +4,20 @@ on the CPU in a gloo process group:
     python tests/_torch_parallel_worker.py steps RANK WORLD INIT_URL JOB OUT
     python tests/_torch_parallel_worker.py cli RANK WORLD INIT_URL JOB OUT
     python tests/_torch_parallel_worker.py bn RANK WORLD INIT_URL JOB OUT
+    python tests/_torch_parallel_worker.py mesh RANK WORLD INIT_URL JOB OUT
 
 `steps` joins the group through `initialize_distributed` and runs the JOB
-file's scenarios (a config, a state, the global batches and noise): one D
-and one G step each from the state, on this rank's rows, in float32 and in
-float64; then D+G, a save, a
+file's scenarios (a config, a state, the global batches and noise, and for
+some a MESH_SHAPE of the ranks): one D and one G step each from the state,
+on this rank's data shard, in float32 and in float64; then D+G, a save, a
 restore and one more D+G step; then a --load_ckpt dump through the
-centralized walk. `cli` runs the port's CLIs in this process, the group
-formed from CPCSV_COORDINATOR / CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, which
-the caller sets. `bn` runs train-mode BNs on this rank's rows on the card,
-the gloo group's all-reduce summing the kernels' sums (`tests/test_torch_bn.py`,
-`cuda`-marked). Each rank writes what it saw to OUT (torch.save); a rank
+centralized walk. `mesh` joins the group with the JOB's MESH_SHAPE and runs
+the first scenario's D+G step on its data shard. `cli` runs the port's CLIs
+in this process, the group formed from CPCSV_COORDINATOR /
+CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, which the caller sets (the tests
+also call it in their own process, with none). `bn` runs train-mode BNs on
+this rank's rows on the card, the gloo group's all-reduce summing the
+kernels' sums (`tests/test_torch_bn.py`, `cuda`-marked). Each rank writes what it saw to OUT (torch.save); a rank
 other than 0 also lists every file it opened for writing, which must be none.
 """
 
@@ -52,10 +55,21 @@ def _config(job_cfg):
     return config_from_file(name).with_updates(GAN=GanConfig(**gan), **keys)
 
 
-def _local(batch: dict, rank: int, world: int) -> dict:
-    """This rank's rows of a global batch, as the loader slices them."""
+def _mesh_config(sc, world):
+    """The scenario's config, with its MESH_SHAPE where it names one and the
+    run has several ranks (one process runs the same global batch alone)."""
+    cfg = _config(sc["cfg"])
+    return cfg.with_updates(MESH_SHAPE=sc["mesh"]) if world > 1 and sc.get("mesh") else cfg
+
+
+def _local(batch: dict, cfg, rank: int, world: int) -> dict:
+    """This rank's data shard of a global batch, as the loader slices it."""
+    from cpcsv_tpu_torch.parallel.mesh import mesh_layout
+
+    layout = mesh_layout(cfg.MESH_SHAPE, rank, world)
     n = len(next(iter(batch.values())))
-    lo, local = rank * (n // world), n // world
+    local = n // layout.data_count
+    lo = layout.data_index * local
     return {k: v[lo:lo + local] for k, v in batch.items()}
 
 
@@ -86,6 +100,32 @@ def _reading(state, stepped) -> dict:
     }
 
 
+def _grad_bits(state) -> list:
+    """int sums of the bit patterns of every parameter's gradient, nets in
+    `state.nets()` order: equal gradients give equal sums."""
+    return [int(p.grad.detach().float().numpy().view(np.int32).astype(np.int64).sum())
+            for net in state.nets().values() for p in net.parameters()]
+
+
+def run_dg(sc, rank: int, world: int) -> dict:
+    """The scenario's D step then its G step on one state, on this rank's
+    data shard: the metrics, the state's checksums, the gradients' bits and
+    whether the collectives ran on the default group."""
+    from cpcsv_tpu_torch.parallel.distributed import data_group
+    from cpcsv_tpu_torch.train.state import state_checksums
+    from cpcsv_tpu_torch.train.steps import make_train_steps
+
+    cfg = _mesh_config(sc, world)
+    st, im = _local(sc["st"], cfg, rank, world), _local(sc["im"], cfg, rank, world)
+    d_step, g_step = make_train_steps(cfg)
+    state = _state(cfg, sc["state"])
+    _, dm = d_step(state, sc["noise_d"], st, im, 4e-4)
+    _, gm = g_step(state, sc["noise_g"], st, im, 1e-4)
+    return {"metrics": {k: float(v) for k, v in {**dm, **gm}.items()},
+            "checksums": state_checksums(state).numpy(), "grad_bits": _grad_bits(state),
+            "default_group": data_group() is None, "state": state}
+
+
 def grad_bits(res: dict) -> dict:
     """A `run_steps_one` result with each gradient replaced by the int64 sum
     of its bit pattern (a checksum that equal gradients share)."""
@@ -104,8 +144,8 @@ def run_steps_one(sc, rank: int = 0, world: int = 1, dtype=torch.float32) -> dic
     from cpcsv_tpu_torch.train import steps as steps_module
     from cpcsv_tpu_torch.train.steps import make_train_steps
 
-    cfg = _config(sc["cfg"])
-    st, im = _local(sc["st"], rank, world), _local(sc["im"], rank, world)
+    cfg = _mesh_config(sc, world)
+    st, im = _local(sc["st"], cfg, rank, world), _local(sc["im"], cfg, rank, world)
     d_step, g_step = make_train_steps(cfg)
     wide = dtype == torch.float64
     cast = (lambda batch, device: {k: torch.as_tensor(v).to(dtype)  # noqa: E731
@@ -163,14 +203,14 @@ def run_steps(job, rank, world, out_dir):
     result["float64"] = {sc["id"]: run_steps_one(sc, rank, world, torch.float64)
                          for sc in job["scenarios"]}
 
-    # save, restore on every rank, one more D+G step
+    # a D+G step, a save, a restore on every rank, one more D+G step
     sc = job["scenarios"][0]
+    dg = run_dg(sc, rank, world)
+    state = dg.pop("state")
+    result["dg"] = dg
     cfg = _config(sc["cfg"])
-    st, im = _local(sc["st"], rank, world), _local(sc["im"], rank, world)
+    st, im = _local(sc["st"], cfg, rank, world), _local(sc["im"], cfg, rank, world)
     d_step, g_step = make_train_steps(cfg)
-    state = _state(cfg, sc["state"])
-    d_step(state, sc["noise_d"], st, im, 4e-4)
-    g_step(state, sc["noise_g"], st, im, 1e-4)
     saved = state_checksums(state)
     ckpt = CheckpointManager(job["run_dir"] + "/Model")
     ckpt.save(state, 1, completed=0)
@@ -216,21 +256,24 @@ def run_cli(job, rank, world, out_dir):
         return spy(d_step), spy(g_step)
 
     make_steps = trainer_module.make_train_steps
-    result = {}
-    with mock.patch.object(trainer_module, "make_train_steps", spying_steps):
-        for name, (cli, cwd, argv) in job["runs"].items():
-            os.makedirs(cwd, exist_ok=True)
-            os.chdir(cwd)
-            history.clear()
-            module = main_clevr if cli == "clevr" else main_pororo
-            out = module.main(argv)
-            result[name] = {"history": copy.deepcopy(history)}
-            if hasattr(out, "nets"):
-                from cpcsv_tpu_torch.train.state import state_checksums
+    result, home = {}, os.getcwd()
+    try:
+        with mock.patch.object(trainer_module, "make_train_steps", spying_steps):
+            for name, (cli, cwd, argv) in job["runs"].items():
+                os.makedirs(cwd, exist_ok=True)
+                os.chdir(cwd)
+                history.clear()
+                module = main_clevr if cli == "clevr" else main_pororo
+                out = module.main(argv)
+                result[name] = {"history": copy.deepcopy(history)}
+                if hasattr(out, "nets"):
+                    from cpcsv_tpu_torch.train.state import state_checksums
 
-                result[name]["checksums"] = state_checksums(out).numpy()
-            else:
-                result[name]["returned"] = out
+                    result[name]["checksums"] = state_checksums(out).numpy()
+                else:
+                    result[name]["returned"] = out
+    finally:
+        os.chdir(home)  # the tests also run this in their own process
     return result
 
 
@@ -240,13 +283,16 @@ def main():
     torch.set_num_threads(1)
     job = torch.load(job_path, weights_only=False)
     written, spy = _writes_recorder(Path(job["root"]).resolve())
-    if mode in ("steps", "bn"):
+    if mode in ("steps", "bn", "mesh"):
         from cpcsv_tpu_torch.parallel.distributed import initialize_distributed
 
         initialize_distributed(init, world, rank, backend="gloo", device=job.get("device", "cpu"))
     with spy if rank != 0 else mock.patch.dict({}):
         if mode == "bn":  # on the card: each case of job["bn"]
             result = {"cases": [bn_reading(case, rank, job["device"]) for case in job["bn"]]}
+        elif mode == "mesh":
+            sc = {**job["scenarios"][0], "mesh": job["mesh"]}
+            result = {"dg": {k: v for k, v in run_dg(sc, rank, world).items() if k != "state"}}
         else:
             result = (run_steps if mode == "steps" else run_cli)(job, rank, world, out)
     result["written"] = written

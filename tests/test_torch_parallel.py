@@ -3,9 +3,12 @@ gloo ranks against one process and against the JAX package.
 
 The contract is the JAX package's (`cpcsv_tpu/parallel/mesh.py`,
 `tests/test_multiprocess.py`): a run on W ranks equals a one-process run on
-the same global batches up to the order of its reductions. Two launches of
-two ranks each (`tests/_torch_parallel_worker.py`, a `file://` rendezvous in
-the test's directory, so that parallel test workers never race for a port):
+the same global batches up to the order of its reductions. A mesh with
+other axes than `data` (the JAX package's `make_mesh` layout) shards the
+batches over `data` and replicates over the rest. Two launches of two ranks
+and one of four (`tests/_torch_parallel_worker.py`, a `file://` rendezvous
+in the test's directory, so that parallel test workers never race for a
+port):
 
   * `steps`: for final.yml (v1), cascade.yml and the variants
     USE_SEQ_CONSISTENCY (shuffled stories fed as input), USE_INFONCE and
@@ -13,12 +16,16 @@ the test's directory, so that parallel test workers never race for a port):
     rows a rank (4 global), one D and one G step from one state with the
     same global noise: the wrong pair of a rank's last row takes the next
     rank's first condition, and the last rank's wrong-pair head sees one
-    row. Then a D+G step, a save, a restore on both ranks and one more
-    step; a train-mode BN whose rows all lie on rank 0; a --load_ckpt dump
-    through the centralized walk;
+    row; and final.yml under MESH_SHAPE data:1,model:2, each rank the 4
+    rows, bit for bit one process. Then a D+G step, a save, a restore on
+    both ranks and one more step; a train-mode BN whose rows all lie on
+    rank 0; a --load_ckpt dump through the centralized walk;
   * `cli`: `cli.main_pororo` with MESH_SHAPE data:2 for one epoch, then an
     auto-resumed one, against a straight two-epoch run; its --load_ckpt dump;
-    `cli.main_clevr` for one epoch.
+    `cli.main_clevr` for one epoch; both CLIs for one epoch under
+    data:1,model:2 against one process at the doubled batches, bit for bit;
+  * `mesh`: four ranks under data:2,model:2, one D+G step of final.yml, bit
+    for bit the `steps` launch's two ranks on the same global batch.
 
 Tolerances: the metrics at rtol 1e-3 / atol 1e-4, as
 `tests/test_multiprocess.py` holds the JAX package; the two ranks bit for
@@ -40,6 +47,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -67,7 +75,12 @@ SCENARIOS = {
     "seq": ("final.yml", {"USE_SEQ_CONSISTENCY": True}),
     "infonce": ("final.yml", {"USE_INFONCE": True}),
     "noseg": ("final.yml", {"SEGMENT_LEARNING": False}),
+    "model": ("final.yml", {}),
 }
+# the scenarios the ranks run on a mesh other than "" (one process runs
+# their global batch alone): a model axis, each rank the whole batch
+MESHES = {"model": "data:1,model:2"}
+FOUR = "data:2,model:2"  # the four-rank launch's mesh, against "" on two ranks
 GRAD_REL_L2 = 1e-5  # float64
 GRAD_REL_L2_F32 = tts.GRAD_RTOL  # float32, 1e-2 (see the docstring)
 TOL = dict(rtol=1e-3, atol=1e-4)
@@ -98,7 +111,7 @@ def _scenario(sid, jax_run):
         gen = torch.Generator().manual_seed(11)
         noise = [(state.gen.draw_noise(B, cfg.VIDEO_LEN, gen), state.gen.draw_noise(B, 1, gen))
                  for _ in range(2)]
-    return {"id": sid, "cfg": (name, tts.TINY, keys),
+    return {"id": sid, "cfg": (name, tts.TINY, keys), "mesh": MESHES.get(sid),
             "state": {n: {k: v.clone() for k, v in net.state_dict().items()}
                       for n, net in state.nets().items()},
             "st": {k: np.asarray(v) for k, v in st.items()},
@@ -106,18 +119,18 @@ def _scenario(sid, jax_run):
             "noise_d": noise[0], "noise_g": noise[1]}
 
 
-def _launch(mode, job, root: Path, env=None):
-    """Start WORLD ranks of the worker; returns a function that waits for
+def _launch(mode, job, root: Path, env=None, world: int = WORLD):
+    """Start `world` ranks of the worker; returns a function that waits for
     them and loads each rank's result."""
     job_path = root / f"{mode}_job.pt"
     torch.save(job, job_path)
     init = f"file://{root / f'{mode}_rendezvous'}"
     procs, outs = [], []
-    for rank in range(WORLD):
+    for rank in range(world):
         out = root / f"{mode}_rank{rank}.pt"
         rank_env = {**os.environ, "OMP_NUM_THREADS": "1", **(env(rank) if env else {})}
         procs.append(subprocess.Popen(
-            [sys.executable, worker.__file__, mode, str(rank), str(WORLD), init, str(job_path),
+            [sys.executable, worker.__file__, mode, str(rank), str(world), init, str(job_path),
              str(out)], env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
         outs.append(out)
@@ -127,15 +140,18 @@ def _launch(mode, job, root: Path, env=None):
         assert all(p.returncode == 0 for p in procs), "\n".join(
             f"{mode} rank {rank} exited {p.returncode}:\n{log[-3000:]}"
             for rank, (p, log) in enumerate(zip(procs, logs)))
-        return [torch.load(o, weights_only=False) for o in outs]
+        results = [torch.load(o, weights_only=False) for o in outs]
+        for path in (job_path, *outs):  # hundreds of MB: rank 0's gradients in float64
+            path.unlink()
+        return results
 
     return wait
 
 
-def _tiny_yaml(path: Path, name: str, **train) -> str:
-    """`name`'s keys at the tiny widths, MESH_SHAPE data:2, `train` in TRAIN."""
+def _tiny_yaml(path: Path, name: str, mesh: str = f"data:{WORLD}", **train) -> str:
+    """`name`'s keys at the tiny widths, MESH_SHAPE `mesh`, `train` in TRAIN."""
     cfg = _cfg(name, {})
-    d = dataclasses.asdict(cfg.with_updates(MESH_SHAPE=f"data:{WORLD}", TRAIN=dataclasses.replace(
+    d = dataclasses.asdict(cfg.with_updates(MESH_SHAPE=mesh, TRAIN=dataclasses.replace(
         cfg.TRAIN, **train)))
     path.write_text(yaml.safe_dump(d))
     return str(path)
@@ -143,9 +159,11 @@ def _tiny_yaml(path: Path, name: str, **train) -> str:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Both launches, started together, and the one-process references
-    computed meanwhile: {"steps": [rank0, rank1], "one": one process,
-    "cli": [rank0, rank1], "jax": test_torch_train_step's final.yml run}."""
+    """The three launches, the four ranks' after the others', and the
+    one-process references computed meanwhile: {"steps": [rank0, rank1],
+    "one": one process, "cli": [rank0, rank1], "cli_one": the CLIs in one
+    process, "four": [rank0, ..., rank3] on FOUR, "jax":
+    test_torch_train_step's final.yml run}."""
     root = tmp_path_factory.mktemp("parallel").resolve()
     cli_root = root / "cli"
     cli_root.mkdir()
@@ -155,6 +173,13 @@ def runs(tmp_path_factory):
     train = dict(IM_BATCH_SIZE=2 * LOCAL, ST_BATCH_SIZE=LOCAL, SNAPSHOT_INTERVAL=1)
     pororo = _tiny_yaml(cli_root / "final_dp.yml", "final.yml", **train)
     clevr = _tiny_yaml(cli_root / "clevr_dp.yml", "clevr.yml", **train)
+    # a model axis: the same global batches, each rank the whole of them,
+    # against one process at the doubled batches
+    model_yamls = {name: (_tiny_yaml(cli_root / f"{name}_model.yml", f"{name}.yml",
+                                     mesh=MESHES["model"], **train),
+                          _tiny_yaml(cli_root / f"{name}_one.yml", f"{name}.yml", mesh="",
+                                     **{**train, "IM_BATCH_SIZE": 2 * B, "ST_BATCH_SIZE": B}))
+                   for name in ("final", "clevr")}
     base = ["--synthetic", "8", "--device", "cpu"]
     cli_job = {"root": str(cli_root), "runs": {
         "straight": ("pororo", str(cli_root / "a"), ["--cfg", pororo, *base, "--max_epoch", "2"]),
@@ -163,6 +188,10 @@ def runs(tmp_path_factory):
                     ["--cfg", pororo, *base, "--max_epoch", "2", "--continue_ckpt", "auto"]),
         "dump": ("pororo", str(cli_root / "b"), ["--cfg", pororo, *base, "--load_ckpt", "2"]),
         "clevr": ("clevr", str(cli_root / "c"), ["--cfg", clevr, *base, "--max_epoch", "1"]),
+        **{f"{name}_model": ("clevr" if name == "clevr" else "pororo",
+                             str(cli_root / f"{name}_model"),
+                             ["--cfg", files[0], *base, "--max_epoch", "1"])
+           for name, files in model_yamls.items()},
     }}
     cli = _launch("cli", cli_job, root, env=lambda rank: {
         "CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
@@ -180,7 +209,17 @@ def runs(tmp_path_factory):
 
     one_job = {**job, "root": str(root / "one"), "run_dir": str(root / "one" / "run")}
     one = worker.run_steps(one_job, 0, 1, None)
-    return {"steps": steps(), "one": one, "cli": cli(), "jax": jax_run, "root": root}
+    cli_one = worker.run_cli({"root": str(cli_root), "runs": {
+        f"{name}_model": ("clevr" if name == "clevr" else "pororo", str(cli_root / f"{name}_one"),
+                          ["--cfg", files[1], *base, "--max_epoch", "1"])
+        for name, files in model_yamls.items()}}, 0, 1, None)
+    cli = cli()
+    # the four ranks start once this process and the cli ranks are done, so
+    # that no more processes than cores compete while the steps ranks run
+    four = _launch("mesh", {"root": str(root / "four"), "scenarios": job["scenarios"][:1],
+                            "mesh": FOUR}, root, world=2 * WORLD)
+    return {"steps": steps(), "one": one, "cli": cli, "cli_one": cli_one, "four": four(),
+            "jax": jax_run, "root": root}
 
 
 def _rel_l2(a: dict, ref: dict) -> float:
@@ -301,6 +340,66 @@ def test_centralized_walk_runs_on_rank_0(runs):
         assert p.read_bytes() == (one_dir / p.name).read_bytes(), p.name
 
 
+@pytest.mark.parametrize("precision", ["float32", "float64"])
+def test_model_axis_equals_one_process_bit_for_bit(runs, precision):
+    """MESH_SHAPE data:1,model:2: each rank reads the whole global batch and
+    its data group is itself, so one D and one G step from one state give
+    one process's bits on both ranks: metrics, gradients, the state's
+    checksums, the BN statistics and SN vectors."""
+    ranks = [r if precision == "float32" else r["float64"] for r in runs["steps"]]
+    one = (runs["one"] if precision == "float32" else runs["one"]["float64"])["model"]
+    one_bits = worker.grad_bits(one)
+    for rank, got in enumerate(r["model"] for r in ranks):
+        for which in ("d", "g"):
+            assert got[which]["metrics"] == one[which]["metrics"], (rank, which)
+            np.testing.assert_array_equal(got[which]["checksums"], one[which]["checksums"])
+            if rank == 0:
+                for net, grads in one[which]["grads"].items():
+                    for key, g in grads.items():
+                        np.testing.assert_array_equal(got[which]["grads"][net][key], g,
+                                                      err_msg=f"{which} {net}.{key}")
+            else:  # rank 1's gradients come as bit sums
+                assert got[which]["grads"] == one_bits[which]["grads"], which
+            for net, tensors in one[which]["tensors"].items():
+                for key, value in tensors.items():
+                    np.testing.assert_array_equal(got[which]["tensors"][net][key], value,
+                                                  err_msg=f"{which} {net}.{key}")
+
+
+def test_four_ranks_on_data_and_model_axes_equal_two_on_data(runs):
+    """MESH_SHAPE data:2,model:2 on four ranks against "" (data:2) on two, the
+    same global batch, state and noise, one D+G step: rank r reads data
+    shard r // 2, sums over its data group {r % 2, r % 2 + 2}, and ends with
+    the metrics, state and gradients of the two-rank run's rank r // 2, bit
+    for bit (a sum of two operands does not depend on their order). The
+    two ranks' one data group is the default group; the four form two."""
+    two = [r["dg"] for r in runs["steps"]]
+    assert two[0]["metrics"] == two[1]["metrics"]
+    assert all(r["default_group"] for r in two)
+    assert not any(r["dg"]["default_group"] for r in runs["four"])
+    for rank, r in enumerate(runs["four"]):
+        ref = two[rank // 2]
+        assert r["dg"]["metrics"] == ref["metrics"], rank
+        np.testing.assert_array_equal(r["dg"]["checksums"], ref["checksums"], err_msg=str(rank))
+        assert r["dg"]["grad_bits"] == ref["grad_bits"], rank
+        assert rank == 0 or r["written"] == []
+
+
+def test_cli_trains_on_a_model_axis(runs):
+    """MESH_SHAPE data:1,model:2 through `cli.main_pororo` and `cli.main_clevr`
+    on two ranks, one epoch: every step's metrics and the final state equal
+    one process's at the doubled batches (the same global batches) bit for
+    bit, on both ranks; rank 1 writes no file."""
+    r0, r1 = runs["cli"]
+    for name in ("final_model", "clevr_model"):
+        one = runs["cli_one"][name]
+        assert len(one["history"]) == 2 * 2, name
+        for r in (r0, r1):
+            assert r[name]["history"] == one["history"], name
+            np.testing.assert_array_equal(r[name]["checksums"], one["checksums"], err_msg=name)
+    assert r1["written"] == []
+
+
 def test_cli_trains_with_two_ranks(runs):
     """MESH_SHAPE data:2 through `cli.main_pororo` and `cli.main_clevr` with two
     ranks: the ranks' metrics equal every step; one epoch plus an
@@ -374,15 +473,110 @@ def test_group_of_one_rank_gives_one_process_bits(tmp_path):
                                                   err_msg=f"{which} {part} {net}.{key}")
 
 
+# (MESH_SHAPE, every rank's coordinates, the data groups): the JAX package's
+# device layout, `np.asarray(devices).reshape(sizes)`, rank r at
+# np.unravel_index(r, sizes)
+LAYOUTS = {
+    "data:2,model:2": ([(0, 0), (0, 1), (1, 0), (1, 1)], ((0, 2), (1, 3))),
+    "model:2,data:2": ([(0, 0), (0, 1), (1, 0), (1, 1)], ((0, 1), (2, 3))),
+    "data:2,model:1,replica:2": ([(0, 0, 0), (0, 0, 1), (1, 0, 0), (1, 0, 1)], ((0, 2), (1, 3))),
+}
+
+
+@pytest.mark.parametrize("mesh_shape", list(LAYOUTS))
+def test_mesh_layout_and_the_loader_slices(mesh_shape):
+    """Each rank's coordinates, data index and data group over four ranks,
+    and the rows its loader reads: data shard d of 2 of every global batch,
+    the replicas of a shard the same rows, the two shards the whole batch."""
+    coords, groups = LAYOUTS[mesh_shape]
+    data_axis = [name for name, _ in mesh.parse_mesh_shape(mesh_shape)].index("data")
+
+    class Items:
+        def __len__(self):
+            return 12
+
+        def __getitem__(self, i):
+            return {"i": np.asarray([i])}
+
+    rows = {}
+    for rank in range(4):
+        layout = mesh.mesh_layout(mesh_shape, rank, 4)
+        assert layout.coords == coords[rank] and layout.groups == groups
+        assert (layout.data_index, layout.data_count) == (coords[rank][data_axis], 2)
+        group = next(g for g in groups if rank in g)
+        assert group.index(rank) == layout.data_index
+        loader = DataLoader(Items(), 4, shuffle=True, seed=3, process_index=layout.data_index,
+                            process_count=layout.data_count)
+        loader.set_epoch(1)
+        rows[rank] = [b["i"].ravel().tolist() for b in loader]
+    full = DataLoader(Items(), 4, shuffle=True, seed=3)
+    full.set_epoch(1)
+    full = [b["i"].ravel().tolist() for b in full]
+    for rank in range(4):
+        d = coords[rank][data_axis]
+        assert rows[rank] == [b[2 * d:2 * d + 2] for b in full]
+
+
+@pytest.mark.parametrize("mesh_shape,rank,world,shard", [
+    ("data:1,model:2", 1, 2, (0, 1)),
+    ("", 1, 2, (1, 2)),
+    ("data:2,model:2", 1, 4, (0, 2)),
+    ("model:2,data:2", 1, 4, (1, 2)),
+])
+def test_training_loaders_read_the_config_meshs_shard(monkeypatch, mesh_shape, rank, world,
+                                                      shard):
+    """The loaders a training run builds (`synthetic_loaders`, as
+    `build_pororo_loaders` and `clevr_loaders`, through `training_loaders`)
+    read the data shard of cfg.MESH_SHAPE's layout over (rank, world),
+    with no process group or data group formed; a walk's (rank, world) is taken as given,
+    on any well-formed mesh, and a mesh training refuses raises."""
+    from cpcsv_tpu_torch.cli import dispatch
+    from cpcsv_tpu_torch.cli.main_pororo import synthetic_loaders
+    from cpcsv_tpu_torch.data import loader
+
+    monkeypatch.setattr(loader, "process_info", lambda: (rank, world))
+    monkeypatch.setattr(distributed, "process_info", lambda: (rank, world))
+    cfg = _cfg("final.yml", {"MESH_SHAPE": mesh_shape})
+    cfg = cfg.with_updates(TRAIN=dataclasses.replace(cfg.TRAIN, IM_BATCH_SIZE=2, ST_BATCH_SIZE=2))
+    walk = SimpleNamespace(eval_fid=True, eval_fvd=False, eval_is=False, eval_ssim=False,
+                           load_ckpt=None)
+    train = SimpleNamespace(**{**vars(walk), "eval_fid": False})
+    assert dispatch.loader_shard(train) is None
+    for loaders, want in ((synthetic_loaders(cfg, 8, 0, dispatch.loader_shard(train)), shard),
+                          (synthetic_loaders(cfg, 8, 0, dispatch.loader_shard(walk)),
+                           (rank, world))):
+        assert [(ld.process_index, ld.process_count) for ld in loaders] == [want] * 3
+    refused = cfg.with_updates(MESH_SHAPE="model:" + str(world))
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        synthetic_loaders(refused, 8, 0)
+    test = synthetic_loaders(refused, 8, 0, dispatch.loader_shard(walk))[2]
+    assert (test.process_index, test.process_count) == (rank, world)
+
+
+@pytest.mark.parametrize("mesh_shape,world,match", [
+    ("model:2", 2, "no 'data' axis"),
+    ("data:2,data:1", 2, "named twice"),
+    ("data:2,model:2", 2, "spans 4 ranks but the run has 2 processes"),
+    ("data:1,model:2", 1, "spans 2 ranks but the run has 1 process"),
+    ("data:2,model", 4, "NAME:SIZE"),
+])
+def test_a_training_mesh_the_jax_trainer_refuses_raises(mesh_shape, world, match):
+    """No `data` axis, a duplicate axis, a size other than the world's, a
+    malformed axis: ValueError, before any group forms."""
+    with pytest.raises(ValueError, match=match):
+        mesh.mesh_layout(mesh_shape, 0, world)
+
+
 def test_mesh_shape_parsing_and_the_environment(monkeypatch):
-    """mesh_size and the axis check; a half-set environment raises, and none
-    leaves the process alone."""
+    """mesh_size and the layout of a one-process mesh; a half-set environment
+    raises, and none leaves the process alone."""
     assert mesh.mesh_size("") == 1 and mesh.mesh_size("data:4") == 4
     assert mesh.parse_mesh_shape("data:4,model:2") == [("data", 4), ("model", 2)]
     with pytest.raises(ValueError, match="NAME:SIZE"):
         mesh.parse_mesh_shape("data")
-    with pytest.raises(NotImplementedError, match="model"):
-        mesh.check_data_axes("data:2,model:2")
+    one = mesh.check_training_mesh("data:1,model:1")
+    assert (one.coords, one.data_index, one.data_count, one.groups) == ((0, 0), 0, 1, ((0,),))
+    assert mesh.check_training_mesh("").axes == (("data", 1),)
     with pytest.raises(ValueError, match="spans 2 ranks"):
         mesh.check_training_mesh("data:2")
     mesh.check_training_mesh("data:1")

@@ -102,13 +102,14 @@ def test_sample_grids_match_jax(tmp_path):
 
 @pytest.mark.parametrize("update,error,match", [
     ({"MESH_SHAPE": "data:4"}, ValueError, "spans 4 ranks but the run has 1 process"),
-    ({"MESH_SHAPE": "data:1,model:2"}, NotImplementedError, r"axes \['model'\]"),
+    ({"MESH_SHAPE": "data:1,model:2"}, ValueError, "spans 2 ranks but the run has 1 process"),
     ({"MESH_SHAPE": "data"}, ValueError, "NAME:SIZE"),
 ])
 def test_trainer_refuses_what_it_does_not_do(update, error, match, tmp_path, monkeypatch):
     """MESH_SHAPE is honoured (`parallel/`): a mesh that does not span the
-    process group, one with an axis other than `data`, or a malformed one
-    raises; none turns into a one-process run."""
+    process group (data:1,model:2 spans two ranks: its model axis
+    replicates, it does not shrink), or a malformed one raises; none turns
+    into a one-process run."""
     cfg = tiny_cfg().with_updates(**update)
     with pytest.raises(error, match=match):
         GANTrainer(cfg, str(tmp_path), device="cpu")
