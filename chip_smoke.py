@@ -40,10 +40,10 @@ Phases, each of which exits non-zero on failure:
      step gave them, at N=7 and at edge shapes, each aligned and unaligned;
      then on bfloat16 x and dy at every shape of the bfloat16 steps
      (phase 16);
-  9. the BN kernels and their library calls at every shape of both steps,
-     one CUDA graph each with L2-cold inputs, beside their bounds, summed
-     over each config's step by launches; the plain versions and a trace at
-     the largest shape; the DFN backward at B = 90 and 7 (and the op the step
+  9. the BN kernels at every shape of both steps, one CUDA graph each with
+     L2-cold inputs, beside their bounds, summed over each config's step by
+     launches; their library calls, the plain versions and a trace at the
+     largest shape; the DFN backward at B = 90 and 7 (and the op the step
      runs, on its strided dout) over the floor, and the DFN pair's time a
      step; the same at bfloat16 for the bfloat16 steps, the DFN pair at
      B = 360;
@@ -58,9 +58,10 @@ Phases, each of which exits non-zero on failure:
      port's writer into a temporary directory under build/, and cascade.yml
      --data_dir on it through the CLI for one epoch of 11 steps: the launches, finite
      metrics under the cascade tags, the snapshots of epochs 0 and 1; the
-     epoch's frames/s, the median step after the first against phase 6's,
-     the first-batch wait, the loader's host time a batch, the idle share of
-     5 traced steps;
+     epoch's frames/s, the ms a pair against phase 6's step (at the
+     shipped SCAN_STEPS the epoch is one chunk of 11 pairs: an eager pair,
+     the capture, then replays), the first-batch wait, the loader's host
+     time a batch, the idle share of the traced chunk;
  12. --eval_fid 1, --eval_ssim 1 and --load_ckpt 1 through the CLI on that
      run's final snapshot (the epoch-0 one, of the same state, removed): a
      CSV row a snapshot, finite and tagged random-init;
@@ -132,9 +133,10 @@ Phases, each of which exits non-zero on failure:
      stories of 4 frames served through `Infer`;
  28. the CLEVR CLI (`cli/main_clevr.py`) at full width, --synthetic 96: 2
      epochs straight with CPCSV_PROFILE_DIR set (the trainer's trace of
-     steps 2-5, the BN and DFN kernels in it), 1 plus an auto-resumed epoch
-     whose state and metrics equal the straight run's bit for bit, and its
-     final snapshot walked with --eval_ssim 1;
+     the second chunk at SCAN_STEPS CLEVR_SCAN, the BN and DFN kernels of
+     its graph replays in it), 1 plus an auto-resumed epoch whose state and
+     metrics equal the straight run's bit for bit, and its final snapshot
+     walked with --eval_ssim 1;
  29. data parallelism (`cpcsv_tpu_torch/parallel/`): two gloo ranks, each a
      process of this script sharing the card, at full final.yml width and
      IM_BATCH 90 / ST_BATCH 18 a rank (180 / 36 global): one D+G step from
@@ -170,7 +172,17 @@ Phases, each of which exits non-zero on failure:
      throughput.yml, one step of each and the Adam state's bytes; the CLEVR
      CLI --data_dir on a CLEVR-layout tree written into a temporary
      directory (CLEVR_DISK stories, the loaders' fixed id ranges cut to
-     them), one epoch, then --eval_fid 1 on its snapshot.
+     them), one epoch, then --eval_fid 1 on its snapshot;
+ 35. SCAN_STEPS, the JAX trainer's default path, which the shipped configs
+     take (20; the CLI phases above run their epochs in chunks, replayed as
+     CUDA graphs, the gloo ranks' eagerly): (a) final.yml, cascade.yml and
+     bf16 procedural.yml through GANTrainer, 2 epochs of SCAN_PAIRS steps
+     at SCAN_STEPS SCAN_PAIRS against 1, every update's metrics, every
+     state tensor and the launches bit for bit; (b) the same final.yml run
+     on one NCCL rank (in phase 30's launch), bit for bit (a)'s; (c) a warm
+     chunk of 20 against 20 single pairs of final.yml and procedural.yml:
+     ms a step, busy ms and idle share from a trace, the graph's nodes and
+     the memory its capture took.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -259,8 +271,15 @@ REORDERINGS = ((0,), (2,), (0, 2), "float64")
 F32_YARDSTICK = ("clevr.yml",)
 # phases 27-28: clevr.yml (4-frame stories, IM 64 / ST 16), its DFN batch,
 # the serving call's stories, and the CLI's --synthetic: 6 story steps an
-# epoch at ST_BATCH 16, so that CPCSV_PROFILE_DIR's steps 2-5 lie in epoch 0
+# epoch at ST_BATCH 16
+# phase 35: (a) configs trained 2 epochs of SCAN_PAIRS steps at SCAN_STEPS
+# SCAN_PAIRS and 1 (SCAN_SYNTHETIC stories: SCAN_PAIRS steps at ST_BATCH
+# 18); (c) configs timed at the shipped SCAN_STEPS
+SCAN_CONFIGS = ("final.yml", "cascade.yml", "procedural.yml")
+SCAN_PAIRS, SCAN_SYNTHETIC = 4, 72
+SCAN_TIMED_CONFIGS, SCAN_TIMED_K, SCAN_TIMED_CHUNKS = ("final.yml", "procedural.yml"), 20, 2
 CLEVR_CONFIG, CLEVR_DFN_B, CLEVR_STORIES, CLEVR_SYNTHETIC = "clevr.yml", 64, 16, 96
+CLEVR_SCAN = 3  # phase 28's SCAN_STEPS: 2 chunks an epoch, CPCSV_PROFILE_DIR traces the second
 COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
 GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
 # (N, C, S) beside the step's BN shapes: one row, one channel, S not a
@@ -861,6 +880,58 @@ def read_counts() -> dict[str, int]:
     from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
 
     return {**dfn_cuda.launches, **bn_cuda.launches}
+
+
+def is_d_tag(tag: str) -> bool:
+    """A metric of the D step (the seg, image and story Ds' tags)."""
+    return "_D/" in tag or tag.endswith("_D")
+
+
+@contextlib.contextmanager
+def spying_updates(history: list, before=None):
+    """While open, the trainer's updates append their metrics (floats) to
+    `history`, a D and a G entry a pair, whether the pair ran alone
+    (`make_train_steps`) or in a chunk of SCAN_STEPS (`make_scan_steps`,
+    whose rows come back once a chunk and are split by tag); `before(pairs)`,
+    if given, runs before each update call: a D step (1) or a chunk (K)."""
+    import torch
+
+    from cpcsv_tpu_torch.train import trainer as trainer_module
+
+    make_steps, make_scan = trainer_module.make_train_steps, trainer_module.make_scan_steps
+
+    def steps(cfg):
+        def spy(step, first):
+            def run(*a):
+                if first and before is not None:
+                    before(1)
+                state, metrics = step(*a)
+                history.append({k: float(v) for k, v in metrics.items()})
+                return state, metrics
+            return run
+
+        d_step, g_step = make_steps(cfg)
+        return spy(d_step, True), spy(g_step, False)
+
+    def scan(cfg):
+        real = make_scan(cfg)
+
+        def run(state, rng, st, im, *lrs):
+            if before is not None:
+                before(len(st["images"]))
+            state, metrics = real(state, rng, st, im, *lrs)
+            for row in torch.stack(list(metrics.values()), 1).tolist():
+                row = dict(zip(metrics, row))
+                d = {k: v for k, v in row.items() if is_d_tag(k)}
+                history.extend([d, {k: v for k, v in row.items() if k not in d}])
+            return state, metrics
+
+        run.graphs = real.graphs
+        return run
+
+    with mock.patch.object(trainer_module, "make_train_steps", steps), \
+            mock.patch.object(trainer_module, "make_scan_steps", scan):
+        yield
 
 
 def train_at_full_width(name: str, seed: int, card: str) -> types.SimpleNamespace:
@@ -1464,9 +1535,10 @@ def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int
         saves.append((epoch, time.perf_counter() - t))
 
     # host clock: each epoch's steps, from the start of the loop to the last
-    # step's metrics read back, and the wait before its first D step
+    # step's metrics read back, and the wait before its first update (its
+    # first chunk's, at the config's SCAN_STEPS)
     starts, spans, waits = [], [], []
-    real_span, real_steps = trainer_module.record_function, trainer_module.make_train_steps
+    real_span = trainer_module.record_function
 
     @contextlib.contextmanager
     def timed_span(name):
@@ -1475,15 +1547,9 @@ def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int
             yield
         spans.append(time.perf_counter() - starts[-1])
 
-    def timed_steps(cfg):
-        d_step, g_step = real_steps(cfg)
-
-        def d_step_timing_the_first(*args):
-            if len(waits) < len(starts):
-                waits.append(time.perf_counter() - starts[-1])
-            return d_step(*args)
-
-        return d_step_timing_the_first, g_step
+    def first_wait(pairs):
+        if len(waits) < len(starts):
+            waits.append(time.perf_counter() - starts[-1])
 
     printed = io.StringIO()  # the CLI's output; its config dump is left out below
     cwd = os.getcwd()
@@ -1491,8 +1557,7 @@ def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int
     try:
         with mock.patch.object(CheckpointManager, "save", timed_save), \
                 mock.patch.object(trainer_module, "record_function", timed_span), \
-                mock.patch.object(trainer_module, "make_train_steps", timed_steps), \
-                contextlib.redirect_stdout(printed):
+                spying_updates([], first_wait), contextlib.redirect_stdout(printed):
             reset_counts()  # the main path: the CLI only
             t = time.perf_counter()
             main_pororo.main(args + ["--max_epoch", "1"])
@@ -1504,10 +1569,12 @@ def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int
     finally:
         os.chdir(cwd)
     lines = [line for line in printed.getvalue().splitlines()
-             if line.startswith(("----[", "Auto-resume", "Continue", "LR DECAY"))]
+             if line.startswith(("----[", "Auto-resume", "Continue", "LR DECAY", "SCAN_STEPS"))]
     print(f"CLI output [{card}] (config dumps left out):\n  " + "\n  ".join(lines))
     check("Auto-resume from epoch 1" in lines,
           "the second CLI run did not print 'Auto-resume from epoch 1'")
+    check(f"SCAN_STEPS {cfg.SCAN_STEPS}: each chunk's pairs replayed as a CUDA graph of the D+G "
+          "pair" in lines, "the CLI did not say that its chunks replay a CUDA graph")
 
     model = run_dir / "Model"
     for f in ("netG_epoch_0.pth", "netG_epoch_1.pth", "netG_epoch_2.pth", "train_state_last.pth",
@@ -1536,13 +1603,12 @@ def cli_trainer(card: str, per_step: dict[str, int], seed: int) -> dict[str, int
           "step, plus one dfn_forward a grid")
 
     # the traced (second) run: the card's busy time inside its epoch's steps
-    events = prof.events()
-    span = [e for e in events if e.name == EPOCH_STEPS_SPAN and e.device_type == DeviceType.CPU]
+    span = [e for e in prof.profiler.kineto_results.events()
+            if e.name() == EPOCH_STEPS_SPAN and e.device_type() == DeviceType.CPU]
     check(len(span) == 1, f"{len(span)} '{EPOCH_STEPS_SPAN}' ranges in the trace of one epoch")
-    start, end = span[0].time_range.start, span[0].time_range.end
-    dev = device_events(events)
-    busy = sum(e.time_range.elapsed_us() for e in dev
-               if start <= e.time_range.start and e.time_range.end <= end)
+    start = span[0].start_ns() / 1e3  # µs
+    end = start + span[0].duration_ns() / 1e3
+    busy = sum(b - a for a, b in raw_device_spans(prof) if start <= a / 1e3 and b / 1e3 <= end) / 1e3
     check(busy > 0, "the trace holds no device work inside the epoch's steps")
     sizes = {f: (model / f).stat().st_size / 2**20 for f in ("netG_epoch_2.pth",
                                                              "train_state_last.pth")}
@@ -1611,9 +1677,14 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
     traced = range(DISK_TRACED[0], DISK_TRACED[0] + DISK_TRACED[1])
 
     host: dict[str, list] = {}  # host seconds by what ran
-    starts, spans, step_starts = [], [], []  # per epoch: the span's start and length, its steps
+    # per epoch: the span's start and length, its update calls (start, pairs)
+    starts, spans, step_starts = [], [], []
     window = {}
-    real_span, real_steps = trainer_module.record_function, trainer_module.make_train_steps
+    real_span = trainer_module.record_function
+
+    def close_window():
+        window["host_s"] = time.perf_counter() - window.pop("t")
+        window["prof"].__exit__(None, None, None)
 
     @contextlib.contextmanager
     def timed_span(name):
@@ -1621,24 +1692,22 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
         step_starts.append([])
         with real_span(name):
             yield
+        if "t" in window:  # the traced chunk ended the epoch, its metrics read back
+            close_window()
         spans.append(time.perf_counter() - starts[-1])
 
-    def timed_steps(cfg):
-        d_step, g_step = real_steps(cfg)
-
-        def d_step_timing(*args):
-            i = len(step_starts[-1])
-            if i == traced.stop:  # the card drained with the last readback
-                window["host_s"] = time.perf_counter() - window.pop("t")
-                window["prof"].__exit__(None, None, None)
-            step_starts[-1].append(time.perf_counter())
-            if i == traced.start:
-                window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                window["prof"].__enter__()
-                window["t"] = time.perf_counter()
-            return d_step(*args)
-
-        return d_step_timing, g_step
+    def before_update(pairs):
+        """One pair at a time, steps `traced` are traced; in chunks of
+        SCAN_STEPS, the epoch's last chunk."""
+        i = sum(n for _, n in step_starts[-1])  # the pairs run before this call
+        if "t" in window and i == traced.stop:  # the card drained with the last readback
+            close_window()
+        step_starts[-1].append((time.perf_counter(), pairs))
+        if i == traced.start if pairs == 1 else i + pairs == steps_an_epoch:
+            window["pairs"] = pairs if pairs > 1 else len(traced)
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].__enter__()
+            window["t"] = time.perf_counter()
 
     def timed_loading(buckets):
         stack = contextlib.ExitStack()
@@ -1679,8 +1748,8 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
     os.chdir(run_root)
     try:
         with mock.patch.object(trainer_module, "record_function", timed_span), \
-                mock.patch.object(trainer_module, "make_train_steps", timed_steps), \
-                timed_loading(host), contextlib.redirect_stdout(printed):
+                spying_updates([], before_update), timed_loading(host), \
+                contextlib.redirect_stdout(printed):
             reset_counts()  # the main path: the CLI only
             t = time.perf_counter()
             main_pororo.main(["--cfg", cfg_file, "--data_dir", str(data_dir), "--max_epoch", "1",
@@ -1720,21 +1789,29 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
 
     fps = {r["step"]: r["value"] for r in records if r["tag"] == "perf/frames_per_sec"}
     epoch_s = {r["step"]: r["value"] for r in records if r["tag"] == "perf/epoch_seconds"}
-    check(len(spans) == 1 and all(len(s) == steps_an_epoch for s in step_starts),
-          f"{len(spans)} epochs with {[len(s) for s in step_starts]} steps timed")
+    check(len(spans) == 1 and all(sum(n for _, n in s) == steps_an_epoch for s in step_starts),
+          f"{len(spans)} epochs with {[[n for _, n in s] for s in step_starts]} steps timed")
     frames_per_step = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
     for epoch in (0,):
-        marks = step_starts[epoch] + [starts[epoch] + spans[epoch]]
-        steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-        later = sorted(steps_ms[1:])
-        med = later[len(later) // 2]
-        wait = (step_starts[epoch][0] - starts[epoch]) * 1e3
+        calls = step_starts[epoch]
+        ends = [t for t, _ in calls[1:]] + [starts[epoch] + spans[epoch]]
+        pair_ms = [(e - t) * 1e3 / n for (t, n), e in zip(calls, ends)]  # a pair, each call
+        wait = (calls[0][0] - starts[epoch]) * 1e3
+        if len(calls) > 1:
+            later = sorted(pair_ms[1:])
+            med = later[len(later) // 2]
+            pace = (f"first step {pair_ms[0]:.2f} ms; steps after the first {med:.2f} ms "
+                    f"median (min {later[0]:.2f}, max {later[-1]:.2f})")
+        else:
+            med = pair_ms[0]
+            pace = (f"one chunk of {calls[0][1]} pairs at SCAN_STEPS {cfg.SCAN_STEPS} "
+                    f"(the run's first: an eager pair, the capture, then replays) "
+                    f"{med:.2f} ms a pair")
         print(f"--data_dir epoch {epoch} [{card}]: {fps[epoch]:.1f} frames/s "
               f"(perf/frames_per_sec), {epoch_s[epoch]:.2f} s; its {steps_an_epoch} steps "
               f"{spans[epoch] * 1e3:.2f} ms on the host clock ({steps_an_epoch * frames_per_step / spans[epoch]:.1f} "
-              f"frames/s); first-batch wait {wait:.2f} ms; first step {steps_ms[0]:.2f} ms; "
-              f"steps after the first {med:.2f} ms median (min {later[0]:.2f}, max {later[-1]:.2f})"
-              + f", {len(traced)} of them traced"
+              f"frames/s); first-batch wait {wait:.2f} ms; {pace}"
+              + f", {window['pairs']} of them traced"
               + f"; phase 6 cascade step {phase6.step_ms:.2f} ms with batches on the card")
     items = {k: len(v) for k, v in host.items()}
     batches = len(host["collate"])
@@ -1747,11 +1824,11 @@ def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamesp
           f"{sum(host['collate']) / batches * 1e3:.2f} ms a batch over {batches} batches; items "
           f"read {items}; host time an item {np.mean(host['story item']) * 1e3:.2f} ms a story, "
           f"{np.mean(host['image item']) * 1e3:.2f} ms an image")
-    dev = device_events(window["prof"].events())
-    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    dev = raw_device_spans(window["prof"])
+    busy = sum(b - a for a, b in dev) / 1e6
     check(busy > 0, "the trace of the epoch's steps holds no device work")
-    n = len(traced)
-    print(f"--data_dir epoch 0, steps {traced.start}-{traced.stop - 1} under torch.profiler "
+    n = window["pairs"]
+    print(f"--data_dir epoch 0, {n} steps under torch.profiler "
           f"[{card}]: {window['host_s'] * 1e3 / n:.2f} ms a step on the host clock, device busy "
           f"{busy / n:.2f} ms a step in {len(dev) / n:.0f} ops: idle share "
           f"{1 - busy / (window['host_s'] * 1e3):.3f}; against phase 6's busy "
@@ -2327,14 +2404,23 @@ def bn_library(name: str):
         dy, x, torch.ones_like(mean), None, None, mean, inv, True, 1e-5, [False, True, True])
 
 
+def largest_map(shapes) -> tuple:
+    """The (N, C, S) of most elements (the greater shape on a tie)."""
+    return max(shapes, key=lambda sh: (sh[0] * sh[1] * sh[2], sh))
+
+
 def bn_timings(gen, card: str, runs: dict, dtype):
     """Phase 9, for the steps of `runs` ({config: phase 6's record}) at
-    `dtype`: each BN kernel and its library call at every (N, C, S) a step
-    gave it, one CUDA graph per shape, cycling through input copies that
-    together exceed the L2 (COLD_BYTES), so no call finds its input there;
-    then each config's sums over a step's launches. Returns (per_shape,
-    step_bn): {(kernel, (N, C, S)): BnTime with calls = launches a step of
-    each config}, {config: {kernel: (kernel, library, bound) ms a step}}."""
+    `dtype`: each BN kernel at every (N, C, S) a step gave it, and its
+    library call at the largest of them (to make room for phase 35: the
+    kernels have not changed, and PERF.md keeps the earlier runs' library
+    times at every shape), one CUDA graph per
+    shape, cycling through input copies that together exceed the L2
+    (COLD_BYTES), so no call finds its input there; then each config's sums
+    over a step's launches. Returns (per_shape, step_bn): {(kernel, (N, C,
+    S)): BnTime with calls = launches a step of each config, library_ms None
+    but at the largest shape}, {config: {kernel: (kernel, bound) ms a
+    step}}."""
     import torch
 
     from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
@@ -2343,17 +2429,22 @@ def bn_timings(gen, card: str, runs: dict, dtype):
     print(f"BN per shape, {dtype} [{card}], us per call in one CUDA graph, inputs L2-cold "
           f"(cycled through copies of >= {COLD_BYTES / 1e6:.1f} MB); share = bound / kernel")
     per_shape = {}
+    largest = largest_map(set().union(*(set(r.step_calls["bn_stats"])
+                                        | set(r.step_calls["bn_grad_reduce"])
+                                        for r in runs.values())))
     for name in ("bn_stats", "bn_grad_reduce"):
         for N, Cb, S in sorted(set().union(*(r.step_calls[name] for r in runs.values()))):
             calls = {c: r.step_calls[name].get((N, Cb, S), 0) for c, r in runs.items()}
             inputs = bn_cold_inputs(gen, name, N, Cb, S, dtype)
             kernel_ms = cold_graph_ms(getattr(bn_cuda, name), inputs)
-            library_ms = cold_graph_ms(bn_library(name), inputs)
+            library_ms = (cold_graph_ms(bn_library(name), inputs) if (N, Cb, S) == largest
+                          else None)
             bound, bound_by = bn_bound(name, N, Cb, S, itemsize)
             per_shape[name, (N, Cb, S)] = BnTime((N, Cb, S), calls, kernel_ms, library_ms, bound)
+            library = "" if library_ms is None else f"library {library_ms * 1e3:.2f}, "
             print(f"  {name} N={N} C={Cb} S={S}: a step "
                   + ", ".join(f"{c} x{n}" for c, n in calls.items())
-                  + f"; kernel {kernel_ms * 1e3:.2f}, library {library_ms * 1e3:.2f}, bound "
+                  + f"; kernel {kernel_ms * 1e3:.2f}, {library}bound "
                   f"{bound * 1e3:.3f} ({bound_by}), share {bound / kernel_ms:.3f}; "
                   f"{len(inputs)} copies")
             check(bound <= kernel_ms, f"{name} {(N, Cb, S)}: {kernel_ms * 1e3:.2f} us is under "
@@ -2364,13 +2455,13 @@ def bn_timings(gen, card: str, runs: dict, dtype):
         for name in ("bn_stats", "bn_grad_reduce"):
             rows = [r for (k, _), r in per_shape.items() if k == name and r.calls[c]]
             step_bn[c][name] = tuple(sum(r.calls[c] * getattr(r, k) for r in rows)
-                                     for k in ("kernel_ms", "library_ms", "bound_ms"))
-            kernel_ms, library_ms, bound = step_bn[c][name]
+                                     for k in ("kernel_ms", "bound_ms"))
+            kernel_ms, bound = step_bn[c][name]
             print(f"{c} {name} per step [{card}]: {sum(r.calls[c] for r in rows)} launches at "
                   f"{len(rows)} shapes; sum of launches x kernel {kernel_ms * 1e3:.2f} us, x "
-                  f"library {library_ms * 1e3:.2f} us, x bound {bound * 1e3:.2f} us; share of the "
-                  f"per-step bound {bound / kernel_ms:.3f}")
-        kernel_ms, _, bound = (sum(v) for v in zip(*step_bn[c].values()))
+                  f"bound {bound * 1e3:.2f} us; share of the per-step bound "
+                  f"{bound / kernel_ms:.3f}")
+        kernel_ms, bound = (sum(v) for v in zip(*step_bn[c].values()))
         print(f"{c} BN kernels per step [{card}]: {kernel_ms * 1e3:.2f} us against a bound of "
               f"{bound * 1e3:.2f} us, share {bound / kernel_ms:.3f}")
     return per_shape, step_bn
@@ -2388,7 +2479,7 @@ def bn_largest(gen, card: str, runs: dict, per_shape: dict, dtype) -> dict:
 
     shapes = set().union(*(set(r.step_calls["bn_stats"]) | set(r.step_calls["bn_grad_reduce"])
                            for r in runs.values()))
-    N, Cb, S = largest = max(shapes, key=lambda sh: sh[0] * sh[1] * sh[2])
+    N, Cb, S = largest = largest_map(shapes)
     x, dy = cold_copies(gen, N, Cb, S, 2, dtype=dtype)
     mean = x.float().mean(dim=(0, 2))
     inv = torch.rsqrt(x.float().var(dim=(0, 2), correction=0) + 1e-5)
@@ -2984,11 +3075,15 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
     CLEVR_SYNTHETIC for 2 epochs straight with CPCSV_PROFILE_DIR set (its
     checkpoint saves skipped: it is the reference, and a save is ~5 s at
     this width), then in another working directory 1 epoch and a
-    --continue_ckpt auto epoch. The resumed run's state (nets, Adam states)
-    equals the straight run's bit for bit, and its metrics too; the tags,
-    the launches against the steps and grids run. The straight run's trace:
-    one file, steps 2-5 of epoch 0, the BN and DFN kernels by name, as many
-    as four steps launch (a lost event lowers the count, none raises it).
+    --continue_ckpt auto epoch, all at SCAN_STEPS CLEVR_SCAN (clevr.yml's
+    keys otherwise, written to a YAML under `root`): 2 chunks an epoch, the
+    first pair eager and captured, every later pair a replay, the resumed
+    epoch capturing anew in a process state of its own. The resumed run's
+    state (nets, Adam states) equals the straight run's bit for bit, and its
+    metrics too; the tags, the launches against the steps and grids run.
+    The straight run's trace: one file, the second chunk of epoch 0 (its
+    first warm one), the BN and DFN kernels by name, as many as its pairs
+    launch (a lost event lowers the count, none raises it).
     Then the resumed run's final snapshot (the others removed) walked with
     --eval_ssim 1 at 4 frames a story (phase 34 walks a CLEVR snapshot with
     --eval_fid). Returns the launches."""
@@ -2997,10 +3092,14 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
 
     from cpcsv_tpu_torch.cli import main_clevr
     from cpcsv_tpu_torch.config import config_from_file
-    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
-    from cpcsv_tpu_torch.train.trainer import PROFILE_STEPS
+    import yaml
 
-    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / CLEVR_CONFIG)
+    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+
+    raw = yaml.safe_load((REPO / "cpcsv_tpu_torch" / "configs" / CLEVR_CONFIG).read_text())
+    raw["SCAN_STEPS"] = CLEVR_SCAN
+    cfg_file = str(root / f"clevr_scan{CLEVR_SCAN}.yml")
+    Path(cfg_file).write_text(yaml.safe_dump(raw))
     cfg = config_from_file(cfg_file)
     args = ["--cfg", cfg_file, "--synthetic", str(CLEVR_SYNTHETIC), "--manualSeed", str(seed)]
     steps_an_epoch = CLEVR_SYNTHETIC // cfg.TRAIN.ST_BATCH_SIZE
@@ -3034,9 +3133,11 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
         os.chdir(cwd)
         torch.backends.cudnn.deterministic = saved_det
     lines = [line for line in printed.getvalue().splitlines()
-             if line.startswith(("----[", "Auto-resume", "WARNING"))]
+             if line.startswith(("----[", "Auto-resume", "WARNING", "SCAN_STEPS"))]
     print(f"{CLEVR_CONFIG} CLI output [{card}]:\n  " + "\n  ".join(lines))
     check("Auto-resume from epoch 1" in lines, "the resumed CLEVR run did not auto-resume")
+    check(lines.count(f"SCAN_STEPS {CLEVR_SCAN}: each chunk's pairs replayed as a CUDA graph of "
+                      "the D+G pair") == 3, "the CLEVR CLI runs did not all replay CUDA graphs")
 
     def flat(state):
         out = {}
@@ -3081,17 +3182,18 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
           f"frames/s " + ", ".join(f"epoch {r['step']} {r['value']:.1f}" for r in fps)
           + f"; launches {counts}")
 
-    # CPCSV_PROFILE_DIR: the trace of the straight run's steps 2-5
+    # CPCSV_PROFILE_DIR: the trace of the straight run's second chunk
     traced = profile_trace_kernels(profile_dir)
-    n = PROFILE_STEPS[1] - PROFILE_STEPS[0] + 1
+    n = CLEVR_SCAN
     bn_traced = traced["reduce_maps"] + traced["reduce_rows"]
     bn_launched = n * (per_step["bn_stats"] + per_step["bn_grad_reduce"])
     check(0.99 * bn_launched <= bn_traced <= bn_launched
           and traced["dfn_forward_kernel"] == n * per_step["dfn_forward"]
           and traced["dfn_backward_kernel"] == n * per_step["dfn_backward"],
           f"the CPCSV_PROFILE_DIR trace holds {traced}: expected {n} steps of {per_step}")
-    print(f"CPCSV_PROFILE_DIR [{card}]: one trace, {traced['MB']:.1f} MB, of steps "
-          f"{PROFILE_STEPS[0]}-{PROFILE_STEPS[1]} of epoch 0: {traced['all kernels']} device "
+    print(f"CPCSV_PROFILE_DIR [{card}]: one trace, {traced['MB']:.1f} MB, of the second chunk "
+          f"of epoch 0 (steps {n}-{2 * n - 1}, a CUDA graph replayed {n} times): "
+          f"{traced['all kernels']} device "
           f"kernels, the BN kernels {bn_traced} of {bn_launched} launched (reduce_maps "
           f"{traced['reduce_maps']}, reduce_rows {traced['reduce_rows']}), dfn_forward_kernel "
           f"{traced['dfn_forward_kernel']}, dfn_backward_kernel {traced['dfn_backward_kernel']}")
@@ -3290,6 +3392,7 @@ def dp_worker(args) -> int:
              the job's "model" (phase 32's DP_MODEL) the same step again from
              the same state, each rank the whole global batch;
       nccl:  phase 30's step in an NCCL group of one rank, then timed steps;
+             with the job's "scan", phase 35 (b)'s trainer run;
       cli:   phase 31's and 33's CLI runs, the group formed by the CLI from
              the CPCSV_* variables the parent set (none: one process).
     Writes its readings to --dp-out."""
@@ -3399,6 +3502,14 @@ def dp_worker(args) -> int:
         out["times"] = times
         out["counts"] = read_counts()
         out["steps"] = 1 + WARMUP_STEPS + TIMED_STEPS
+        if job.get("scan"):  # phase 35 (b): the trainer's chunks, captured under NCCL
+            del state
+            torch.cuda.empty_cache()
+            run = scan_trainer_run(scan_config(job["config"], SCAN_PAIRS),
+                                   Path(job["root"]) / "scan_nccl", job["seed"])
+            out["scan"] = {"history": run.history, "ways": run.ways, "counts": run.counts,
+                           "sums": state_checksums(run.state).cpu().numpy(),
+                           "seconds": run.seconds}
     else:
         import builtins
 
@@ -3407,19 +3518,6 @@ def dp_worker(args) -> int:
         from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 
         history, written, real_open = [], [], builtins.open
-        make_steps = trainer_module.make_train_steps
-
-        def spying_steps(cfg):
-            steps = make_steps(cfg)
-
-            def spy(step):
-                def run(*a):
-                    state, metrics = step(*a)
-                    history.append({k: float(v) for k, v in metrics.items()})
-                    return state, metrics
-                return run
-
-            return tuple(spy(s) for s in steps)
 
         def spying_open(file, mode="r", *a, **k):
             if (rank != 0 and isinstance(file, (str, os.PathLike))
@@ -3429,8 +3527,7 @@ def dp_worker(args) -> int:
             return real_open(file, mode, *a, **k)
 
         reset_counts()  # the main path: every CLI run of this rank
-        with mock.patch.object(trainer_module, "make_train_steps", spying_steps), \
-                mock.patch.object(builtins, "open", spying_open):
+        with spying_updates(history), mock.patch.object(builtins, "open", spying_open):
             for label, cwd, argv, saves in job["runs"]:
                 os.makedirs(cwd, exist_ok=True)
                 os.chdir(cwd)
@@ -3610,15 +3707,16 @@ def model_axis_phase(card: str, root: Path, p29: dict) -> dict[str, int]:
     return counts
 
 
-def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> dict[str, int]:
+def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> tuple[dict, dict]:
     """Phase 30: one rank in an NCCL group of one (`initialize_distributed`;
     its data group is the whole world, the default group), so every
     collective runs: its D+G step of DP_CONFIG at the config's
     batches from the seed equals one process's, bit for bit (metrics, state
     checksums, gradients; cuDNN deterministic), an all-reduce of one rank
     being exact. Then WARMUP_STEPS + TIMED_STEPS steps timed as phase 6's:
-    their median against phase 6's prices the collectives. Returns the
-    launches."""
+    their median against phase 6's prices the collectives. The same rank
+    then trains phase 35 (b)'s run. Returns the launches of phase 30 and
+    that run's readings."""
     import torch
 
     from cpcsv_tpu_torch.config import config_from_file
@@ -3645,7 +3743,8 @@ def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> dict[str, 
     del state
     torch.cuda.empty_cache()
     # the rank starts after the reference is done: nothing else runs beside its timed steps
-    (r,) = launch_dp("nccl", {"config": DP_CONFIG, "seed": seed, "backend": "nccl"}, root, 1)()
+    (r,) = launch_dp("nccl", {"config": DP_CONFIG, "seed": seed, "backend": "nccl",
+                              "scan": True, "root": str(root)}, root, 1)()
     check(r["metrics"] == metrics and (r["sums"] == sums).all() and (r["grad_bits"] == bits).all(),
           "phase 30: the NCCL rank's step differs from one process's")
     check(r["data_group"] == [0], f"phase 30: the NCCL rank's data group {r['data_group']}")
@@ -3661,7 +3760,7 @@ def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> dict[str, 
           f"({r['collectives']['bytes'] / 2**30:.3f} GiB); step {med:.2f} ms median of "
           f"{TIMED_STEPS} (min {min(timed):.2f}, max {max(timed):.2f}) against phase 6's "
           f"{phase6_ms:.2f} ms: {med - phase6_ms:+.2f} ms for the collectives of one rank")
-    return got
+    return got, r["scan"]
 
 
 def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict[str, int]]:
@@ -3772,6 +3871,264 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict
           f"rank 0 {r0['model']['seconds']:.1f} (its final save included), one process "
           f"{one['model']['seconds']:.1f} (no save); launches of the one process {one['counts']}")
     return ({k: r0["counts"][k] + r1["counts"][k] for k in r0["counts"]}, one["counts"])
+
+
+def scan_trainer_run(cfg, root: Path, seed: int) -> types.SimpleNamespace:
+    """Phase 35 (a)-(b): GANTrainer on `cfg` (2 epochs of SCAN_PAIRS steps
+    from SCAN_SYNTHETIC stories, its checkpoint saves skipped), in this
+    process or an NCCL rank's, cuDNN deterministic: every pair's metrics (a
+    D and a G entry a pair), the final state, the launches, the seconds and
+    the CLI's line on how the chunks ran."""
+    import torch
+
+    from cpcsv_tpu_torch.cli.main_pororo import synthetic_loaders
+    from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
+    from cpcsv_tpu_torch.train.trainer import GANTrainer
+
+    history, printed = [], io.StringIO()
+    saved_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with spying_updates(history), contextlib.redirect_stdout(printed), \
+                mock.patch.object(CheckpointManager, "save", lambda *a, **k: None):
+            reset_counts()  # the main path: the trainer only
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer = GANTrainer(cfg, str(root), seed=seed)
+            state = trainer.train(*synthetic_loaders(cfg, SCAN_SYNTHETIC, seed)[:2])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            counts = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = saved_det
+    ways = [line for line in printed.getvalue().splitlines() if line.startswith("SCAN_STEPS")]
+    return types.SimpleNamespace(history=history, state=state, counts=counts, seconds=seconds,
+                                 ways=ways)
+
+
+def scan_config(name: str, scan: int):
+    """A shipped config at SCAN_STEPS `scan`, 2 epochs."""
+    import dataclasses
+
+    from cpcsv_tpu_torch.config import config_from_file
+
+    cfg = config_from_file(name)
+    return cfg.with_updates(SCAN_STEPS=scan, TRAIN=dataclasses.replace(cfg.TRAIN, MAX_EPOCH=2))
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a TrainState by name: the nets' state_dicts (parameters,
+    BN running statistics, SN u and v) and the Adam states (moments, steps)."""
+    out = {}
+    for name, net in state.nets().items():
+        out.update({f"{name}.{k}": v for k, v in net.state_dict().items()})
+        for i, st in state.opts[name].state_dict()["state"].items():
+            out.update({f"{name}.adam.{i}.{k}": v for k, v in st.items()})
+    return out
+
+
+def scan_phase(card: str, seed: int, root: Path) -> dict:
+    """Phase 35 (a): for each of SCAN_CONFIGS at full width, 2 epochs of
+    SCAN_PAIRS steps through GANTrainer at SCAN_STEPS SCAN_PAIRS (a chunk an
+    epoch: the first pair eager, then the capture and SCAN_PAIRS - 1 replays;
+    the second epoch's chunk all replays, the generator reseeded) against
+    SCAN_STEPS 1: every pair's metrics and every tensor of the final state
+    (parameters, Adam moments and steps, BN running statistics, SN u and v)
+    bit for bit, the launches equal. Returns the launches of the chunked runs
+    and the final.yml reference for phase 35 (b)."""
+    import torch
+
+    from cpcsv_tpu_torch.train.state import state_checksums
+
+    counts_all, reference = collections.Counter(), None
+    for name in SCAN_CONFIGS:
+        runs = {}
+        for scan in (SCAN_PAIRS, 1):
+            runs[scan] = scan_trainer_run(scan_config(name, scan), root / f"{name}_{scan}", seed)
+        chunked, pairs = runs[SCAN_PAIRS], runs[1]
+        check(chunked.ways == [f"SCAN_STEPS {SCAN_PAIRS}: each chunk's pairs replayed as a CUDA "
+                               "graph of the D+G pair"], f"{name}: the trainer said {chunked.ways}")
+        a, b = state_tensors(chunked.state), state_tensors(pairs.state)
+        differ = [k for k in b if k not in a or not torch.equal(a[k], b[k])]
+        check(len(chunked.history) == len(pairs.history) == 2 * 2 * SCAN_PAIRS,
+              f"{name}: {len(chunked.history)} and {len(pairs.history)} updates logged")
+        rows = [i for i, (x, y) in enumerate(zip(chunked.history, pairs.history)) if x != y]
+        check(not differ and not rows and set(a) == set(b),
+              f"{name}: SCAN_STEPS {SCAN_PAIRS} against 1: {len(differ)} of {len(b)} state "
+              f"tensors differ ({differ[:4]}), metrics differ at updates {rows}")
+        check(chunked.counts == pairs.counts,
+              f"{name}: launches {chunked.counts} in chunks, {pairs.counts} a pair at a time")
+        check(chunked.state.step == pairs.state.step == 2 * SCAN_PAIRS,
+              f"{name}: steps {chunked.state.step} and {pairs.state.step}")
+        counts_all.update(chunked.counts)
+        counts_all.update(pairs.counts)
+        print(f"{name} [{card}]: 2 epochs of {SCAN_PAIRS} steps through GANTrainer, SCAN_STEPS "
+              f"{SCAN_PAIRS} (CUDA graph: an eager pair, the capture, {2 * SCAN_PAIRS - 1} "
+              f"replays) against SCAN_STEPS 1: {len(b)} state tensors and "
+              f"{len(pairs.history)} updates' metrics bit for bit; launches {chunked.counts} in "
+              f"both; {chunked.seconds:.2f} s against {pairs.seconds:.2f} s (state init, the "
+              "capture and the sample grids included)")
+        if name == "final.yml":
+            reference = types.SimpleNamespace(history=chunked.history,
+                                              sums=state_checksums(chunked.state).cpu().numpy())
+        del runs, chunked, pairs, a, b
+        torch.cuda.empty_cache()
+    return {"counts": dict(counts_all), "reference": reference}
+
+
+def graph_node_types(graph) -> collections.Counter:
+    """CUgraphNodeType -> nodes of a kept torch.cuda.CUDAGraph."""
+    import ctypes
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
+    types_ = collections.Counter()
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
+              "cuGraphNodeGetType failed")
+        types_[t.value] += 1
+    return types_
+
+
+def raw_device_spans(prof) -> list[tuple[int, int]]:
+    """(start, end) in ns of the card's events in a finished torch.profiler
+    trace, read from the raw Kineto events: building the profiler's event
+    tree costs tens of seconds of host time for a chunk's ~10^5 kernels.
+    User annotations' device copies are left out, as `device_events` does."""
+    from torch.autograd import DeviceType
+
+    return [(e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+
+
+def busy_ms(prof) -> float:
+    """The card's busy time in a finished trace: the union of its device
+    events' intervals (a sum would count overlapping kernels twice)."""
+    busy, end = 0, None
+    for a, b in sorted(raw_device_spans(prof)):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6
+
+
+def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, int]:
+    """Phase 35 (c): for SCAN_TIMED_CONFIGS, a chunk of SCAN_TIMED_K pairs
+    (the shipped SCAN_STEPS) through `make_scan_steps` on batches staged on
+    the card, against SCAN_TIMED_K pairs one at a time through
+    `make_train_steps`, each pair's metrics read back as the trainer's pair
+    loop reads them: the ms a step (median of windows closed by a readback:
+    SCAN_TIMED_CHUNKS warm chunks, each over its pairs; for single pairs
+    `pair_ms`, phase 6's or 16's median step of this run, each closed by a
+    synchronise),
+    the card's busy ms a step (the union of the kernels' intervals) and the
+    idle share from one torch.profiler trace (the card's activity only) of
+    a warm chunk and of SCAN_TIMED_K single pairs, the captured
+    graph's nodes by type, and the memory the capture took. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.train.state import create_train_state
+    from cpcsv_tpu_torch.train.steps import batch_to_device, make_scan_steps, make_train_steps
+
+    counts = collections.Counter()
+    K = SCAN_TIMED_K
+    for name in SCAN_TIMED_CONFIGS:
+        cfg = config_from_file(name)
+        state = create_train_state(cfg, seed)
+        hosts = [synthetic_batches(cfg, cfg.TRAIN.ST_BATCH_SIZE, cfg.TRAIN.IM_BATCH_SIZE, seed + i)
+                 for i in range(4)]
+        order = [hosts[k % len(hosts)] for k in range(K)]
+        dev = torch.device("cuda")
+        st_k = batch_to_device({f: np.stack([b[0][f] for b in order]) for f in order[0][0]}, dev)
+        im_k = batch_to_device({f: np.stack([b[1][f] for b in order]) for f in order[0][1]}, dev)
+        pairs = [tuple(batch_to_device(b, dev) for b in h) for h in hosts]
+        rng = torch.Generator(device="cuda").manual_seed(seed)
+        scan = make_scan_steps(cfg)
+        reset_counts()  # the main path: the chunks and the single pairs below
+
+        def chunk():
+            _, metrics = scan(state, rng, st_k, im_k, LR_D, LR_G)
+            return torch.stack(list(metrics.values()), 1).tolist()  # the one readback
+
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rows = chunk()
+        first_s = time.perf_counter() - t
+        check(len(rows) == K and all(np.isfinite(v) for row in rows for v in row),
+              f"{name}: the first chunk's metrics {len(rows)} rows, or a non-finite value")
+        peak, pool = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved() - reserved
+        (graph,) = scan.graphs.graphs.values()
+        nodes = graph_node_types(graph.graph)
+        windows = []
+        for _ in range(SCAN_TIMED_CHUNKS):
+            t = time.perf_counter()
+            chunk()
+            windows.append((time.perf_counter() - t) * 1e3 / K)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            chunk()
+            traced_s = time.perf_counter() - t
+        busy = busy_ms(prof) / K
+        chunk_ms = median(windows)
+
+        d_step, g_step = make_train_steps(cfg)
+
+        def pair(k):
+            st, im = pairs[k % len(pairs)]
+            _, dm = d_step(state, rng, st, im, LR_D)
+            _, gm = g_step(state, rng, st, im, LR_G)
+            metrics = {**dm, **gm}
+            return torch.stack([v.float().reshape(()) for v in metrics.values()]).tolist()
+
+        # on the chunks' stream, where the state's gradient accumulators were made
+        with scan.graphs.stream(dev), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for k in range(K):
+                pair(k)
+            traced_pairs_s = time.perf_counter() - t
+        busy_pairs = busy_ms(prof) / K
+        eager_ms = pair_ms[name]
+        got = read_counts()
+        counts.update(got)
+        steps = (3 + SCAN_TIMED_CHUNKS) * K
+        per_step = per_step_launches(state)
+        check(got == {k: v * steps for k, v in per_step.items()},
+              f"{name}: launches {got} for {steps} pairs of {per_step}")
+        kernel_nodes = nodes[GRAPH_KERNEL_NODE]
+        print(f"{name} SCAN_STEPS {K} [{card}]: first chunk {first_s:.2f} s (an eager pair, the "
+              f"capture, {K - 1} replays); warm chunks {chunk_ms:.2f} ms a step (median of "
+              f"{SCAN_TIMED_CHUNKS} chunks, each closed by its readback; "
+              + ", ".join(f"{w:.2f}" for w in windows) + f"), busy {busy:.2f} ms a step "
+              f"(traced chunk {traced_s * 1e3 / K:.2f} ms a step): idle share "
+              f"{1 - busy / chunk_ms:.3f} untraced, {1 - busy * K / (traced_s * 1e3):.3f} traced")
+        print(f"{name} one pair at a time [{card}]: {eager_ms:.2f} ms a step (phase "
+              f"{16 if name in BF16_CONFIGS else 6}'s median), busy {busy_pairs:.2f} ms a step "
+              f"over {K} pairs, each read back (traced {traced_pairs_s * 1e3 / K:.2f} ms a "
+              f"step): idle share {1 - busy_pairs / eager_ms:.3f} untraced, "
+              f"{1 - busy_pairs * K / (traced_pairs_s * 1e3):.3f} traced; the chunk "
+              f"{chunk_ms / eager_ms:.3f}x the pair's ms a step")
+        print(f"{name} captured pair [{card}]: {sum(nodes.values())} graph nodes, {kernel_nodes} "
+              f"kernel nodes (by CUgraphNodeType {dict(sorted(nodes.items()))}); memory reserved "
+              f"by the first chunk {pool / 2**30:.3f} GiB, peak allocated {peak / 2**30:.3f} GiB "
+              f"(the state, {K} staged batches, the eager pair and the graph's pool)")
+        del state, scan, graph, st_k, im_k, pairs
+        torch.cuda.empty_cache()
+    return dict(counts)
 
 
 def main() -> int:
@@ -4170,9 +4527,9 @@ def main() -> int:
             "max_abs_err": bn_err[name], "ms": kernel_ms, "plain_ms": largest[name]["plain_ms"],
             "bound_ms": bound, "bound_by": largest[name]["bound_by"], "library_ms": library_ms,
             "step_ms": step_bn["final.yml"][name][0],
-            "step_bound_ms": step_bn["final.yml"][name][2],
+            "step_bound_ms": step_bn["final.yml"][name][1],
             "cascade_step_ms": step_bn["cascade.yml"][name][0],
-            "cascade_step_bound_ms": step_bn["cascade.yml"][name][2],
+            "cascade_step_bound_ms": step_bn["cascade.yml"][name][1],
         }
     # the DFN backward at the step's batch and a small one, and the pair's
     # time over one D+G step
@@ -4203,7 +4560,7 @@ def main() -> int:
             "bf16_plain_ms": largest_bf16[name]["plain_ms"], "bf16_bound_ms": bound,
             "bf16_bound_by": largest_bf16[name]["bound_by"], "bf16_library_ms": library_ms,
             **{f"{c.split('.')[0]}_step_{k}": step_bn_bf16[c][name][i]
-               for c in BF16_CONFIGS for i, k in ((0, "ms"), (2, "bound_ms"))},
+               for c in BF16_CONFIGS for i, k in ((0, "ms"), (1, "bound_ms"))},
         })
     bwd16, bwd16_op, _, copies16 = dfn_backward_times(gen, card, floor, torch.bfloat16, (360, 90))
     check(copies16 == 0,
@@ -4317,7 +4674,7 @@ def main() -> int:
             "clevr_plain_ms": clevr.largest[name]["plain_ms"], "clevr_bound_ms": bound,
             "clevr_bound_by": clevr.largest[name]["bound_by"], "clevr_library_ms": library_ms,
             "clevr_step_ms": clevr.step_bn[CLEVR_CONFIG][name][0],
-            "clevr_step_bound_ms": clevr.step_bn[CLEVR_CONFIG][name][2],
+            "clevr_step_bound_ms": clevr.step_bn[CLEVR_CONFIG][name][1],
         })
     for name, t in (("dfn_forward", clevr.fwd), ("dfn_backward", clevr.bwd)):
         kernels[name].update({
@@ -4341,7 +4698,7 @@ def main() -> int:
         model_counts = model_axis_phase(card, Path(tmp), p29)
         del p29
         phase("30. one NCCL rank, its data group the world: phase 6's step bit for bit, then timed")
-        nccl_counts = nccl_phase(card, args.seed, Path(tmp), runs[DP_CONFIG].step_ms)
+        nccl_counts, nccl_scan = nccl_phase(card, args.seed, Path(tmp), runs[DP_CONFIG].step_ms)
         phase(f"31. the CLI with {DP_WORLD} gloo ranks: 2 epochs, 1 + an auto-resumed one, "
               "--eval_fid on rank 0")
         dp_cli_counts, one_cli_counts = dp_cli_phase(card, args.seed, Path(tmp))
@@ -4354,6 +4711,35 @@ def main() -> int:
     print(f"launches of the data-parallel phases, summed over the ranks: the step {dp_counts}, "
           f"the model axis {model_counts}, NCCL {nccl_counts}, the CLI {dp_cli_counts} (phase "
           f"33's step among them), phase 33's one process {one_cli_counts}")
+
+    # ------------------- 35. SCAN_STEPS: chunks of pairs as CUDA graph replays
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_", dir=build_dir) as tmp:
+        phase(f"35 (a). SCAN_STEPS {SCAN_PAIRS} against 1 through GANTrainer, 2 epochs of "
+              f"{SCAN_PAIRS} steps: {', '.join(SCAN_CONFIGS)}")
+        scan = scan_phase(card, args.seed, Path(tmp))
+    phase(f"35 (b). one NCCL rank (in phase 30's launch): {DP_CONFIG} at SCAN_STEPS {SCAN_PAIRS} "
+          "against phase 35 (a)'s one process")
+    ref = scan["reference"]
+    check(nccl_scan["ways"] == [f"SCAN_STEPS {SCAN_PAIRS}: each chunk's pairs replayed as a CUDA "
+                                "graph of the D+G pair"], f"phase 35 (b): {nccl_scan['ways']}")
+    check(nccl_scan["history"] == ref.history and (nccl_scan["sums"] == ref.sums).all(),
+          "phase 35 (b): the NCCL rank's chunks differ from one process's")
+    print(f"phase 35 (b) [{card}]: one NCCL rank, its all-reduces captured in the graph: "
+          f"{len(ref.history)} updates' metrics and {len(ref.sums)} state tensors bit for bit "
+          f"phase 35 (a)'s one process; {nccl_scan['seconds']:.2f} s; launches "
+          f"{nccl_scan['counts']}")
+    phase(f"35 (c). SCAN_STEPS {SCAN_TIMED_K} timed: a warm chunk against {SCAN_TIMED_K} pairs "
+          f"one at a time, {', '.join(SCAN_TIMED_CONFIGS)}")
+    timing_counts = scan_timing(card, args.seed, {
+        n: (runs_bf16 if n in BF16_CONFIGS else runs)[n].step_ms for n in SCAN_TIMED_CONFIGS})
+    for name in kernels:
+        kernels[name]["launches"] += (scan["counts"][name] + nccl_scan["counts"][name]
+                                      + timing_counts[name])
+        kernels[name]["scan_launches"] = {"trainer": scan["counts"][name],
+                                          "nccl": nccl_scan["counts"][name],
+                                          "timed": timing_counts[name]}
+    print(f"launches of phase 35, CUDA graph replays included: the trainer runs {scan['counts']}, "
+          f"the NCCL rank's {nccl_scan['counts']}, the timed chunks and pairs {timing_counts}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -7,7 +7,9 @@ earlier ones. `BatchCopier` is such a `put_fn` for a batch dict: on a CUDA
 device it copies the arrays from pinned host memory with non-blocking copies
 on a side stream and records an event; `ready` makes the consumer's stream
 wait for that event before the step reads the batch. On the CPU it only
-wraps the arrays as tensors.
+wraps the arrays as tensors. `stack_batches` makes one batch of K, with a
+leading K axis, so that a chunk of K pairs (`train/steps.py:make_scan_steps`)
+crosses to the card in one copy a field.
 """
 
 from __future__ import annotations
@@ -41,6 +43,13 @@ def device_prefetch(iterable: Iterable, put_fn: Callable, depth: int = 2) -> Ite
         if isinstance(item, Exception):
             raise item
         yield item
+
+
+def stack_batches(batches: list[dict]) -> dict:
+    """The array fields of K batch dicts of one schema, stacked on a new
+    leading axis (the JAX trainer's chunk, `cpcsv_tpu/train/trainer.py:321-327`)."""
+    return {k: np.stack([b[k] for b in batches])
+            for k, v in batches[0].items() if isinstance(v, np.ndarray)}
 
 
 class BatchCopier:

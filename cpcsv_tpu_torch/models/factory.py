@@ -25,9 +25,11 @@ from cpcsv_tpu_torch.parallel.mesh import parse_mesh_shape
 # devices.
 # The JAX package's TPU lowering choices, accepted at every value its config
 # accepts, each with one meaning in the port:
-#   SCAN_STEPS (K > 1: K D+G pairs a dispatch, lax.scan; else one): the
-#     same sequence of updates; the port runs one D+G pair a dispatch
-#     whatever K is;
+#   SCAN_STEPS (K > 1: K D+G pairs a dispatch, lax.scan; else one): K > 1
+#     trains in chunks of K pairs with one readback a chunk
+#     (`train/steps.py:make_scan_steps`), replayed as a CUDA graph of the
+#     pair on a card, eagerly on the CPU and under gloo; else one pair at
+#     a time;
 #   USE_PALLAS (the Pallas DFN on a TPU): on a CUDA device the DFN always
 #     runs its CUDA kernel, on the CPU its plain version;
 #   BN_BACKEND ("xla": flax BatchNorm; "mxu": its statistics as matmuls;

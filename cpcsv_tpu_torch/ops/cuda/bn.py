@@ -8,7 +8,8 @@ or bfloat16 as the Pallas kernels do, and return per-channel sums in
 float32, in one launch per call whose grid, cluster and load width `plan`
 chooses from the shape, the element size, the SM count and the inputs'
 alignment. The library is built at the first call (`build.py`), never at
-import. `launches` counts each kernel's launches. The plain versions serve
+import. `launches` counts each kernel's launches, a CUDA graph's replays
+included (`launches.py`). The plain versions serve
 CPU tensors; on the card they are only the yardstick the kernels are held
 against.
 """
@@ -22,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from cpcsv_tpu_torch.ops.cuda import build
+from cpcsv_tpu_torch.ops.cuda.launches import count
 
 SOURCE = "cpcsv_tpu_torch/csrc/bn.cu"
 REPLACES = {
@@ -163,7 +165,7 @@ def launch(name: str, p: Plan, *inputs: torch.Tensor) -> tuple[torch.Tensor, tor
                                  p.cluster, p.channels, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err} ({p})")
-    launches[name] += 1
+    count(launches, name)
     return out[0], out[1]
 
 

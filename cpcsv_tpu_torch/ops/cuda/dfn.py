@@ -7,7 +7,8 @@ One warp computes one sample (forward) or one (sample, channel) (backward);
 compile-time instantiation from the shape, the SM count and the inputs'
 alignment, and each launch gets them as ints. The library is built at the
 first call (`build.py`), never at import. `launches` counts each kernel's
-launches, so that a run can show its path went through them.
+launches, a CUDA graph's replays included (`launches.py`), so that a run can
+show its path went through them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from cpcsv_tpu_torch.ops.cuda import build
+from cpcsv_tpu_torch.ops.cuda.launches import count
 
 SOURCE = "cpcsv_tpu_torch/csrc/dfn.cu"
 REPLACES = "cpcsv_tpu/ops/pallas/dfn.py:63"  # dfn_pallas, body _dfn_kernel at :35
@@ -157,7 +159,7 @@ def launch_forward(p: Plan, image: torch.Tensor, filters: torch.Tensor, pad: int
                 out.data_ptr(), B, C, L, K, pad, _DTYPES[image.dtype], *p)
     if err != 0:
         raise RuntimeError(f"dfn_forward launch failed with CUDA error {err} ({p})")
-    launches["dfn_forward"] += 1
+    count(launches, "dfn_forward")
     return out
 
 
@@ -192,5 +194,5 @@ def launch_backward(p: Plan, image: torch.Tensor, filters: torch.Tensor, dout: t
                 filters.shape[-1], pad, dout.stride(0), _DTYPES[image.dtype], *p)
     if err != 0:
         raise RuntimeError(f"dfn_backward launch failed with CUDA error {err} ({p})")
-    launches["dfn_backward"] += 1
+    count(launches, "dfn_backward")
     return dimage, dfilters

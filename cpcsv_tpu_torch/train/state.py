@@ -57,7 +57,7 @@ MU_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 class Adam(torch.optim.Optimizer):
     """Adam whose first moment may be stored in bfloat16 beside float32
     parameters: optax's `scale_by_adam(mu_dtype=...)`, which
-    `torch.optim.Adam` cannot do.
+    `torch.optim.Adam` cannot do; and whose step a CUDA graph can capture.
 
     One step, in torch.optim.Adam's (foreach) arithmetic and state layout
     (`step`, `exp_avg`, `exp_avg_sq`), so that with a float32 moment it
@@ -69,23 +69,50 @@ class Adam(torch.optim.Optimizer):
       the new moment only after it has used it; mu_dtype None keeps it in
       the parameter's dtype.
     A loaded state_dict's first moments are cast to `mu_dtype`, so a run may
-    flip ADAM_MU_DTYPE between resumes."""
+    flip ADAM_MU_DTYPE between resumes.
+
+    Nothing of a step is read on the host, so a CUDA graph of it replays
+    right (`train/graphs.py`): the step count `t` lives on the parameters'
+    device (a loaded CPU `step` moves there), the learning rate in the
+    float64 device tensor `lr`, which `set_lr` writes in place (a float
+    assigned to a group's "lr" is taken up by the next eager step), and the
+    scalars −lr/(1 − β1^t) and √(1 − β2^t) are formed on the device in
+    float64 and rounded once to float32, as torch.optim.Adam forms them in
+    Python floats and its kernels round them. The last update rounds as
+    the addcdiv kernels do: p + (s·m)/d on the CPU, one fused multiply-add
+    of s and m/d into p on CUDA (one addcmul launch a parameter)."""
 
     def __init__(self, params, mu_dtype: Optional[torch.dtype] = None,
                  betas: tuple[float, float] = (0.5, 0.999), eps: float = 1e-8):
         super().__init__(params, {"lr": 0.0, "betas": betas, "eps": eps})
         self.mu_dtype = mu_dtype
+        device = self.param_groups[0]["params"][0].device
+        self.lr = torch.zeros((), dtype=torch.float64, device=device)
+        self._lr_set = 0.0  # the value `lr` holds, known on the host
+
+    def set_lr(self, lr: float) -> None:
+        """The learning rate of the next steps, written into `lr` in place
+        (and into every group's "lr", as torch.optim.Adam keeps it). Never
+        inside a CUDA graph capture: the graph would replay this value."""
+        if self.lr.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("set the learning rate before a CUDA graph captures the step")
+        self.lr.fill_(lr)
+        self._lr_set = lr
+        for group in self.param_groups:
+            group["lr"] = lr
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
+            if group["lr"] != self._lr_set:  # assigned to the group since
+                self.set_lr(group["lr"])
             params = [p for p in group["params"] if p.grad is not None]
             if not params:
                 continue
             for p in params:
                 state = self.state[p]
                 if not state:
-                    state["step"] = torch.tensor(0.0)
+                    state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
                     state["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                     state["exp_avg_sq"] = torch.zeros_like(p)
             states = [self.state[p] for p in params]
@@ -94,27 +121,39 @@ class Adam(torch.optim.Optimizer):
             mu = [m if m.dtype == p.dtype else m.to(p.dtype) for m, p in zip(stored, params)]
             nu = [s["exp_avg_sq"] for s in states]
             steps = [s["step"] for s in states]
-            (b1, b2), lr, eps = group["betas"], group["lr"], group["eps"]
+            (b1, b2), eps = group["betas"], group["eps"]
             torch._foreach_add_(steps, 1)
             torch._foreach_lerp_(mu, grads, 1 - b1)
             torch._foreach_mul_(nu, b2)
             torch._foreach_addcmul_(nu, grads, grads, 1 - b2)
-            step_size = [(lr / (1 - b1 ** s.item())) * -1 for s in steps]
+            # every parameter of a group steps together: one t for all
+            t = steps[0].to(torch.float64)
+            step_size = (self.lr / (1 - torch.pow(b1, t)) * -1).float()
             denom = torch._foreach_sqrt(nu)
-            torch._foreach_div_(denom, [(1 - b2 ** s.item()) ** 0.5 for s in steps])
+            torch._foreach_div_(denom, torch.sqrt(1 - torch.pow(b2, t)).float())
             torch._foreach_add_(denom, eps)
-            torch._foreach_addcdiv_(params, mu, denom, step_size)
+            if params[0].device.type == "cpu":  # addcdiv's CPU kernel: p + (s·m)/d
+                update = torch._foreach_mul(mu, step_size)
+                torch._foreach_div_(update, denom)
+                torch._foreach_add_(params, update)
+            else:  # its CUDA kernel: fma(s, m/d, p), which addcmul's gives
+                for p, u in zip(params, torch._foreach_div(mu, denom)):
+                    p.addcmul_(u, step_size)
             if any(a is not b for a, b in zip(mu, stored)):
                 torch._foreach_copy_(stored, mu)
 
     def __getstate__(self):  # torch.optim.Optimizer's pickles its defaults, state and groups only
-        return {**super().__getstate__(), "mu_dtype": self.mu_dtype}
+        return {**super().__getstate__(), "mu_dtype": self.mu_dtype, "lr": self.lr,
+                "_lr_set": self._lr_set}
 
     def load_state_dict(self, state_dict) -> None:
         super().load_state_dict(state_dict)  # casts every moment to its parameter's dtype
-        if self.mu_dtype is not None:
-            for state in self.state.values():
-                if "exp_avg" in state:
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state.get(p, {})
+                if "step" in state:  # a CPU step, as torch.optim.Adam keeps it
+                    state["step"] = state["step"].to(device=p.device, dtype=torch.float32)
+                if self.mu_dtype is not None and "exp_avg" in state:
                     state["exp_avg"] = state["exp_avg"].to(self.mu_dtype)
 
 

@@ -1,5 +1,7 @@
 """The alternating D step and G step (counterpart of
-`cpcsv_tpu/train/steps.py:make_train_steps`; reference `trainer.py:248-416`).
+`cpcsv_tpu/train/steps.py:make_train_steps`; reference `trainer.py:248-416`),
+and K such pairs a chunk (`make_scan_steps`, the counterpart of
+`cpcsv_tpu/train/steps.py:make_scan_steps`).
 
   D step: the generator samples stories and images in train mode without
     gradients (its BN running statistics update, `_sample_all`), then the
@@ -70,8 +72,12 @@ same work on the same rows and noise, as the JAX program does there):
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.utils._pytree import tree_map
 
 from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.device import float32_math
@@ -89,6 +95,7 @@ from cpcsv_tpu_torch.parallel.mesh import (
     check_training_mesh,
     wrong_pair_rows,
 )
+from cpcsv_tpu_torch.train.graphs import PairGraph, PairGraphs
 from cpcsv_tpu_torch.train.state import TrainState
 
 
@@ -147,11 +154,12 @@ def _sample_all(cfg: Config, net_g, rng, st_batch, im_batch):
     return st_out, im_out
 
 
-def _step(net, opt, loss, lr: float) -> None:
-    """One optimizer step of `net` on d loss / d params. Gradients go to this
-    net only; a parameter the loss does not reach steps with a zero gradient,
-    as optax's Adam does. In a process group the gradients are summed over
-    the data group first, in one all-reduce of their concatenation."""
+def _step(net, opt, loss) -> None:
+    """One optimizer step of `net` on d loss / d params, at the learning rate
+    set on `opt` (`Adam.set_lr`). Gradients go to this net only; a parameter
+    the loss does not reach steps with a zero gradient, as optax's Adam
+    does. In a process group the gradients are summed over the data group
+    first, in one all-reduce of their concatenation."""
     params = list(net.parameters())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [g if g is not None else torch.zeros_like(p) for p, g in zip(params, grads)]
@@ -160,8 +168,6 @@ def _step(net, opt, loss, lr: float) -> None:
         grads = [f.view_as(p) for f, p in zip(flat.split([p.numel() for p in params]), params)]
     for p, g in zip(params, grads):
         p.grad = g
-    for group in opt.param_groups:
-        group["lr"] = float(lr)
     opt.step()
 
 
@@ -174,12 +180,42 @@ def _reduce_metrics(metrics: dict) -> dict:
     return dict(zip(metrics, values.unbind()))
 
 
+def set_learning_rates(state: TrainState, lr_d: float, lr_g: float) -> None:
+    """The discriminators' Adams at lr_d and the generator's at lr_g."""
+    for name, opt in state.opts.items():
+        opt.set_lr(lr_g if name == "gen" else lr_d)
+
+
 def make_train_steps(cfg: Config):
     """(d_step, g_step), each (state, rng, st_batch, im_batch, lr) ->
     (state, metrics). Unlike the JAX package's, it takes no models: the nets
     are modules that live in the state. cfg.MESH_SHAPE must be a training
     mesh of the process group (`mesh.check_training_mesh`); each step runs
     its collectives over that mesh's data groups."""
+    on_mesh, d_pass, g_pass = _passes(cfg)
+
+    def d_step(state: TrainState, rng, st_batch, im_batch, lr_d):
+        on_mesh()
+        for name, opt in state.opts.items():
+            if name != "gen":
+                opt.set_lr(lr_d)
+        return state, d_pass(state, rng, st_batch, im_batch)
+
+    def g_step(state: TrainState, rng, st_batch, im_batch, lr_g):
+        on_mesh()
+        state.opts["gen"].set_lr(lr_g)
+        metrics = g_pass(state, rng, st_batch, im_batch)
+        state.step += 1
+        return state, metrics
+
+    return d_step, g_step
+
+
+def _passes(cfg: Config):
+    """(on_mesh, d_pass, g_pass): the D and the G update, each (state, rng,
+    st_batch, im_batch) -> metrics, at the learning rates set on the
+    Adams, leaving `state.step` as it is, with no host work a CUDA graph
+    could not capture; and the host work that must precede them."""
     seg_w, img_w, kl = cfg.SEGMENT_RATIO, cfg.IMAGE_RATIO, cfg.TRAIN.COEFF.KL
     use_segment, nce = cfg.SEGMENT_LEARNING, cfg.USE_INFONCE
     layout = check_training_mesh(cfg.MESH_SHAPE)
@@ -190,7 +226,7 @@ def make_train_steps(cfg: Config):
         if is_distributed():
             form_data_groups(layout.groups)
 
-    def d_update(net, opt, real, fake, cond, cate_labels, lr, extra=None):
+    def d_update(net, opt, real, fake, cond, cate_labels, extra=None):
         """One D's Adam step (`cpcsv_tpu/train/steps.py:one_d`). `extra` is the
         story D's: a dict, empty without the shuffle branch; the image and
         seg Ds get None (dispatch on `is not None`, not on truthiness)."""
@@ -211,11 +247,10 @@ def make_train_steps(cfg: Config):
                                  cfg.CONSISTENCY_RATIO, pair_logits=pair,
                                  infonce_temperature=cfg.INFONCE_TEMPERATURE, rows=rows,
                                  wrong_rows=wrong_pair_rows(rows) if rows else None)
-        _step(net, opt, out.total, lr)
+        _step(net, opt, out.total)
         return out
 
-    def d_step(state: TrainState, rng, st_batch, im_batch, lr_d):
-        on_mesh()
+    def d_pass(state: TrainState, rng, st_batch, im_batch):
         device = next(state.gen.parameters()).device
         st_batch, im_batch = batch_to_device(st_batch, device), batch_to_device(im_batch, device)
         with float32_math():
@@ -227,25 +262,24 @@ def make_train_steps(cfg: Config):
             metrics = {}
             if use_segment:
                 se = d_update(state.d_se, state.opts["d_se"], im_batch["images_seg"],
-                              im_out.seg, im_mu, labels, lr_d)
+                              im_out.seg, im_mu, labels)
                 metrics = {"seg_D/loss": se.total, "seg_D/real": se.real,
                            "seg_D/fake": se.fake, "Accuracy/se_D": se.accuracy}
             im = d_update(state.d_im, state.opts["d_im"], im_batch["images"], im_out.image,
-                          im_mu, labels, lr_d)
+                          im_mu, labels)
             st_extra = ({"shuffled": st_batch["shuffled"], "order_labels": st_batch["order_labels"]}
                         if cfg.USE_SEQ_CONSISTENCY else {})
             st = d_update(state.d_st, state.opts["d_st"], st_batch["images"], st_out.image,
-                          st_mu, None, lr_d, st_extra)
+                          st_mu, None, st_extra)
         metrics.update({
             "img_D/loss": im.total, "img_D/real": im.real, "img_D/fake": im.fake,
             "Accuracy/im_D": im.accuracy,
             "st_D/loss": st.total, "st_D/real": st.real, "st_D/fake": st.fake,
             "st_D/order": st.consistency,
         })
-        return state, _reduce_metrics({k: v.detach() for k, v in metrics.items()})
+        return _reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
-    def g_step(state: TrainState, rng, st_batch, im_batch, lr_g):
-        on_mesh()
+    def g_pass(state: TrainState, rng, st_batch, im_batch):
         device = next(state.gen.parameters()).device
         st_batch, im_batch = batch_to_device(st_batch, device), batch_to_device(im_batch, device)
         with float32_math():
@@ -283,8 +317,7 @@ def make_train_steps(cfg: Config):
                 }
                 total = total + (cascade["G/video_vae_loss"]
                                  + cascade["G/reconstruct_loss"]) * cfg.RECONSTRUCT_LOSS
-            _step(state.gen, state.opts["gen"], total, lr_g)
-        state.step += 1
+            _step(state.gen, state.opts["gen"], total)
         metrics = {
             **cascade,
             "G/im_KL": im_kl, "G/st_KL": st_kl, "G/KL": im_kl + st_kl,
@@ -294,6 +327,103 @@ def make_train_steps(cfg: Config):
             "G/gan_loss": im_g.total + (img_w * st_g.total + se_g.total * seg_w),
             "G/loss": total,
         }
-        return state, _reduce_metrics({k: v.detach() for k, v in metrics.items()})
+        return _reduce_metrics({k: v.detach() for k, v in metrics.items()})
 
-    return d_step, g_step
+    return on_mesh, d_pass, g_pass
+
+
+def captures_chunks(device: torch.device) -> bool:
+    """Whether `make_scan_steps` replays a CUDA graph of the D+G pair on
+    `device`: on a CUDA device alone or under NCCL, whose collectives a
+    graph captures; not on the CPU, and not under gloo, which stages its
+    collectives through the host. Decided by the device and the backend,
+    never by trying a capture."""
+    if device.type != "cuda":
+        return False
+    return not is_distributed() or dist.get_backend() == "nccl"
+
+
+def make_scan_steps(cfg: Config):
+    """scan_steps(state, rng, st_batches, im_batches, lr_d, lr_g) -> (state,
+    metrics): K alternating D+G updates, the counterpart of
+    `cpcsv_tpu/train/steps.py:make_scan_steps` (K pairs in one `lax.scan`
+    dispatch). Every batch leaf carries a leading K axis, every metric comes
+    back stacked over K, as one (K,) tensor of one (K, M) device buffer that
+    a caller reads back in one copy, and `state.step` advances by K. The
+    updates are `make_train_steps`' D step then G step, K times.
+
+    `rng` is a `torch.Generator` on the nets' device, from which each pair
+    draws its noise as the steps draw it, or K explicit (d_noise, g_noise)
+    pairs of the steps' draws. The learning rates reach the Adams through
+    their device tensors (`Adam.set_lr`), set once before the pairs.
+
+    Where `captures_chunks` says so, the pairs run as a CUDA graph
+    (`train/graphs.py`): the first pair at a set of input shapes runs
+    eagerly on the graph's input buffers, a real update that also warms
+    cuDNN and the allocator, and is then captured once; every later pair at
+    those shapes, in this chunk or a later one, copies its inputs into the
+    buffers and replays the graph, with no host sync inside the chunk. A
+    chunk's last pair at shapes with no graph yet runs eagerly and captures
+    nothing. These pairs run on a side stream of their own
+    (`graphs.PairGraphs.stream`). A capture that fails raises. Elsewhere
+    each pair runs eagerly.
+    A replay gives an eager pair's bits: the same kernels on the same
+    inputs, the generator registered with the graph (`graphs.PairGraph`)."""
+    on_mesh, d_pass, g_pass = _passes(cfg)
+    graphs = PairGraphs()
+    tags: list[str] = []  # the metrics' names, in the order of a pair's row
+
+    def pair(state: TrainState, rng, inputs) -> torch.Tensor:
+        """One D+G pair on inputs (st_batch, im_batch), or (st_batch,
+        im_batch, (d_noise, g_noise)): its metrics as one float32 row."""
+        st_batch, im_batch, *noise = inputs
+        d_rng, g_rng = noise[0] if noise else (rng, rng)
+        metrics = {**d_pass(state, d_rng, st_batch, im_batch),
+                   **g_pass(state, g_rng, st_batch, im_batch)}
+        tags[:] = metrics
+        return torch.stack([v.float().reshape(()) for v in metrics.values()])
+
+    def scan_steps(state: TrainState, rng, st_batches, im_batches, lr_d, lr_g):
+        on_mesh()
+        device = next(state.gen.parameters()).device
+        st_batches = batch_to_device(st_batches, device)
+        im_batches = batch_to_device(im_batches, device)
+        K = st_batches["images"].shape[0]
+        draws = None if isinstance(rng, torch.Generator) else list(rng)
+        if draws is not None and len(draws) != K:
+            raise ValueError(f"{len(draws)} explicit noise draws for {K} pairs")
+        generator = rng if draws is None else None
+        set_learning_rates(state, lr_d, lr_g)
+        captured = captures_chunks(device)
+        with graphs.stream(device) if captured else contextlib.nullcontext():
+            rows = run_pairs(state, generator, st_batches, im_batches, draws, K, captured)
+        if captured:  # made on the pairs' stream, read on this one
+            rows.record_stream(torch.cuda.current_stream(device))
+        state.step += K
+        return state, dict(zip(tags, rows.unbind(1)))
+
+    def run_pairs(state, generator, st_batches, im_batches, draws, K, captured):
+        """The chunk's K pairs: replays, or eager pairs (a first one
+        captured where more follow); their metrics as a (K, M) tensor."""
+        rows = None
+        for k in range(K):
+            inputs = ({n: v[k] for n, v in st_batches.items()},
+                      {n: v[k] for n, v in im_batches.items()}) + (() if draws is None
+                                                                    else (draws[k],))
+            graph = graphs.get(inputs, generator) if captured else None
+            if graph is not None:
+                row = graph.replay(inputs)
+            elif captured and k + 1 < K:  # more pairs of these shapes follow
+                graph = PairGraph(inputs, generator)
+                row = pair(state, generator, graph.inputs)
+                graph.capture(pair, state)
+                graphs.add(graph)
+            else:  # fresh tensors, as a pair outside a chunk gets
+                row = pair(state, generator, tree_map(torch.clone, inputs))
+            if rows is None:
+                rows = torch.empty((K, row.numel()), dtype=row.dtype, device=row.device)
+            rows[k].copy_(row)
+        return rows
+
+    scan_steps.graphs = graphs
+    return scan_steps

@@ -20,6 +20,19 @@ thread and a side stream while the card runs the current step
 (`data/prefetch.py`). A D+G pair's metrics come back in one copy, as in the
 JAX package.
 
+With SCAN_STEPS K > 1 (every shipped config: 20) the epoch runs in chunks
+of K pairs, as `cpcsv_tpu/train/trainer.py:292-355` does: K host batches
+stacked on a leading axis (the story batches augmented first), a chunk
+flushed early where a ragged batch changes the shapes, a shorter last
+chunk, the stack copied to the card while the previous chunk runs (one
+chunk in flight), the K pairs run by `steps.make_scan_steps`, and their
+metrics read back once a chunk and logged a step at a time, so
+`metrics.jsonl` holds the rows of K = 1. On a CUDA device, alone or under
+NCCL, a chunk's pairs replay a CUDA graph of the D+G pair (`train/graphs.py`);
+on the CPU and under gloo they run eagerly (`steps.captures_chunks`); the
+run prints which once. The steps' generator is one object, reseeded every
+epoch, so that a graph captured in one epoch draws the next epoch's noise.
+
 With EVALUATE_FID_SCORE, each epoch ends with the test set's FID and FSD
 (`calculate_vfid`, reference trainer.py:160-174), logged as Evaluation/fid
 and Evaluation/vfid; their seconds count in the epoch's, as in the JAX
@@ -28,14 +41,12 @@ package. The extractors are built at the first epoch's hook and kept.
 The run directory archives itself (reference trainer.py:55-61): the YAML
 config and the port's generator and trainer sources are copied into it.
 
-With CPCSV_PROFILE_DIR set, the first epoch of the run with more than two
-steps is traced from its step 2 to its step 5 (or its end) with
-torch.profiler into that directory (`utils/profiling.py`), as
-`cpcsv_tpu/train/trainer.py:273-287` traces with jax.profiler; a run too
-short for that says so at its end.
-
-SCAN_STEPS, the JAX package's K updates in one dispatch, is the same sequence
-of updates; the port runs it one D+G pair at a time.
+With CPCSV_PROFILE_DIR set, the run traces with torch.profiler into that
+directory (`utils/profiling.py`), as the JAX trainer traces with
+jax.profiler: with K > 1 the second chunk of the first epoch that has one,
+its first warm chunk (`cpcsv_tpu/train/trainer.py:341-350`); with K = 1
+steps 2-5 (or to its end) of the first epoch with more than two steps
+(`:273-287`). A run too short for that says so at its end.
 
 Data-parallel (`parallel/`): every rank runs this loop on its data shard of
 the global batches (`data/loader.py`), and cfg.MESH_SHAPE must be a mesh
@@ -72,7 +83,7 @@ from torch.profiler import record_function
 
 from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.data.loader import DataLoader, WrapAroundIterator
-from cpcsv_tpu_torch.data.prefetch import BatchCopier, device_prefetch
+from cpcsv_tpu_torch.data.prefetch import BatchCopier, device_prefetch, stack_batches
 from cpcsv_tpu_torch.device import float32_math, resolve_device
 from cpcsv_tpu_torch.evaluation.datasets import StoryGANSSIMDataset
 from cpcsv_tpu_torch.evaluation.drivers import (
@@ -85,13 +96,14 @@ from cpcsv_tpu_torch.parallel.distributed import process_info
 from cpcsv_tpu_torch.parallel.mesh import broadcast_from_rank0, check_training_mesh, mesh_size
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.train.state import TrainState, check_replicas, create_train_state
-from cpcsv_tpu_torch.train.steps import make_train_steps
+from cpcsv_tpu_torch.train.steps import captures_chunks, make_scan_steps, make_train_steps
 from cpcsv_tpu_torch.utils.image import save_image_results, save_story_results
 from cpcsv_tpu_torch.utils.logging import MetricsLogger
 from cpcsv_tpu_torch.utils.profiling import profile_env_dir, start_trace, stop_trace
 
 EPOCH_STEPS_SPAN = "GANTrainer.epoch_steps"  # a torch.profiler range around an epoch's steps
-PROFILE_STEPS = (2, 5)  # CPCSV_PROFILE_DIR: the first and the last step of an epoch traced
+PROFILE_STEPS = (2, 5)  # CPCSV_PROFILE_DIR at K = 1: the first and the last step traced
+PROFILE_CHUNK = 1  # CPCSV_PROFILE_DIR at K > 1: the chunk of an epoch traced
 
 
 def lr_at_epoch(base_lr: float, epoch: int, decay_step: int) -> float:
@@ -159,6 +171,8 @@ class GANTrainer:
         self.continue_ckpt = continue_ckpt
         self.seed = seed
         self.d_step, self.g_step = make_train_steps(cfg)
+        # K > 1: K pairs a chunk, one readback (`steps.make_scan_steps`)
+        self.scan_steps = make_scan_steps(cfg) if cfg.SCAN_STEPS > 1 else None
         self.ckpt = CheckpointManager(self.model_dir)
         self.logger = MetricsLogger(self.log_dir) if self.rank == 0 else _NoLogger()
         self._eval_extractors = None  # the in-training FID/FSD's, built at its first call
@@ -212,11 +226,18 @@ class GANTrainer:
         num_step = len(storyloader)
         c_time = time.time()
         print(f"LR DECAY EPOCH: {cfg.TRAIN.LR_DECAY_EPOCH}")
+        if self.scan_steps is not None:
+            way = ("replayed as a CUDA graph of the D+G pair" if captures_chunks(self.device)
+                   else "run eagerly")
+            print(f"SCAN_STEPS {cfg.SCAN_STEPS}: each chunk's pairs {way}")
         profile_dir = profile_env_dir() if self.rank == 0 else None  # armed until one trace
+        # the steps' noise: one generator, reseeded every epoch (a captured
+        # pair draws from the generator it was captured with)
+        rng = torch.Generator(device=self.device)
 
         for epoch in range(start_epoch, self.max_epoch):
             start_t = time.time()
-            rng = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch, 0))
+            rng.manual_seed(epoch_seed(self.seed, epoch, 0))
             self._np_rng = np.random.default_rng([self.seed, epoch])
             for loader in (storyloader, imageloader):
                 if hasattr(loader, "set_epoch"):
@@ -228,10 +249,6 @@ class GANTrainer:
             def paired_batches():
                 for st_host in storyloader:
                     yield st_host, next(image_iter)
-
-            def put(pair):  # on the prefetch thread, one batch after another
-                st_host, im_host = pair
-                return st_host, copier(self._augment_story_host(st_host)), copier(im_host)
 
             def log_row(row: dict, i: int) -> None:
                 """Reference cadence: story-D scalars every step
@@ -245,26 +262,10 @@ class GANTrainer:
                     self.logger.add_scalars(
                         {k: v for k, v in stats.items() if not k.startswith("st_D/")}, step)
 
-            last_st_host, prof = None, None
+            run_epoch = self._pairs if self.scan_steps is None else self._chunks
             with record_function(EPOCH_STEPS_SPAN):
-                for i, (st_host, st_staged, im_staged) in enumerate(
-                        device_prefetch(paired_batches(), put, depth=2)):
-                    if profile_dir and i == PROFILE_STEPS[0]:
-                        prof = start_trace(profile_dir)
-                    st_batch, im_batch = copier.ready(st_staged), copier.ready(im_staged)
-                    _, d_metrics = self.d_step(state, rng, st_batch, im_batch, lr_d)
-                    _, g_metrics = self.g_step(state, rng, st_batch, im_batch, lr_g)
-                    # one device-to-host copy for all of the pair's scalars
-                    metrics = {**d_metrics, **g_metrics}
-                    values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
-                    log_row(dict(zip(metrics, values.tolist())), i)
-                    last_st_host = st_host
-                    if prof is not None and i == PROFILE_STEPS[1]:
-                        stop_trace(prof)
-                        prof = profile_dir = None
-            if prof is not None:  # the epoch ended inside the traced steps
-                stop_trace(prof)
-                profile_dir = None
+                last_st_host, profile_dir = run_epoch(state, rng, paired_batches(), copier,
+                                                      lr_d, lr_g, log_row, profile_dir)
 
             # ---- epoch sample grid (reference trainer.py:437-444)
             if last_st_host is not None and self.rank == 0:
@@ -293,10 +294,85 @@ class GANTrainer:
         # records the last completed epoch for auto-resume
         self.ckpt.save(state, self.max_epoch, completed=self.max_epoch - 1)
         if profile_dir:
-            print(f"WARNING: CPCSV_PROFILE_DIR was set but no epoch had more than "
-                  f"{PROFILE_STEPS[0]} steps to trace")
+            what = (f"more than {PROFILE_STEPS[0]} steps" if self.scan_steps is None
+                    else f"a chunk {PROFILE_CHUNK + 1} of {cfg.SCAN_STEPS} steps")
+            print(f"WARNING: CPCSV_PROFILE_DIR was set but no epoch had {what} to trace")
         self.logger.flush()
         return state
+
+    # ------------------------------------------------------------------
+    def _pairs(self, state, rng, batches, copier, lr_d, lr_g, log_row, profile_dir):
+        """An epoch one D+G pair at a time (SCAN_STEPS <= 1), each pair's
+        metrics read back in one copy; traces steps PROFILE_STEPS into
+        `profile_dir` if it is set. Returns (the last story batch, the
+        profile directory, None once traced)."""
+        def put(pair):  # on the prefetch thread, one batch after another
+            st_host, im_host = pair
+            return st_host, copier(self._augment_story_host(st_host)), copier(im_host)
+
+        last_st_host, prof = None, None
+        for i, (st_host, st_staged, im_staged) in enumerate(
+                device_prefetch(batches, put, depth=2)):
+            if profile_dir and i == PROFILE_STEPS[0]:
+                prof = start_trace(profile_dir)
+            st_batch, im_batch = copier.ready(st_staged), copier.ready(im_staged)
+            _, d_metrics = self.d_step(state, rng, st_batch, im_batch, lr_d)
+            _, g_metrics = self.g_step(state, rng, st_batch, im_batch, lr_g)
+            # one device-to-host copy for all of the pair's scalars
+            metrics = {**d_metrics, **g_metrics}
+            values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()])
+            log_row(dict(zip(metrics, values.tolist())), i)
+            last_st_host = st_host
+            if prof is not None and i == PROFILE_STEPS[1]:
+                stop_trace(prof)
+                prof = profile_dir = None
+        if prof is not None:  # the epoch ended inside the traced steps
+            stop_trace(prof)
+            profile_dir = None
+        return last_st_host, profile_dir
+
+    def _chunks(self, state, rng, batches, copier, lr_d, lr_g, log_row, profile_dir):
+        """An epoch in chunks of SCAN_STEPS pairs (`cpcsv_tpu/train/trainer.py:296-355`),
+        each chunk's metrics read back in one copy; traces the epoch's chunk
+        PROFILE_CHUNK, its first warm one, into `profile_dir` if it is set.
+        Returns as `_pairs`."""
+        K = self.cfg.SCAN_STEPS
+
+        def chunked():
+            chunk = []
+            for pair in batches:
+                if chunk and (pair[0]["images"].shape != chunk[0][0]["images"].shape
+                              or pair[1]["images"].shape != chunk[0][1]["images"].shape):
+                    yield chunk  # a ragged batch: flush, so that every chunk stacks
+                    chunk = []
+                chunk.append(pair)
+                if len(chunk) == K:
+                    yield chunk
+                    chunk = []
+            if chunk:
+                yield chunk  # a shorter last chunk
+
+        def put_chunk(chunk):  # on the prefetch thread, one chunk after another
+            st_hosts = [self._augment_story_host(st) for st, _ in chunk]
+            return (chunk[-1][0], copier(stack_batches(st_hosts)),
+                    copier(stack_batches([im for _, im in chunk])))
+
+        i, last_st_host = 0, None
+        # depth 1: a chunk in flight is already K batches on the card
+        for ci, (st_host, st_staged, im_staged) in enumerate(
+                device_prefetch(chunked(), put_chunk, depth=1)):
+            prof = start_trace(profile_dir) if profile_dir and ci == PROFILE_CHUNK else None
+            _, metrics = self.scan_steps(state, rng, copier.ready(st_staged),
+                                         copier.ready(im_staged), lr_d, lr_g)
+            rows = torch.stack(list(metrics.values()), dim=1).tolist()  # the one readback
+            if prof is not None:
+                stop_trace(prof)
+                profile_dir = None
+            for row in rows:
+                log_row(dict(zip(metrics, row)), i)
+                i += 1
+            last_st_host = st_host
+        return last_st_host, profile_dir
 
     # ------------------------------------------------------------------
     def _log_epoch_samples(self, state: TrainState, epoch: int, st_host: dict) -> None:

@@ -35,6 +35,44 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 
+def start_ranks(argvs, logs, envs):
+    """One process a rank: argv, output file and environment each."""
+    import subprocess
+
+    procs = []
+    for argv, log, env in zip(argvs, logs, envs):
+        with open(log, "w") as out:  # the child keeps its own descriptor
+            procs.append(subprocess.Popen(argv, env=env, stdout=out, stderr=subprocess.STDOUT))
+    return procs
+
+
+def wait_ranks(procs, logs, timeout: float, what: str) -> None:
+    """Waits for all ranks together. As soon as one exits non-zero, or once
+    `timeout` seconds have passed, kills the others (which would otherwise
+    wait out a rendezvous or a collective) and fails with every rank's
+    output; returns once all have exited 0."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while True:
+        codes = [p.poll() for p in procs]
+        if any(c not in (None, 0) for c in codes) or all(c == 0 for c in codes):
+            break
+        if time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    if all(c == 0 for c in codes):
+        return
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    late = " (timed out)" if all(c in (None, 0) for c in codes) else ""
+    raise AssertionError(f"{what}{late}:\n" + "\n".join(
+        f"rank {rank} exited {p.returncode}:\n{Path(log).read_text()[-3000:]}"
+        for rank, (p, log) in enumerate(zip(procs, logs))))
+
+
 def _writes_recorder(root: Path):
     """Patches builtins.open to list the files opened for writing under `root`."""
     written, real_open = [], builtins.open
@@ -255,10 +293,24 @@ def run_cli(job, rank, world, out_dir):
 
         return spy(d_step), spy(g_step)
 
-    make_steps = trainer_module.make_train_steps
+    def spying_scan(cfg):
+        """SCAN_STEPS > 1: each pair of a chunk as a D and a G entry, as above."""
+        scan = make_scan(cfg)
+
+        def run(*args):
+            state, metrics = scan(*args)
+            for row in torch.stack(list(metrics.values()), 1).tolist():
+                row = dict(zip(metrics, row))
+                d = {k: v for k, v in row.items() if "_D/" in k or k.endswith("_D")}
+                history.extend([d, {k: v for k, v in row.items() if k not in d}])
+            return state, metrics
+        return run
+
+    make_steps, make_scan = trainer_module.make_train_steps, trainer_module.make_scan_steps
     result, home = {}, os.getcwd()
     try:
-        with mock.patch.object(trainer_module, "make_train_steps", spying_steps):
+        with mock.patch.object(trainer_module, "make_train_steps", spying_steps), \
+                mock.patch.object(trainer_module, "make_scan_steps", spying_scan):
             for name, (cli, cwd, argv) in job["runs"].items():
                 os.makedirs(cwd, exist_ok=True)
                 os.chdir(cwd)

@@ -499,9 +499,7 @@ def test_cuda_bn_sums_all_reduced_across_two_ranks(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import os
-    import subprocess
     import sys
-    from pathlib import Path
 
     rng = np.random.default_rng(3)
     cases = []
@@ -511,13 +509,16 @@ def test_cuda_bn_sums_all_reduced_across_two_ranks(tmp_path):
         cases.append({"x": x, "w": w, "split": [N, 0] if split else [N // 2, N - N // 2]})
     job_path = tmp_path / "job.pt"
     torch.save({"root": str(tmp_path), "device": "cuda", "bn": cases}, job_path)
-    worker = Path(__file__).with_name("_torch_parallel_worker.py")
-    procs = [subprocess.Popen(
-        [sys.executable, str(worker), "bn", str(rank), "2", f"file://{tmp_path / 'rendezvous'}",
-         str(job_path), str(tmp_path / f"rank{rank}.pt")], env={**os.environ},
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
-    logs = [p.communicate(timeout=300)[0] for p in procs]
-    assert all(p.returncode == 0 for p in procs), "\n".join(log[-3000:] for log in logs)
+    import _torch_parallel_worker as worker
+
+    logs = [tmp_path / f"rank{rank}.log" for rank in range(2)]
+    procs = worker.start_ranks(
+        [[sys.executable, worker.__file__, "bn", str(rank), "2",
+          f"file://{tmp_path / 'rendezvous'}", str(job_path), str(tmp_path / f"rank{rank}.pt")]
+         for rank in range(2)], logs, [{**os.environ}] * 2)
+    # the ranks together, a failed one ending both at once; a launch takes
+    # ~10-20 s on the card
+    worker.wait_ranks(procs, logs, 120, "the two BN ranks")
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)["cases"] for r in range(2)]
     for i, case in enumerate(cases):
         r0, r1 = ranks[0][i], ranks[1][i]

@@ -202,7 +202,7 @@ def test_continue_ckpt_e_restarts_at_e(straight, cfg_file, tmp_path, capsys):
         raise KeyboardInterrupt
 
     trainer = GANTrainer(cfg, str(tmp_path), continue_ckpt="0", seed=0, device="cpu")
-    trainer.d_step = stop
+    trainer.d_step = trainer.scan_steps = stop  # whichever the first update goes through
     with pytest.raises(KeyboardInterrupt):
         trainer.train(image_loader, story_loader, test_loader)
     assert "Continue training from epoch 0" in capsys.readouterr().out

@@ -682,8 +682,20 @@ def test_trainer_shuffles_as_the_jax_trainer(tmp_path):
 
         return d_step, lambda state, rng, st_batch, im_batch, lr: (state, {})
 
+    def fake_scan(cfg):  # SCAN_STEPS > 1, the shipped configs': a chunk's pairs in turn
+        d_step, _ = fake_steps(cfg)
+
+        def scan(state, rng, st_batches, im_batches, lr_d, lr_g):
+            K = len(st_batches["images"])
+            for k in range(K):
+                d_step(state, rng, {n: v[k] for n, v in st_batches.items()}, None, lr_d)
+            return state, {"st_D/loss": torch.zeros(K)}
+
+        return scan
+
     def run(max_epoch, continue_ckpt=None):
-        with mock.patch.object(trainer_module, "make_train_steps", fake_steps):
+        with mock.patch.object(trainer_module, "make_train_steps", fake_steps), \
+                mock.patch.object(trainer_module, "make_scan_steps", fake_scan):
             trainer = trainer_module.GANTrainer(
                 cfg.with_updates(TRAIN=dataclasses.replace(cfg.TRAIN, MAX_EPOCH=max_epoch)),
                 str(tmp_path / "run"), seed=3, continue_ckpt=continue_ckpt, device="cpu")

@@ -44,7 +44,6 @@ is held to that file's 1e-2.
 import copy
 import dataclasses
 import os
-import subprocess
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -84,7 +83,10 @@ FOUR = "data:2,model:2"  # the four-rank launch's mesh, against "" on two ranks
 GRAD_REL_L2 = 1e-5  # float64
 GRAD_REL_L2_F32 = tts.GRAD_RTOL  # float32, 1e-2 (see the docstring)
 TOL = dict(rtol=1e-3, atol=1e-4)
-TIMEOUT = 300  # seconds a launch may take (about 15-25 on one idle core)
+# seconds a launch may take: about 15-25 on one idle core, 8-40 beside the
+# other test processes; the ranks are waited on together and a rank that
+# fails ends the launch at once (`worker.wait_ranks`)
+TIMEOUT = 120
 
 
 def _cfg(name, keys):
@@ -125,21 +127,16 @@ def _launch(mode, job, root: Path, env=None, world: int = WORLD):
     job_path = root / f"{mode}_job.pt"
     torch.save(job, job_path)
     init = f"file://{root / f'{mode}_rendezvous'}"
-    procs, outs = [], []
-    for rank in range(world):
-        out = root / f"{mode}_rank{rank}.pt"
-        rank_env = {**os.environ, "OMP_NUM_THREADS": "1", **(env(rank) if env else {})}
-        procs.append(subprocess.Popen(
-            [sys.executable, worker.__file__, mode, str(rank), str(world), init, str(job_path),
-             str(out)], env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-        outs.append(out)
+    outs = [root / f"{mode}_rank{rank}.pt" for rank in range(world)]
+    logs = [root / f"{mode}_rank{rank}.log" for rank in range(world)]
+    procs = worker.start_ranks(
+        [[sys.executable, worker.__file__, mode, str(rank), str(world), init, str(job_path),
+          str(out)] for rank, out in enumerate(outs)], logs,
+        [{**os.environ, "OMP_NUM_THREADS": "1", **(env(rank) if env else {})}
+         for rank in range(world)])
 
     def wait():
-        logs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
-        assert all(p.returncode == 0 for p in procs), "\n".join(
-            f"{mode} rank {rank} exited {p.returncode}:\n{log[-3000:]}"
-            for rank, (p, log) in enumerate(zip(procs, logs)))
+        worker.wait_ranks(procs, logs, TIMEOUT, f"the {mode} launch")
         results = [torch.load(o, weights_only=False) for o in outs]
         for path in (job_path, *outs):  # hundreds of MB: rank 0's gradients in float64
             path.unlink()
@@ -591,3 +588,22 @@ def test_mesh_shape_parsing_and_the_environment(monkeypatch):
     assert not distributed.is_distributed()
     assert mesh.wrong_pair_rows(mesh.Rows(2, 2, 4)) == mesh.Rows(2, 1, 3)
     assert mesh.wrong_pair_rows(mesh.Rows(1, 1, 2)) == mesh.Rows(1, 0, 1)
+
+
+def test_a_failed_rank_ends_the_launch_at_once(tmp_path):
+    """`worker.wait_ranks`: a rank that exits non-zero fails the launch at
+    once, its peer (here one that would sleep for a minute, as a rank waits
+    on a rendezvous its failed peer never joins) killed, both outputs in
+    the message; ranks that all exit 0 return."""
+    import time
+
+    logs = [tmp_path / f"rank{r}.log" for r in range(2)]
+    code = ["import sys; print('rank 0 fails'); sys.exit(3)", "import time; time.sleep(60)"]
+    procs = worker.start_ranks([[sys.executable, "-c", c] for c in code], logs,
+                               [dict(os.environ)] * 2)
+    t = time.monotonic()
+    with pytest.raises(AssertionError, match="rank 0 exited 3:\nrank 0 fails"):
+        worker.wait_ranks(procs, logs, TIMEOUT, "a launch")
+    assert time.monotonic() - t < 30 and procs[1].returncode is not None
+    procs = worker.start_ranks([[sys.executable, "-c", "pass"]] * 2, logs, [dict(os.environ)] * 2)
+    worker.wait_ranks(procs, logs, TIMEOUT, "a launch")

@@ -159,7 +159,7 @@ def test_profile_dir_traces_steps_2_to_5(tmp_path, monkeypatch, capsys):
         return d_step, lambda state, *args: (state, {"G/loss": torch.zeros(())})
 
     monkeypatch.setattr(trainer_module, "make_train_steps", stand_ins)
-    cfg = tiny_cfg(max_epoch=1)
+    cfg = tiny_cfg(max_epoch=1).with_updates(SCAN_STEPS=1)  # one pair at a time
     GANTrainer(cfg, str(tmp_path / "short"), device="cpu").train(
         *synthetic_loaders(cfg, 4, seed=0))  # 2 steps: too short
     assert not trace_dir.exists()
