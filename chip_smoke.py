@@ -15,10 +15,16 @@ Phases, each of which exits non-zero on failure:
   4. story generation at full width, configs final.yml (v1) and cascade.yml,
      through the serving entry point `Infer` with random weights from --seed:
      shapes, finite values in [-1, 1], the kernels' launch counts, the same
-     frames through the plain DFN, float32 inside the entry point while
-     TF32 is allowed globally, and a `generate_story` PNG walk;
-  5. serving timings: frames/s and device busy time from a torch.profiler
-     trace; the card's launch floor (an empty kernel in one CUDA graph); the
+     frames through the plain DFN (run eagerly), float32 inside the entry
+     point while TF32 is allowed globally (on the eager calls and the
+     captures), and a `generate_story` PNG walk; the sampler
+     (`evaluation/sampling.py`): each size's first call eager and captured
+     as a CUDA graph, every later call a replay, bit for bit eager
+     `sample_videos` from the same generator state, a rewound generator
+     reaching the replay, one DFN kernel node a graph (cuGraphGetNodes);
+  5. serving timings: ms a call replayed against eager `sample_videos`,
+     frames/s, device busy time and idle share from a torch.profiler
+     trace of each; the card's launch floor (an empty kernel in one CUDA graph); the
      DFN forward kernel at B = 90 and 360, the main paths' batches, in one
      CUDA graph and from a trace, over the floor, beside its bound, its plain
      version and a library call;
@@ -65,7 +71,8 @@ Phases, each of which exits non-zero on failure:
  12. --eval_fid 1, --eval_ssim 1 and --load_ckpt 1 through the CLI on that
      run's final snapshot (the epoch-0 one, of the same state, removed): a
      CSV row a snapshot, finite and tagged random-init;
-     the numbered PNGs; the DFN launches; TF32 off inside the extractors;
+     the numbered PNGs; the DFN launches, the sampler's replays among the
+     calls (as in 13, 14 and 28); TF32 off inside the extractors;
      each backbone on the card against the CPU; seconds a checkpoint by part
      (generation and PNG writing, PNG reading, Inception, R(2+1)D, the host
      statistics and Frechet);
@@ -81,11 +88,12 @@ Phases, each of which exits non-zero on failure:
      working directory: finite Evaluation/fid and Evaluation/vfid each
      epoch, the extractors built once, the real side's .cache/ statistics
      written in epoch 0 and read in epoch 1, a snapshot every epoch, the
-     launches; the hook's seconds and share of the epoch, the host Frechet
-     apart;
+     launches, epoch 1's grid and hook replaying epoch 0's sampler graphs;
+     the hook's seconds and share of the epoch, the host Frechet apart;
  15. (after 5) story generation at COMPUTE_DTYPE bfloat16, throughput.yml
      (v1) and procedural.yml (cascade), through `Infer` at 18 and 72
-     stories: float32 numpy frames finite in [-1, 1], the DFN launches; a
+     stories: float32 numpy frames finite in [-1, 1], the DFN launches, the
+     replays bit for bit eager as phase 4's, timed as phase 5's; a
      call of 72 stories under each FUSED_UPSAMPLE, whose frames' spread is
      the yardstick of the relative L2 to the float32 frames of the same
      weights and noise and to the plain DFN's; frames/s, device busy time
@@ -154,7 +162,8 @@ Phases, each of which exits non-zero on failure:
      CPCSV_NUM_PROCESSES, CPCSV_PROCESS_ID, --backend gloo), final.yml
      --synthetic 36: 2 epochs straight, and 1 plus an auto-resumed one equal
      to them bit for bit; both ranks' metrics equal; rank 1 writes no file;
-     then --eval_fid 1 walks on rank 0 while rank 1 waits;
+     then --eval_ssim 1 walks on rank 0 while rank 1 waits (--eval_fid
+     until PR 14);
  32. a mesh with a model axis (MESH_SHAPE's other axes replicate): phase
      29's two ranks, after their step, run the same global batch and noise
      under data:1,model:2 at 90 / 18 a device, each rank the whole 180 / 36,
@@ -494,13 +503,10 @@ def bn_graph_nodes(step_calls: dict, dtype) -> dict:
     wrapper at each shape of `step_calls`, on inputs of `dtype`, captured in a
     CUDA graph and read with CUDA's cuGraphGetNodes: what one call runs
     on the card, without a profiler."""
-    import ctypes
-
     import torch
 
     from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
 
-    libcuda = ctypes.CDLL("libcuda.so.1")
     out = {}
     for kernel, calls in step_calls.items():
         for N, C, S in calls:
@@ -513,19 +519,7 @@ def bn_graph_nodes(step_calls: dict, dtype) -> dict:
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.graph(graph):
                 fn(*args)
-            handle, count = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
-            check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0,
-                  "cuGraphGetNodes failed")
-            nodes = (ctypes.c_void_p * count.value)()
-            check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0,
-                  "cuGraphGetNodes failed")
-            types = collections.Counter()
-            for node in nodes:
-                t = ctypes.c_int(-1)
-                check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
-                      "cuGraphNodeGetType failed")
-                types[t.value] += 1
-            out[kernel, (N, C, S)] = types
+            out[kernel, (N, C, S)] = graph_node_types(graph)
             del graph
     return out
 
@@ -867,12 +861,185 @@ def final_saves_only():
 
 
 def reset_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch count to 0, and the sampler's calls."""
+    from cpcsv_tpu_torch.evaluation import sampling
     from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
     from cpcsv_tpu_torch.ops.cuda import dfn as dfn_cuda
 
     for counts in (dfn_cuda.launches, bn_cuda.launches):
         counts.update(dict.fromkeys(counts, 0))
+    sampling.totals.clear()
+
+
+def sampler_calls() -> dict:
+    """The sampler's calls since `reset_counts`, over every net."""
+    from cpcsv_tpu_torch.evaluation import sampling
+
+    return {k: sampling.totals[k] for k in ("eager", "captured", "replayed")}
+
+
+def check_sampler(calls: int, label: str, got: dict = None, eager: int = None) -> dict:
+    """The sampler's calls (`sampler_calls()` unless `got`): `calls`
+    generation calls, each first call at a key eager (`eager` of them, where
+    given) and then captured, every other one a replay, at least one of
+    them. Returns the counts."""
+    got = got or sampler_calls()
+    check(got["eager"] == got["captured"] and got["eager"] + got["replayed"] == calls
+          and got["replayed"] > 0 and eager in (None, got["eager"]),
+          f"{label}: sampler calls {got}, expected {calls} calls, each eager one captured "
+          f"({eager or 'some'} of them) and some replayed")
+    print(f"{label}: sampler calls {got} ({calls} generation calls; every call after the first "
+          "at a key replays its CUDA graph)")
+    return got
+
+
+def eager_np(infer, batch, seg: bool = False):
+    """What `Infer.sample_videos_np` computes, run eagerly: the net's
+    `sample_videos` on the card from `infer.generator`, no graph, under a
+    DFN patched in by the caller too."""
+    import torch
+
+    from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.evaluation.drivers import _batch_motion_content
+
+    motion, content = _batch_motion_content(infer.cfg, batch)
+    with torch.no_grad(), float32_math():
+        out = infer.net_g.sample_videos(torch.from_numpy(motion).cuda(),
+                                        torch.from_numpy(content).cuda(), seg=seg,
+                                        generator=infer.generator)
+    mask = out.seg.float().cpu().numpy() if out.seg is not None else None
+    return out.image.float().cpu().numpy(), mask
+
+
+def kernel_node_names(graph) -> list[str]:
+    """The (mangled) names of a kept torch.cuda.CUDAGraph's kernel nodes,
+    read with CUDA's cuGraphKernelNodeGetParams and cuFuncGetName (or
+    cuKernelGetName for a node that holds a library kernel)."""
+    import ctypes
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [(f, ctypes.c_uint) for f in (
+            "gx", "gy", "gz", "bx", "by", "bz", "smem")] + [(f, ctypes.c_void_p) for f in (
+                "params", "extra", "kern", "ctx")]
+
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    names = []
+    for node, kind in graph_nodes(graph):
+        if kind != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        p = Params()
+        err = libcuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(p))
+        check(err == 0, f"cuGraphKernelNodeGetParams_v2 failed ({err})")
+        name = ctypes.c_char_p()
+        if p.func:
+            err = libcuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+        else:
+            err = libcuda.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(p.kern))
+        check(err == 0 and name.value is not None, f"a kernel node's name: CUDA error {err}")
+        names.append(name.value.decode())
+    return names
+
+
+def serving_times(infer, batch, n: int, label: str, card: str) -> dict:
+    """Phases 5 and 15: ms a call (median of 5 after 2 warm-ups) of
+    `infer.sample_videos_np` on `batch`, a replay, against the same call run
+    eagerly (`eager_np`), and from a trace of 3 calls of each the device busy
+    time a call (the union of the card's events' intervals) and the idle
+    share against the median. Returns {"graphed" | "eager": {"ms", "busy_ms",
+    "idle", "ops"}}."""
+    out = {}
+    for way, fn in (("graphed", lambda: infer.sample_videos_np(batch)),
+                    ("eager", lambda: eager_np(infer, batch))):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t)
+        med = sorted(times)[len(times) // 2] * 1e3
+        dev, _ = trace(fn, 3)
+        names = by_name(dev, 3)
+        busy = span_union((e.time_range.start, e.time_range.end) for e in dev) / 3e3
+        out[way] = {"ms": med, "busy_ms": busy, "idle": 1 - busy / med, "ops": len(dev) / 3}
+        print(f"{label}, {way}: {med:.2f} ms median of 5 (min {min(times) * 1e3:.2f}, max "
+              f"{max(times) * 1e3:.2f}), {n * infer.cfg.VIDEO_LEN / med * 1e3:.1f} frames/s "
+              f"[{card}]; trace: device busy {busy:.3f} ms per call in {len(dev) / 3:.0f} ops, "
+              f"idle share {1 - busy / med:.3f}; top: "
+              + "; ".join(f"{k[:60]} {v:.1f} us" for k, v in list(names.items())[:4]))
+    g, e = out["graphed"]["ms"], out["eager"]["ms"]
+    print(f"{label}: graphed {g:.2f} ms against eager {e:.2f} ms a call ({e / g:.3f}x)")
+    return out
+
+
+def replays_match_eager(infer, batches: dict, label: str) -> dict:
+    """Phases 4 and 15. Eager generation is not bit-reproducible under
+    cuDNN's default flags: the `deconv` lowering's transposed convs pick a
+    data-gradient algorithm that sums in varying order, and two eager calls
+    differ in the last bits (PR 14's chip runs). So, for each batch, the
+    graph captured at the default flags (the batch's first call was) is read
+    against eager calls, the eager-to-eager spread beside it; then, under
+    cudnn.deterministic (a key of its own), a first call captures and a
+    replay is held against eager `sample_videos` from the same generator
+    state bit for bit, the generator advanced alike, a rewound generator
+    reaching the replay. Last, every graph of the net's sampler: one DFN
+    kernel node among its kernel nodes. Returns {stories: kernel nodes}."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.evaluation import sampling
+
+    cache = sampling.cache_of(infer.net_g)
+    spreads = {}
+    for n, batch in batches.items():
+        state = infer.generator.get_state()
+        got, _ = infer.sample_videos_np(batch)
+        eager = []
+        for _ in range(2):
+            infer.generator.set_state(state)
+            eager.append(eager_np(infer, batch)[0])
+        spreads[n] = (float(abs(got - eager[0]).max()), float(abs(eager[1] - eager[0]).max()))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for n, batch in batches.items():
+            infer.sample_videos_np(batch)  # eager, then captured at this key
+            replayed = sampling.totals["replayed"]
+            state = infer.generator.get_state()
+            got, _ = infer.sample_videos_np(batch)
+            after = infer.generator.get_state()
+            infer.generator.set_state(state)
+            ref, _ = eager_np(infer, batch)
+            check(torch.equal(infer.generator.get_state(), after),
+                  f"{label} {n} stories: the replay and the eager call advanced the generator "
+                  "apart")
+            check(np.array_equal(got, ref), f"{label} {n} stories: replayed frames differ from "
+                                            f"eager sample_videos by {float(abs(got - ref).max())}")
+            infer.generator.set_state(state)
+            again, _ = infer.sample_videos_np(batch)
+            check(np.array_equal(again, got), f"{label} {n} stories: a rewound generator did not "
+                                              "reach the replay")
+            check(sampling.totals["replayed"] == replayed + 2,
+                  f"{label} {n} stories: sampler calls {sampler_calls()}")
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    nodes = {}
+    for key, graph in cache.graphs.graphs.items():
+        names = kernel_node_names(graph.graph)
+        dfn = sum("dfn_forward_kernel" in k for k in names)
+        check(dfn == 1 and graph.launches["dfn_forward"][1] == 1,
+              f"{label}: a sampler graph holds {dfn} DFN kernel nodes, records "
+              f"{graph.launches['dfn_forward'][1]} launches")
+        if not key[6]:  # the default flags' graph (key: `sampling.sample_key`)
+            nodes[key[0][0][0][0]] = len(names)
+    print(f"{label}: under cudnn.deterministic every replay bit for bit eager sample_videos from "
+          f"the same generator state, which both advance alike, and a rewound generator reaches "
+          f"the replay; at the default flags max |replay - eager| and |eager - eager| by stories "
+          + ", ".join(f"{n}: {a:.3e}, {b:.3e}" for n, (a, b) in spreads.items())
+          + f"; kernel nodes a default-flags graph by stories {nodes}, one dfn_forward_kernel "
+          f"in each "
+          f"({len(cache.graphs.graphs)} graphs)")
+    return nodes
 
 
 def read_counts() -> dict[str, int]:
@@ -1284,8 +1451,12 @@ def bf16_serving(card: str, seed: int) -> dict:
     yardstick of the relative L2 to the float32 frames of the same weights
     and noise, and to the frames through the plain DFN; frames/s, device
     busy time and idle share.
+    Every call after the first at a key replays its CUDA graph, bit for bit
+    eager `sample_videos` (`replays_match_eager`); the plain DFN runs
+    eagerly.
     Returns {"launches": dfn_forward launches, "lowering_ms": {config: {fused: ms}},
-    "fps": {(config, stories): frames/s}}."""
+    "fps": {(config, stories): frames/s}, "ms": {(config, stories): `serving_times`},
+    "nodes": {config: kernel nodes by stories}}."""
     import numpy as np
     import torch
 
@@ -1296,7 +1467,7 @@ def bf16_serving(card: str, seed: int) -> dict:
     from cpcsv_tpu_torch.ops.blocks import FUSED_UPSAMPLE
     from cpcsv_tpu_torch.ops.dynamic_filter import dynamic_filter_conv1d_plain
 
-    out = {"launches": 0, "lowering_ms": {}, "fps": {}}
+    out = {"launches": 0, "lowering_ms": {}, "fps": {}, "ms": {}, "nodes": {}}
     for name in BF16_CONFIGS:
         cfg = config_from_file(name)
         check(cfg.COMPUTE_DTYPE == "bfloat16", f"{name}: COMPUTE_DTYPE {cfg.COMPUTE_DTYPE}")
@@ -1318,6 +1489,7 @@ def bf16_serving(card: str, seed: int) -> dict:
               and counts["bn_stats"] == counts["bn_grad_reduce"] == 0,
               f"{name}: bfloat16 serving launched {counts} in {len(batches)} calls")
         out["launches"] += counts["dfn_forward"]
+        out["nodes"][name] = replays_match_eager(infer, batches, f"{name} bfloat16")
         # each lowering on the same weights and noise, timed at 72 stories:
         # they compute one function and differ by bfloat16 rounding alone, so
         # their spread is the yardstick of bfloat16's distance from float32
@@ -1356,7 +1528,7 @@ def bf16_serving(card: str, seed: int) -> dict:
             infer.generator.set_state(rng_states[n])
             with mock.patch.object(generator_module, "dynamic_filter_conv1d",
                                    dynamic_filter_conv1d_plain):
-                plain, _ = infer.sample_videos_np(batches[n])
+                plain, _ = eager_np(infer, batches[n])  # a replay would not see the patch
             diff = rel_l2(plain, video)
             print(f"{name} bfloat16: {n} stories -> {video.shape} float32 numpy, |frame| mean "
                   f"{abs(video).mean():.4f} max {abs(video).max():.4f}; relative L2 to the "
@@ -1370,23 +1542,9 @@ def bf16_serving(card: str, seed: int) -> dict:
             check(rel <= tol, f"{name} {n} stories: bfloat16 frames {rel:.3e} from float32")
             check(diff <= tol, f"{name} {n} stories: kernel vs plain DFN frames {diff:.3e} apart")
         for n, batch in batches.items():
-            for _ in range(2):
-                infer.sample_videos_np(batch)
-            times = []
-            for _ in range(5):
-                t = time.perf_counter()
-                infer.sample_videos_np(batch)
-                times.append(time.perf_counter() - t)
-            med = sorted(times)[len(times) // 2]
-            out["fps"][name, n] = n * cfg.VIDEO_LEN / med
-            dev, _ = trace(lambda: infer.sample_videos_np(batch), 3)
-            names = by_name(dev, 3)
-            busy = sum(names.values()) / 1e3
-            print(f"{name} bfloat16: {n} stories, sample_videos_np {med * 1e3:.2f} ms median of 5 "
-                  f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
-                  f"{out['fps'][name, n]:.1f} frames/s [{card}]; device busy {busy:.3f} ms per "
-                  f"call in {len(dev) / 3:.0f} ops, idle share {1 - busy / (med * 1e3):.3f}; top: "
-                  + "; ".join(f"{k[:70]} {v:.1f} us" for k, v in list(names.items())[:6]))
+            out["ms"][name, n] = serving_times(infer, batch, n, f"{name} bfloat16: {n} stories",
+                                               card)
+            out["fps"][name, n] = n * cfg.VIDEO_LEN / out["ms"][name, n]["graphed"]["ms"] * 1e3
         print(f"{name}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"[{card}]")
         del infer, f32, state
@@ -1959,7 +2117,7 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
             t = time.perf_counter()
             main_pororo.main(args + ["--load_ckpt", str(epochs[0])])
             dump_s = time.perf_counter() - t
-            counts = read_counts()
+            counts, walk_calls = read_counts(), sampler_calls()
     finally:
         os.chdir(cwd)
     eval_dir = run_dir / "Evaluation" / cfg.CONFIG_NAME
@@ -1992,6 +2150,7 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
     expected = {"dfn_forward": len(epochs) * (batches + -(-test_stories // 64)) + batches,
                 "dfn_backward": 0, "bn_stats": 0, "bn_grad_reduce": 0}
     check(counts == expected, f"walks: launches {counts}, expected {expected}")
+    check_sampler(expected["dfn_forward"], "walks", walk_calls)
     check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32,
           f"TF32 flags (cudnn, matmul) inside the extractors {inside}")
     print(f"walks: launches {counts}; TF32 flags (cudnn, matmul) inside the extractors "
@@ -2120,7 +2279,8 @@ def fvd_is_walks(card: str, run_dir: Path, data_dir: Path, seed: int, root: Path
                 seconds = time.perf_counter() - t
                 counts = read_counts()
             out[name] = types.SimpleNamespace(rows=rows, host=host, seconds=seconds,
-                                              counts=counts, caught=caught,
+                                              counts=counts, sampled=sampler_calls(),
+                                              caught=caught,
                                               printed=printed.getvalue())
     finally:
         os.chdir(cwd)
@@ -2141,6 +2301,7 @@ def fvd_is_walks(card: str, run_dir: Path, data_dir: Path, seed: int, root: Path
               f"{name} walk rows {w.rows}: expected epochs {epochs}, newest first")
         check(w.counts == expected, f"{name} walk: launches {w.counts}, expected {expected}: one "
                                     "dfn_forward a story batch a checkpoint")
+        check_sampler(expected["dfn_forward"], f"{name} walk", w.sampled)
         names = [str(c.message).split(":")[0] for c in w.caught
                  if issubclass(c.category, RandomInitMetricWarning)]
         check(names == warned, f"{name} walk: random-init warnings for {names}, expected {warned}")
@@ -2294,7 +2455,7 @@ def rehearsal_trainer(card: str, per_step: dict[str, int], seed: int, root: Path
             t = time.perf_counter()
             main_pororo.main(args)
             run_s = time.perf_counter() - t
-            counts = read_counts()
+            counts, sampled = read_counts(), sampler_calls()
     finally:
         os.chdir(cwd)
     lines = [line for line in printed.getvalue().splitlines() if line.startswith("----[")]
@@ -2332,6 +2493,10 @@ def rehearsal_trainer(card: str, per_step: dict[str, int], seed: int, root: Path
     expected["dfn_forward"] += 2 + 2 * -(-test_stories // 64)  # the grids; a hook's chunks
     check(counts == expected, f"rehearsal run: launches {counts}, expected {expected} for "
                               f"{steps} steps, 2 sample grids and 2 hooks")
+    # epoch 1's grid and hook replay the graphs epoch 0 captured, from the
+    # trainer's kept generators
+    check_sampler(2 + 2 * -(-test_stories // 64), "rehearsal run's grids and hooks", sampled,
+                  eager=1 + -(-test_stories // 64))
     print(f"rehearsal run: {steps} D+G steps, 2 sample grids and 2 hooks launched {counts} = "
           f"{per_step} a step, plus one dfn_forward a grid and a hook's chunk of "
           f"{test_stories} test stories; .cache {sorted(hooks[0].after)} written in epoch 0, "
@@ -3128,7 +3293,7 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
                         states[label] = main_clevr.main(args + extra)
                 seconds[label] = time.perf_counter() - t
                 runs[label] = work / "output" / "torch" / cfg.CONFIG_NAME
-        counts = read_counts()
+        counts, sampled = read_counts(), sampler_calls()
     finally:
         os.chdir(cwd)
         torch.backends.cudnn.deterministic = saved_det
@@ -3166,6 +3331,8 @@ def clevr_cli(card: str, per_step: dict[str, int], seed: int, root: Path) -> dic
     steps = 4 * steps_an_epoch  # 2 epochs in each run
     expected = {k: v * steps for k, v in per_step.items()}
     expected["dfn_forward"] += 4  # a sample grid an epoch
+    # each process's first grid captured, the straight run's second replayed
+    check_sampler(4, "CLEVR CLI's sample grids", sampled, eager=3)
     check(counts == expected, f"CLEVR CLI: launches {counts}, expected {expected}")
     snapshot = torch.load(runs["resumed"] / "Model" / "netG_epoch_2.pth", weights_only=True)
     check(snapshot["ca_net.fc.weight"].shape[1] == cfg.TEXT.DIMENSION * cfg.VIDEO_LEN
@@ -3771,8 +3938,9 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict
     another directory 1 epoch (its final save alone) plus an auto-resumed one, whose state and
     metrics equal the straight run's bit for bit; the ranks' metrics equal
     every step; rank 1 opens no file for writing; one metrics row a step;
-    then --eval_fid 1 on the final snapshot: rank 0 walks, rank 1 waits and
-    returns None. Phase 33 in the same processes: one epoch of DP_CONFIG
+    then --eval_ssim 1 on the final snapshot (a centralized walk whose
+    metric needs no host Frechet: phase 12 holds --eval_fid): rank 0 walks,
+    rank 1 waits and returns None. Phase 33 in the same processes: one epoch of DP_CONFIG
     under MESH_SHAPE DP_MODEL (its final save alone), against one process
     (a third, beside them) at the doubled batches, its saves skipped: the
     steps' metrics and the final state bit for bit on both ranks. Returns
@@ -3799,7 +3967,7 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict
     runs = [("straight", a, base + ["--max_epoch", "2"], "none"),
             ("first", b, base + ["--max_epoch", "1"], "final"),
             ("resumed", b, base + ["--max_epoch", "2", "--continue_ckpt", "auto"], "all"),
-            ("walk", b, base + ["--eval_fid", "1"], "all"),
+            ("walk", b, base + ["--eval_ssim", "1"], "all"),
             ("model", str(root / "cli_model"),
              ["--cfg", str(model_file), *seeded, "--backend", "gloo", "--max_epoch", "1"],
              "final")]
@@ -3830,7 +3998,7 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict
           f"phase 31: {len(st_rows)} st_D/loss rows for 2 steps, or a non-finite value")
     walked = r0["walk"]["returned"]
     check(r1["walk"]["returned"] is None and len(walked) == 1 and walked[0]["epoch"] == 2
-          and np.isfinite(walked[0]["fid"]) and np.isfinite(walked[0]["vfid"]),
+          and np.isfinite(walked[0]["ssim"]),
           f"phase 31: the walk returned {walked} on rank 0, {r1['walk']['returned']} on rank 1")
     steps = 5  # 2 + 1 + 1 epochs of one step, and phase 33's one
     for rank, r in enumerate((r0, r1)):
@@ -3843,8 +4011,8 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict
           f"{cfg.TRAIN.ST_BATCH_SIZE * DP_WORLD}): the ranks' metrics and states equal; 1 + an "
           f"auto-resumed epoch equal 2 straight ones bit for bit ({len(r0['resumed']['sums'])} "
           f"tensors, {len(r0['straight']['history'])} step metrics); rank 1 wrote no file; "
-          f"--eval_fid on rank 0 while rank 1 waited: fid {walked[0]['fid']:.3f} fsd "
-          f"{walked[0]['vfid']:.3f} (random-init extractors); seconds a run on rank 0 "
+          f"--eval_ssim on rank 0 while rank 1 waited: ssim {walked[0]['ssim']:.4f}; seconds a "
+          f"run on rank 0 "
           + ", ".join(f"{k} {r0[k]['seconds']:.1f}" for k in ("straight", "first", "resumed",
                                                                "walk"))
           + f" (the phase with 33's run {seconds:.1f} s); launches rank 0 {r0['counts']}, rank 1 "
@@ -3976,8 +4144,10 @@ def scan_phase(card: str, seed: int, root: Path) -> dict:
     return {"counts": dict(counts_all), "reference": reference}
 
 
-def graph_node_types(graph) -> collections.Counter:
-    """CUgraphNodeType -> nodes of a kept torch.cuda.CUDAGraph."""
+def graph_nodes(graph) -> list[tuple[int, int]]:
+    """(node handle, CUgraphNodeType) of each node of a kept
+    torch.cuda.CUDAGraph, read with CUDA's cuGraphGetNodes: what the graph
+    runs on the card, without a profiler."""
     import ctypes
 
     libcuda = ctypes.CDLL("libcuda.so.1")
@@ -3985,13 +4155,18 @@ def graph_node_types(graph) -> collections.Counter:
     check(libcuda.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
     nodes = (ctypes.c_void_p * count.value)()
     check(libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes failed")
-    types_ = collections.Counter()
+    out = []
     for node in nodes:
         t = ctypes.c_int(-1)
         check(libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
               "cuGraphNodeGetType failed")
-        types_[t.value] += 1
-    return types_
+        out.append((node, t.value))
+    return out
+
+
+def graph_node_types(graph) -> collections.Counter:
+    """CUgraphNodeType -> nodes of a kept torch.cuda.CUDAGraph."""
+    return collections.Counter(t for _, t in graph_nodes(graph))
 
 
 def raw_device_spans(prof) -> list[tuple[int, int]]:
@@ -4006,18 +4181,24 @@ def raw_device_spans(prof) -> list[tuple[int, int]]:
             if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
 
 
-def busy_ms(prof) -> float:
-    """The card's busy time in a finished trace: the union of its device
-    events' intervals (a sum would count overlapping kernels twice)."""
+def span_union(spans) -> float:
+    """The length of the union of (start, end) intervals: a sum would count
+    overlapping kernels and copies twice."""
     busy, end = 0, None
-    for a, b in sorted(raw_device_spans(prof)):
+    for a, b in sorted(spans):
         if end is None or a > end:
             busy += b - a
             end = b
         elif b > end:
             busy += b - end
             end = b
-    return busy / 1e6
+    return busy
+
+
+def busy_ms(prof) -> float:
+    """The card's busy time in a finished trace: the union of its device
+    events' intervals."""
+    return span_union(raw_device_spans(prof)) / 1e6
 
 
 def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, int]:
@@ -4155,6 +4336,7 @@ def main() -> int:
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
     from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.evaluation import sampling
     from cpcsv_tpu_torch.evaluation.drivers import Infer
     from cpcsv_tpu_torch.models import generator as generator_module
     from cpcsv_tpu_torch.ops.cuda import bn as bn_cuda
@@ -4311,7 +4493,7 @@ def main() -> int:
     phase("4. the slice at full width")
     launches = 0
     expected_launches = 0
-    slice_fps = {}
+    serving_ms, sampler_nodes = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for name in ("final.yml", "cascade.yml"):
             cfg = config_from_file(name)
@@ -4321,8 +4503,9 @@ def main() -> int:
             }
             state = random_generator_state(cfg, batches[STORY_SIZES[-1]], args.seed)
             infer = Infer(cfg, state, device="cuda", output_dir=tmp, seed=args.seed)
-            rng_states, videos, inside = {}, {}, set()
-            hook = infer.net_g.upsample1.register_forward_pre_hook(lambda *_: inside.add(
+            rng_states, videos, inside = {}, {}, []
+            # a hook fires on the eager call and the capture, not on a replay
+            hook = infer.net_g.upsample1.register_forward_pre_hook(lambda *_: inside.append(
                 (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
 
             reset_counts()  # the main path: entry points only
@@ -4340,11 +4523,15 @@ def main() -> int:
                   f"{name}: dfn kernel launched {count} times in {calls} generator calls")
             check(counts["dfn_backward"] == counts["bn_stats"] == counts["bn_grad_reduce"] == 0,
                   f"{name}: serving (eval BN, no gradients) launched {counts}")
-            check(inside == {(False, False)} and torch.backends.cudnn.allow_tf32
+            # each size's first call eager and captured; generate_story's
+            # 18 stories replay the 18-story graph
+            check_sampler(calls, f"{name} serving")
+            check(inside == [(False, False)] * 2 * len(batches) and torch.backends.cudnn.allow_tf32
                   and torch.backends.cuda.matmul.allow_tf32,
                   f"{name}: TF32 flags (cudnn, matmul) inside the generator {inside}")
-            print(f"{name}: TF32 flags (cudnn, matmul) inside the generator {sorted(inside)}, "
-                  f"global after {torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32}")
+            print(f"{name}: TF32 flags (cudnn, matmul) inside the generator, eager calls and "
+                  f"captures, {sorted(set(inside))}, global after "
+                  f"{torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32}")
             launches += count
             expected_launches += calls
 
@@ -4356,42 +4543,25 @@ def main() -> int:
                       f"{name}: video shape {video.shape}")
                 check(bool(np.isfinite(video).all() and (np.abs(video) <= 1).all()),
                       f"{name}: frames not finite in [-1, 1]")
-                # the same weights and noise with the plain DFN on the card.
-                # The DFN's sum order differs by ~1e-6 and passes through the
-                # eval BNs and the convolution trunk before the output.
+                # the same weights and noise with the plain DFN on the card,
+                # eagerly (a replay would not see the patch). The DFN's sum
+                # order differs by ~1e-6 and passes through the eval BNs and
+                # the convolution trunk before the output.
                 infer.generator.set_state(rng_states[n])
                 with mock.patch.object(generator_module, "dynamic_filter_conv1d",
                                        dynamic_filter_conv1d_plain):
-                    plain, _ = infer.sample_videos_np(batches[n])
+                    plain, _ = eager_np(infer, batches[n])
                 diff = float(abs(plain - video).max())
                 check(diff <= 1e-3, f"{name} {n} stories: kernel vs plain DFN frames differ by {diff}")
                 print(f"{name}: {n} stories -> {video.shape}, |frame| mean "
                       f"{abs(video).mean():.4f} max {abs(video).max():.4f} std "
                       f"{video.std():.4f}; kernel vs plain DFN max abs diff {diff:.3e} (tol 1e-3)")
             print(f"{name}: generate_story wrote {pngs} PNGs; dfn launches {count} in {calls} calls")
+            sampler_nodes[name] = replays_match_eager(infer, batches, name)
 
             # ------------------------------------------ 5b. slice frames/s
             for n, batch in batches.items():
-                for _ in range(2):
-                    infer.sample_videos_np(batch)
-                times = []
-                for _ in range(5):
-                    t = time.perf_counter()
-                    infer.sample_videos_np(batch)
-                    times.append(time.perf_counter() - t)
-                med = sorted(times)[len(times) // 2]
-                slice_fps[(name, n)] = n * cfg.VIDEO_LEN / med
-                print(f"{name}: {n} stories, sample_videos_np {med * 1e3:.2f} ms median of 5 "
-                      f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
-                      f"{slice_fps[(name, n)]:.1f} frames/s [{card}]")
-                # where the time goes: the card's work per call from a trace,
-                # against the untraced median call
-                dev, _ = trace(lambda: infer.sample_videos_np(batch), 3)
-                names = by_name(dev, 3)
-                busy = sum(names.values()) / 1e3
-                print(f"  trace: device busy {busy:.3f} ms per call in {len(dev) / 3:.0f} ops, "
-                      f"idle share {1 - busy / (med * 1e3):.3f}; top: "
-                      + "; ".join(f"{k[:70]} {v:.1f} us" for k, v in list(names.items())[:6]))
+                serving_ms[name, n] = serving_times(infer, batch, n, f"{name}: {n} stories", card)
             print(f"{name}: peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
             del infer, state
@@ -4700,7 +4870,7 @@ def main() -> int:
         phase("30. one NCCL rank, its data group the world: phase 6's step bit for bit, then timed")
         nccl_counts, nccl_scan = nccl_phase(card, args.seed, Path(tmp), runs[DP_CONFIG].step_ms)
         phase(f"31. the CLI with {DP_WORLD} gloo ranks: 2 epochs, 1 + an auto-resumed one, "
-              "--eval_fid on rank 0")
+              "--eval_ssim on rank 0")
         dp_cli_counts, one_cli_counts = dp_cli_phase(card, args.seed, Path(tmp))
     for name in kernels:
         kernels[name]["launches"] += (dp_counts[name] + nccl_counts[name] + dp_cli_counts[name]
@@ -4740,6 +4910,18 @@ def main() -> int:
                                           "timed": timing_counts[name]}
     print(f"launches of phase 35, CUDA graph replays included: the trainer runs {scan['counts']}, "
           f"the NCCL rank's {nccl_scan['counts']}, the timed chunks and pairs {timing_counts}")
+
+    # phases 5 and 15 again, side by side: a call replayed against eager
+    print(f"serving [{card}], a call graphed / eager: ms (median of 5), device busy ms and idle "
+          "share (trace of 3), device ops a call; kernel nodes of its graph")
+    for label, rows, nodes in (("f32", serving_ms, sampler_nodes),
+                               ("bf16", serving_bf16["ms"], serving_bf16["nodes"])):
+        for (name, n), t in rows.items():
+            g, e = t["graphed"], t["eager"]
+            print(f"  {name} {label} {n} stories: {g['ms']:.2f} / {e['ms']:.2f} ms "
+                  f"({e['ms'] / g['ms']:.3f}x), busy {g['busy_ms']:.3f} / {e['busy_ms']:.3f}, "
+                  f"idle {g['idle']:.3f} / {e['idle']:.3f}, ops {g['ops']:.0f} / {e['ops']:.0f}, "
+                  f"nodes {nodes[name][n]}")
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -15,7 +15,7 @@ import torch
 from PIL import Image
 
 from cpcsv_tpu_torch.data.transforms import normalize_image
-from cpcsv_tpu_torch.device import float32_math
+from cpcsv_tpu_torch.evaluation import sampling
 
 
 class FolderStoryDataset:
@@ -78,8 +78,9 @@ class IgnoreLabelDataset:
 class StoryGANDataset:
     """The generator's story for each item of a story dataset (reference
     fid/utils.py:52-87), generated `chunk` stories at a time on the
-    generator's device: `net_g` in eval mode, its noise from `generator` (a
-    torch.Generator on that device), float32 with TF32 off."""
+    generator's device through the sampler (`sampling.sample`; a ragged last
+    chunk is one more key): `net_g` in eval mode, its noise from `generator`
+    (a torch.Generator on that device), float32 with TF32 off."""
 
     keep_real = False  # StoryGANSSIMDataset keeps the real stories it read
 
@@ -97,7 +98,6 @@ class StoryGANDataset:
     def __len__(self):
         return len(self.ds)
 
-    @torch.no_grad()
     def _generate_chunk(self, start: int):
         idxs = range(start, min(start + self.chunk, len(self.ds)))
         motions, contents = [], []
@@ -108,11 +108,10 @@ class StoryGANDataset:
             contents.append(desc)
             if self.keep_real:
                 self._real_cache[i] = np.asarray(item["images"], np.float32)
-        with float32_math():
-            fake = self.net_g.sample_videos(
-                torch.from_numpy(np.stack(motions)).to(self.device),
-                torch.from_numpy(np.stack(contents)).to(self.device),
-                generator=self.generator).image.float().cpu().numpy()
+        fake, _ = sampling.sample(self.net_g, torch.from_numpy(np.stack(motions)).to(self.device),
+                                  torch.from_numpy(np.stack(contents)).to(self.device),
+                                  generator=self.generator)
+        fake = fake.float().cpu().numpy()
         for j, i in enumerate(idxs):
             self._cache[i] = fake[j]
 

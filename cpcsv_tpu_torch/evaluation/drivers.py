@@ -24,7 +24,10 @@ the reference's file protocol:
 either as a `state_dict` (a `netG_epoch_E.pth`, or JAX variables converted
 by `utils.weights.generator_state_dict_from_jax`) or from the run directory
 `output_dir` (`load_ckpt=E`, `load_epoch(E)`, and the walks). Noise comes
-from one `torch.Generator` on the device, seeded with `seed`.
+from one `torch.Generator` on the device, seeded with `seed`. Every
+generation call goes through `sampling.sample`, as every JAX one through a
+jitted sampler: on a card the graphs captured at a walk's first snapshot
+replay on the next, whose weights `load_epoch` copies in place.
 
 In a process group the walks and the --load_ckpt dump run on rank 0 alone,
 over the whole test set (`_centralized`, as the JAX package's); `Infer`
@@ -46,7 +49,8 @@ import numpy as np
 import torch
 
 from cpcsv_tpu_torch.config import Config
-from cpcsv_tpu_torch.device import float32_math, resolve_device
+from cpcsv_tpu_torch.device import resolve_device
+from cpcsv_tpu_torch.evaluation import sampling
 from cpcsv_tpu_torch.evaluation.datasets import (
     FolderImageDataset,
     FolderStoryDataset,
@@ -163,25 +167,22 @@ class Infer:
                 "directory, or training never saved a snapshot")
         return epochs
 
-    @torch.no_grad()
     def sample_videos_np(self, batch, seg: bool = False):
         """Story batch -> (video (B, T, 64, 64, 3), mask (B*T, 64, 64, 1) or
         None), numpy float32, computed in cfg.COMPUTE_DTYPE (float32 whatever
-        the global TF32 flags say, or bfloat16)."""
+        the global TF32 flags say, or bfloat16) through the sampler
+        (`sampling.sample`: on a card a CUDA graph replayed after the first
+        call at a set of shapes), its noise from `self.generator`."""
         if not self.loaded:
             raise RuntimeError(
                 "no generator weights: pass a state_dict, or load_ckpt=E or load_epoch(E) "
                 f"for a snapshot of {self.model_dir}")
         motion, content = _batch_motion_content(self.cfg, batch)
-        with float32_math():
-            out = self.net_g.sample_videos(
-                torch.from_numpy(motion).to(self.device),
-                torch.from_numpy(content).to(self.device),
-                seg=seg,
-                generator=self.generator,
-            )
-        mask = out.seg.float().cpu().numpy() if out.seg is not None else None
-        return out.image.float().cpu().numpy(), mask
+        image, mask = sampling.sample(self.net_g, torch.from_numpy(motion).to(self.device),
+                                      torch.from_numpy(content).to(self.device), seg=seg,
+                                      generator=self.generator)
+        mask = mask.float().cpu().numpy() if mask is not None else None
+        return image.float().cpu().numpy(), mask
 
     # ------------------------------------------------------------------ dumps
     def generate_story(self, storyloader, dirname: str = "", skip_original: bool = False):

@@ -1,16 +1,22 @@
-"""CUDA graphs of one D+G pair: the port's counterpart of the JAX trainer's
-K updates in one `lax.scan` program (`train/steps.py:make_scan_steps`).
+"""CUDA graphs captured at a set of input shapes and replayed: the port's
+counterpart of the JAX package's programs compiled per input shape. Two
+callers share this core: the D+G pair of the trainer's chunks (the JAX
+trainer's K updates in one `lax.scan` program, `train/steps.py:make_scan_steps`)
+and eval-mode story generation (the JAX package's jitted samplers,
+`evaluation/sampling.py`), which keeps its graphs in one shared memory pool.
 
-A `PairGraph` holds a pair's input buffers, the graph captured on them and
-the row of metrics the graph writes. It is built on a pair's inputs, which
-it copies into buffers of its own; the caller runs that pair eagerly on the
-buffers (a real update, which also warms cuDNN and the allocator) and then
-`capture`s it. Capture records the pair's kernels without running them, so
-it leaves the state as the eager pair left it. A `replay` copies the next
-pair's inputs into the buffers device to device and launches the graph: a
-constant amount of host work a pair, no host sync.
+A `ShapeGraph` holds a call's input buffers, the graph captured on them and
+the outputs the graph writes, such as a pair's row of metrics. It is built
+on a call's inputs, which it copies into buffers of its own; the caller runs
+that call eagerly on the buffers (for a pair a real update, which also warms
+cuDNN and the allocator) and then `capture`s it. Capture records the
+kernels without running them, so it leaves the state as the eager call
+left it. A `replay` copies the next call's inputs into the buffers device
+to device and launches the graph: a constant amount of host work a call,
+no host sync. `ShapeGraphs` keeps a caller's graphs by key, the least
+recently used dropped.
 
-What a replay must see is what an eager pair sees:
+What a replay of a pair must see is what an eager pair sees:
 
 * the noise: the epoch's `torch.Generator` is registered with the graph,
   so every replay draws from its current state, as an eager pair would,
@@ -22,14 +28,14 @@ What a replay must see is what an eager pair sees:
 * the kernels' launch counts: the capture's launches are recorded, not
   counted, and every replay adds them (`ops/cuda/launches.py`).
 
-The capture runs in the graph's private memory pool, under `float32_math`
-as the eager pair, so it keeps the algorithms the eager pair chose. Its
-mode is "thread_local": the batch prefetch thread pins host memory and
-copies on a stream of its own while a pair captures, which the "global"
-mode would count against the capture.
+The pair's capture runs in the graph's private memory pool, under
+`float32_math` as the eager pair, so it keeps the algorithms the eager pair
+chose. Its mode is "thread_local": the batch prefetch thread pins host
+memory and copies on a stream of its own while a pair captures, which the
+"global" mode would count against the capture.
 
 Every pair of the captured path, eager ones included, runs on one side
-stream of the `PairGraphs` (`PairGraphs.stream`), and the capture too.
+stream of its `ShapeGraphs` (`ShapeGraphs.stream`), and the capture too.
 Autograd keeps a parameter's gradient accumulator, with the stream it was
 made on, as long as anything holds the parameter's autograd graph, and a
 spectral-normed layer holds its last `weight` that way; a pair captured on
@@ -47,61 +53,79 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from cpcsv_tpu_torch.ops.cuda import launches
 
-# graphs kept at once: the batches' shapes and, where the loader's last
-# batch is short, a ragged tail's; each holds a step's peak in its pool
+# graphs kept at once by the pair graphs: the batches' shapes and, where
+# the loader's last batch is short, a ragged tail's; each holds a step's
+# peak in its pool
 MAX_GRAPHS = 2
 
 
-def _key(leaves: list[torch.Tensor]) -> tuple:
-    return tuple((tuple(t.shape), t.dtype) for t in leaves)
+def input_key(inputs) -> tuple:
+    """The shapes and dtypes of a pytree's tensors, in its flattened order."""
+    return tuple((tuple(t.shape), t.dtype) for t in tree_flatten(inputs)[0])
 
 
-class PairGraph:
-    """One D+G pair captured as a CUDA graph, at one set of input shapes."""
+class ShapeGraph:
+    """A call captured as a CUDA graph at one key (its inputs' shapes, and
+    whatever else the caller's key holds): its input buffers, the graph and
+    the outputs each replay writes."""
 
-    def __init__(self, inputs, generator: Optional[torch.Generator]):
+    def __init__(self, inputs, generator: Optional[torch.Generator], key: tuple):
         leaves, self._spec = tree_flatten(inputs)
         self._buffers = [t.clone() for t in leaves]
-        self.key = _key(leaves)
+        self.key = key
         self.inputs = tree_unflatten(self._buffers, self._spec)  # the buffers, as `inputs`
         self.generator = generator
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.out: Optional[torch.Tensor] = None  # the row each replay writes
+        self.out = None  # what each replay writes
         self.launches: launches.Record = {}  # the kernels' launches a replay makes
 
-    def capture(self, pair: Callable, state) -> None:
-        """Captures pair(state, generator, self.inputs) -> row. The graph is
-        kept (`keep_graph`) so that its nodes can be counted."""
+    def capture(self, call: Callable, pool=None) -> None:
+        """Captures call(generator, self.inputs) -> outputs, in the memory
+        pool `pool` (None: a private one). The graph is kept (`keep_graph`)
+        so that its nodes can be counted."""
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         with launches.recording() as record, torch.cuda.graph(
-                graph, stream=torch.cuda.current_stream(), capture_error_mode="thread_local"):
-            self.out = pair(state, self.generator, self.inputs)
+                graph, pool=pool, stream=torch.cuda.current_stream(),
+                capture_error_mode="thread_local"):
+            self.out = call(self.generator, self.inputs)
         graph.instantiate()
         self.graph, self.launches = graph, record
 
-    def replay(self, inputs) -> torch.Tensor:
-        """The pair on `inputs` (of this graph's shapes): copied into the
-        buffers, the graph replayed; returns the metrics row it wrote,
-        valid until the next replay."""
+    def replay(self, inputs):
+        """The call on `inputs` (of this graph's shapes): copied into the
+        buffers, the graph replayed; returns the outputs it wrote, valid
+        until the next replay."""
         torch._foreach_copy_(self._buffers, tree_flatten(inputs)[0])
         self.graph.replay()
         launches.add(self.launches)
         return self.out
 
 
-class PairGraphs:
-    """The pair graphs of one `make_scan_steps`, by input shapes and
-    generator, at most MAX_GRAPHS (the least recently used goes)."""
+class ShapeGraphs:
+    """Captured graphs by key and generator, at most `max_graphs` (the least
+    recently used goes). With `shared_pool` every capture shares one memory
+    pool: right for graphs that never run at once, whose outputs are read
+    before the next replay of any of them."""
 
-    def __init__(self):
-        self.graphs: dict[tuple, PairGraph] = {}
+    def __init__(self, max_graphs: int = MAX_GRAPHS, shared_pool: bool = False):
+        self.graphs: dict[tuple, ShapeGraph] = {}
+        self.max_graphs = max_graphs
+        self._shared_pool = shared_pool
+        self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
+
+    @property
+    def pool(self):
+        """The memory pool of the next capture: the shared one, or None."""
+        if self._shared_pool and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     @contextlib.contextmanager
     def stream(self, device: torch.device) -> Iterator[torch.cuda.Stream]:
-        """The side stream the pairs and captures run on, current while the
+        """The side stream the calls and captures run on, current while the
         block runs: it waits for the current stream's work first, and the
         current stream waits for its work after."""
         if self._stream is None:
@@ -112,17 +136,17 @@ class PairGraphs:
             yield self._stream
         current.wait_stream(self._stream)
 
-    def get(self, inputs, generator: Optional[torch.Generator]) -> Optional[PairGraph]:
-        """The captured graph for these inputs' shapes and this generator."""
-        graph = self.graphs.get(_key(tree_flatten(inputs)[0]))
+    def get(self, key: tuple, generator: Optional[torch.Generator]) -> Optional[ShapeGraph]:
+        """The captured graph at `key` for this generator."""
+        graph = self.graphs.get(key)
         if graph is None or graph.generator is not generator:
             return None
-        self.graphs[graph.key] = self.graphs.pop(graph.key)  # most recently used last
+        self.graphs[key] = self.graphs.pop(key)  # most recently used last
         return graph
 
-    def add(self, graph: PairGraph) -> None:
-        """Keeps a captured graph, replacing any at its shapes."""
+    def add(self, graph: ShapeGraph) -> None:
+        """Keeps a captured graph, replacing any at its key."""
         self.graphs.pop(graph.key, None)
-        while len(self.graphs) >= MAX_GRAPHS:
+        while len(self.graphs) >= self.max_graphs:
             del self.graphs[next(iter(self.graphs))]
         self.graphs[graph.key] = graph

@@ -73,6 +73,7 @@ same work on the same rows and noise, as the JAX program does there):
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -95,7 +96,7 @@ from cpcsv_tpu_torch.parallel.mesh import (
     check_training_mesh,
     wrong_pair_rows,
 )
-from cpcsv_tpu_torch.train.graphs import PairGraph, PairGraphs
+from cpcsv_tpu_torch.train.graphs import ShapeGraph, ShapeGraphs, input_key
 from cpcsv_tpu_torch.train.state import TrainState
 
 
@@ -365,12 +366,12 @@ def make_scan_steps(cfg: Config):
     buffers and replays the graph, with no host sync inside the chunk. A
     chunk's last pair at shapes with no graph yet runs eagerly and captures
     nothing. These pairs run on a side stream of their own
-    (`graphs.PairGraphs.stream`). A capture that fails raises. Elsewhere
+    (`graphs.ShapeGraphs.stream`). A capture that fails raises. Elsewhere
     each pair runs eagerly.
     A replay gives an eager pair's bits: the same kernels on the same
-    inputs, the generator registered with the graph (`graphs.PairGraph`)."""
+    inputs, the generator registered with the graph (`graphs.ShapeGraph`)."""
     on_mesh, d_pass, g_pass = _passes(cfg)
-    graphs = PairGraphs()
+    graphs = ShapeGraphs()  # by the pair's input shapes, each in a pool of its own
     tags: list[str] = []  # the metrics' names, in the order of a pair's row
 
     def pair(state: TrainState, rng, inputs) -> torch.Tensor:
@@ -410,13 +411,14 @@ def make_scan_steps(cfg: Config):
             inputs = ({n: v[k] for n, v in st_batches.items()},
                       {n: v[k] for n, v in im_batches.items()}) + (() if draws is None
                                                                     else (draws[k],))
-            graph = graphs.get(inputs, generator) if captured else None
+            key = input_key(inputs)
+            graph = graphs.get(key, generator) if captured else None
             if graph is not None:
                 row = graph.replay(inputs)
             elif captured and k + 1 < K:  # more pairs of these shapes follow
-                graph = PairGraph(inputs, generator)
+                graph = ShapeGraph(inputs, generator, key)
                 row = pair(state, generator, graph.inputs)
-                graph.capture(pair, state)
+                graph.capture(functools.partial(pair, state))
                 graphs.add(graph)
             else:  # fresh tensors, as a pair outside a chunk gets
                 row = pair(state, generator, tree_map(torch.clone, inputs))

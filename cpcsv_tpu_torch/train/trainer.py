@@ -36,7 +36,10 @@ epoch, so that a graph captured in one epoch draws the next epoch's noise.
 With EVALUATE_FID_SCORE, each epoch ends with the test set's FID and FSD
 (`calculate_vfid`, reference trainer.py:160-174), logged as Evaluation/fid
 and Evaluation/vfid; their seconds count in the epoch's, as in the JAX
-package. The extractors are built at the first epoch's hook and kept.
+package. The extractors are built at the first epoch's hook and kept. The
+sample grid, the hook and `calculate_ssim` generate through the sampler
+(`evaluation/sampling.py`: on a card CUDA graphs that each epoch replays),
+each from one generator the trainer keeps and reseeds every epoch.
 
 The run directory archives itself (reference trainer.py:55-61): the YAML
 config and the port's generator and trainer sources are copied into it.
@@ -84,7 +87,8 @@ from torch.profiler import record_function
 from cpcsv_tpu_torch.config import Config
 from cpcsv_tpu_torch.data.loader import DataLoader, WrapAroundIterator
 from cpcsv_tpu_torch.data.prefetch import BatchCopier, device_prefetch, stack_batches
-from cpcsv_tpu_torch.device import float32_math, resolve_device
+from cpcsv_tpu_torch.device import resolve_device
+from cpcsv_tpu_torch.evaluation import sampling
 from cpcsv_tpu_torch.evaluation.datasets import StoryGANSSIMDataset
 from cpcsv_tpu_torch.evaluation.drivers import (
     evaluate_fid_fsd_in_memory,
@@ -177,6 +181,7 @@ class GANTrainer:
         self.logger = MetricsLogger(self.log_dir) if self.rank == 0 else _NoLogger()
         self._eval_extractors = None  # the in-training FID/FSD's, built at its first call
         self._np_rng = np.random.default_rng(seed)  # reseeded every epoch
+        self._eval_rngs: dict[str, torch.Generator] = {}  # `_eval_generator`'s
 
     def _augment_story_host(self, st_batch: dict) -> dict:
         """With USE_SEQ_CONSISTENCY, the story batch with `shuffled` stories
@@ -376,22 +381,33 @@ class GANTrainer:
 
     # ------------------------------------------------------------------
     def _log_epoch_samples(self, state: TrainState, epoch: int, st_host: dict) -> None:
-        """The last story batch through the eval-mode generator, with noise of
-        the epoch's own sample stream (the steps' stream is not touched)."""
+        """The last story batch through the eval-mode generator
+        (`sampling.sample`), with noise of the epoch's own sample stream (the
+        steps' stream is not touched)."""
         cfg, gen = self.cfg, state.gen
-        generator = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch, 1))
+        generator = self._eval_generator("grid", epoch_seed(self.seed, epoch, 1))
         motion = np.concatenate([st_host["description"], st_host["labels"]], axis=2)
-        with self._eval_mode(state), torch.no_grad(), float32_math():
-            out = gen.sample_videos(
-                torch.as_tensor(motion, dtype=torch.float32, device=self.device),
+        with self._eval_mode(state):
+            image, mask = sampling.sample(
+                gen, torch.as_tensor(motion, dtype=torch.float32, device=self.device),
                 torch.as_tensor(st_host["description"], dtype=torch.float32, device=self.device),
                 seg=cfg.SEGMENT_LEARNING, generator=generator)
-        grid = save_story_results(st_host["images"], out.image.float().cpu().numpy(),
+        grid = save_story_results(st_host["images"], image.float().cpu().numpy(),
                                   st_host.get("text"), f"{epoch:03d}", self.image_dir)
         self.logger.add_image("pororo", grid, epoch)
-        if out.seg is not None:
-            seg = out.seg.float().cpu().numpy()
+        if mask is not None:
+            seg = mask.float().cpu().numpy()
             self.logger.add_image("segment", save_image_results(None, seg, cfg.VIDEO_LEN), epoch)
+
+    def _eval_generator(self, stream: str, seed: int) -> torch.Generator:
+        """The trainer's one generator of an eval-mode noise stream ("grid",
+        "ssim", "vfid"), reseeded to `seed`: its draws are a fresh
+        generator's with that seed, and a sampler graph captured on it in
+        one epoch replays in the next (a graph registers the generator
+        object)."""
+        if stream not in self._eval_rngs:
+            self._eval_rngs[stream] = torch.Generator(device=self.device)
+        return self._eval_rngs[stream].manual_seed(seed)
 
     # ------------------------------------------------------------------
     @contextlib.contextmanager
@@ -410,7 +426,7 @@ class GANTrainer:
         demand, not by `train`). Computed on rank 0, sent to the others."""
         value = None
         if self.rank == 0:
-            generator = torch.Generator(device=self.device).manual_seed(5678 + epoch)
+            generator = self._eval_generator("ssim", 5678 + epoch)
             with self._eval_mode(state) as gen:
                 ds = StoryGANSSIMDataset(gen, testloader.dataset, generator,
                                          text_dim=self.cfg.TEXT.DIMENSION)
@@ -429,7 +445,7 @@ class GANTrainer:
         if self.rank == 0:
             if self._eval_extractors is None:
                 self._eval_extractors = make_in_memory_extractors(self.device)
-            generator = torch.Generator(device=self.device).manual_seed(1234 + epoch)
+            generator = self._eval_generator("vfid", 1234 + epoch)
             with self._eval_mode(state) as gen:
                 scores = evaluate_fid_fsd_in_memory(self.cfg, gen, testloader, generator,
                                                     extractors=self._eval_extractors)
