@@ -139,7 +139,7 @@ Phases, each of which exits non-zero on failure:
      gf_dim 2048) as phases 6-7 with frames/s, the BN kernels against their
      plain versions and timed at its shapes, the DFN pair at B = 64, and 16
      stories of 4 frames served through `Infer`;
- 28. the CLEVR CLI (`cli/main_clevr.py`) at full width, --synthetic 96: 2
+ 28. the CLEVR CLI (`cli/main_clevr.py`) at full width, --synthetic 64: 2
      epochs straight with CPCSV_PROFILE_DIR set (the trainer's trace of
      the second chunk at SCAN_STEPS CLEVR_SCAN, the BN and DFN kernels of
      its graph replays in it), 1 plus an auto-resumed epoch whose state and
@@ -191,7 +191,16 @@ Phases, each of which exits non-zero on failure:
      on one NCCL rank (in phase 30's launch), bit for bit (a)'s; (c) a warm
      chunk of 20 against 20 single pairs of final.yml and procedural.yml:
      ms a step, busy ms and idle share from a trace, the graph's nodes and
-     the memory its capture took.
+     the memory its capture took;
+ 36. (after 15) generation split over the eval mesh (`parallel/mesh.py`)
+     through `Infer`: final.yml at float32 and procedural.yml at bfloat16,
+     18 and 72 stories, over every local card, or cuda:0 listed twice on a
+     host of one card: each block bit for bit an eager one-device call on
+     its rows and noise slice, the gathered frames within 1e-4 of the
+     unsplit call (bfloat16: relative L2 within three times its spread
+     under another lowering), the generator left alike, DFN launches
+     equal to blocks x calls, one DFN kernel node a replica's graph; ms a
+     call split and unsplit, and with several cards at 1, 2 and 4 of them.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -236,8 +245,19 @@ ZMC_WIDTH = 613
 LR_D, LR_G = 4e-4, 1e-4  # final.yml's DISCRIMINATOR_LR, GENERATOR_LR (cascade.yml's too)
 TRAIN_CONFIGS = ("final.yml", "cascade.yml")  # phases 6-7, in this order
 BF16_CONFIGS = ("throughput.yml", "procedural.yml")  # COMPUTE_DTYPE bfloat16, phases 15-20
+# phase 36: generation split over the eval mesh, a float32 and a bfloat16
+# config; the bounds of the gathered frames against the unsplit call's:
+# float32 in max |difference|; bfloat16 in relative L2, where a block's
+# batch size picks other kernels than the whole batch's, whose other
+# roundings the trunk carries as far as 8.9e-2, while a replica one Adam
+# step stale (SHARD_STALE_STEP a parameter, the generator's learning rate)
+# reads 0.139-0.144 and a block given another block's noise 1.06-1.14
+# (PERF.md §6)
+SHARD_CONFIGS = ("final.yml", "procedural.yml")
+SHARD_F32_BOUND, SHARD_BF16_BOUND, SHARD_STALE_STEP = 1e-4, 0.11, 1e-4
 THROUGHPUT_SYNTHETIC = 144  # phase 19's --synthetic: 2 story steps at ST_BATCH 72
 CLI_SYNTHETIC = 36  # phase 10's --synthetic: 2 story steps an epoch, one image batch
+SEQ_SYNTHETIC = 18  # phase 24's seq CLI: one story step an epoch
 # phase 11's tree: 204 train clips (11 steps of 18 stories), 36 test stories,
 # the fewest that give phase 13's FVD its 16 clips of FVD_FRAMES frames (a
 # third of the writer's default 48 episodes, to keep the run short)
@@ -279,16 +299,17 @@ NEW_BN_MAPS = (((8100, 992, 16), "float32"), ((18, 64, 7168), "float32"),
 REORDERINGS = ((0,), (2,), (0, 2), "float64")
 F32_YARDSTICK = ("clevr.yml",)
 # phases 27-28: clevr.yml (4-frame stories, IM 64 / ST 16), its DFN batch,
-# the serving call's stories, and the CLI's --synthetic: 6 story steps an
+# the serving call's stories, and the CLI's --synthetic: 4 story steps an
 # epoch at ST_BATCH 16
 # phase 35: (a) configs trained 2 epochs of SCAN_PAIRS steps at SCAN_STEPS
 # SCAN_PAIRS and 1 (SCAN_SYNTHETIC stories: SCAN_PAIRS steps at ST_BATCH
 # 18); (c) configs timed at the shipped SCAN_STEPS
 SCAN_CONFIGS = ("final.yml", "cascade.yml", "procedural.yml")
-SCAN_PAIRS, SCAN_SYNTHETIC = 4, 72
-SCAN_TIMED_CONFIGS, SCAN_TIMED_K, SCAN_TIMED_CHUNKS = ("final.yml", "procedural.yml"), 20, 2
-CLEVR_CONFIG, CLEVR_DFN_B, CLEVR_STORIES, CLEVR_SYNTHETIC = "clevr.yml", 64, 16, 96
-CLEVR_SCAN = 3  # phase 28's SCAN_STEPS: 2 chunks an epoch, CPCSV_PROFILE_DIR traces the second
+SCAN_PAIRS, SCAN_SYNTHETIC = 2, 36
+SCAN_TIMED_CONFIGS, SCAN_TIMED_K, SCAN_TIMED_CHUNKS = ("final.yml", "procedural.yml"), 20, 1
+SCAN_TIMED_PAIRS = 5  # (c)'s single pairs traced, each read back
+CLEVR_CONFIG, CLEVR_DFN_B, CLEVR_STORIES, CLEVR_SYNTHETIC = "clevr.yml", 64, 16, 64
+CLEVR_SCAN = 2  # phase 28's SCAN_STEPS: 2 chunks an epoch, CPCSV_PROFILE_DIR traces the second
 COLD_BYTES = 2**26  # 67 MB, more than the H100's 50 MB L2
 GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
 # (N, C, S) beside the step's BN shapes: one row, one channel, S not a
@@ -297,6 +318,7 @@ GRAPH_REPLAYS = 5  # graph_ms' replays, of which it takes the median
 # at DP_CONFIG's batches a rank; DP_SYNTHETIC stories give the CLI one step
 # an epoch at the global batch; a rank gets DP_TIMEOUT seconds
 DP_CONFIG, DP_WORLD, DP_SYNTHETIC, DP_TIMEOUT = "final.yml", 2, 36, 300
+SPAWN_WAIT = 900  # seconds a rank spawned ahead of its phase waits for its job
 # phases 32-33: the meshes with a model axis, on DP_WORLD and twice as many
 # ranks: the same global batch as phase 29's
 DP_MODEL, DP_FOUR = "data:1,model:2", "data:2,model:2"
@@ -742,12 +764,23 @@ def bn_bound(name: str, N: int, C: int, S: int, itemsize: int = 4):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_GENERATOR_STATES: dict = {}  # (config, seed, stories) -> random_generator_state's
+
+
 def random_generator_state(cfg, stories, seed: int):
     """A full-width generator state_dict: the reference init
     (`train.state.weights_init`) from `seed`, then BN running statistics set
     from one forward pass on the card, each mean shifted and each variance
     scaled at random, so eval BN is far from the identity and the
-    activations keep a useful range."""
+    activations keep a useful range. Made once a (config, seed, story
+    count): phases 4, 15 and 36 serve the same configs."""
+    key = (cfg, seed, len(stories["description"]))
+    if key not in _GENERATOR_STATES:
+        _GENERATOR_STATES[key] = _random_generator_state(cfg, stories, seed)
+    return _GENERATOR_STATES[key]
+
+
+def _random_generator_state(cfg, stories, seed: int):
     import torch
 
     from cpcsv_tpu_torch.device import float32_math
@@ -1439,6 +1472,200 @@ def set_lowering(net, fused: str) -> None:
     for mod in net.modules():
         if isinstance(mod, UpBlock):
             mod.fused = fused
+
+
+def shard_devices() -> tuple[list, str]:
+    """Phase 36's eval mesh: every local card, or cuda:0 listed twice on a
+    host of one card (the split's code path, two replicas on one card), and
+    which of the two it is."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count > 1:
+        return [torch.device("cuda", i) for i in range(count)], f"the host's {count} cards"
+    return [torch.device("cuda", 0)] * 2, "cuda:0 listed twice (a host of one card)"
+
+
+def call_ms(infer, batch, calls: int = 5) -> float:
+    """ms of `infer.sample_videos_np(batch)`, the median of `calls` after 2
+    warm-ups (a new key's first call eager and captured)."""
+    for _ in range(2):
+        infer.sample_videos_np(batch)
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        infer.sample_videos_np(batch)
+        times.append(time.perf_counter() - t)
+    return median(times) * 1e3
+
+
+def sharded_serving(card: str, seed: int) -> dict:
+    """Phase 36: eval-mode generation split over an eval mesh
+    (`parallel/mesh.py:make_eval_mesh`, `evaluation/sampling.py`) through
+    `Infer`, SHARD_CONFIGS (final.yml at float32, procedural.yml at
+    bfloat16) at full published width, STORY_SIZES stories a call, over
+    `shard_devices()` (a size the mesh does not divide, 18 over 4 cards, runs
+    whole, the unsplit call's bits). Under cudnn.deterministic, two calls a
+    size: each block's first call eager and captured on its device, the
+    second a replay; each block bit for bit an eager one-device call of the lead's
+    net on its rows and its slice of the whole batch's noise; the gathered
+    frames against the unsplit call from the same generator
+    state, which both leave alike (float32: max |difference| within
+    SHARD_F32_BOUND; bfloat16: relative L2 within SHARD_BF16_BOUND); two
+    planted faults in a size's first call outside those bounds: each block
+    given the next block's noise slice, and the blocks after the first run
+    by a replica SHARD_STALE_STEP a parameter away from the lead (a stale
+    snapshot); DFN launches equal to blocks x calls; one DFN kernel node in
+    each replica's graph. Then ms a call split and
+    unsplit at the default flags, and with several cards ms at 72 stories
+    over 1, 2 and 4 of them. Returns {"launches", "bf16_launches", "ms"}."""
+    import numpy as np
+    import torch
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
+    from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.evaluation import sampling
+    from cpcsv_tpu_torch.evaluation.drivers import Infer, _batch_motion_content
+
+    devices, how = shard_devices()
+    out = {"launches": 0, "bf16_launches": 0, "ms": {}}
+    print(f"phase 36: the eval mesh spans {how}")
+    for name in SHARD_CONFIGS:
+        cfg = config_from_file(name)
+        batches = {n: next(story_batches(SyntheticStoryDataset(n, seed=seed), n))
+                   for n in STORY_SIZES}
+        state = random_generator_state(cfg, batches[STORY_SIZES[-1]], seed)
+        one = Infer(cfg, state, device="cuda", seed=seed, devices=devices[:1])
+        many = Infer(cfg, state, device="cuda", seed=seed, devices=devices)
+        shards = len(many.mesh)
+        check(shards == len(devices), f"{name}: {shards} blocks for {len(devices)} devices")
+        # blocks a call: a size the mesh does not divide runs whole (the JAX rule)
+        split = {n: shards if n % shards == 0 else 1 for n in STORY_SIZES}
+        bf16 = cfg.COMPUTE_DTYPE == "bfloat16"
+        stale = copy.deepcopy(many.net_g)  # a replica left on the last snapshot
+        rng = torch.Generator(device="cuda").manual_seed(seed + 1)
+        with torch.no_grad():
+            for p in stale.parameters():
+                p.add_(SHARD_STALE_STEP * torch.randn(p.shape, generator=rng, device=p.device).sign())
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            got, before, after = {}, {}, {}
+            reset_counts()  # the main path: the split calls through Infer
+            for n, batch in batches.items():
+                for call in range(2):
+                    before[n, call] = many.generator.get_state()
+                    got[n, call], _ = many.sample_videos_np(batch)
+                    after[n, call] = many.generator.get_state()
+            counts, sampled = read_counts(), sampler_calls()
+            calls, blocks = len(got), 2 * sum(split.values())
+            check(counts["dfn_forward"] == blocks and counts["dfn_backward"] == 0
+                  and counts["bn_stats"] == counts["bn_grad_reduce"] == 0,
+                  f"{name}: {calls} calls in {blocks} blocks ({split}) launched {counts}")
+            keys = blocks // 2
+            check(sampled == {"eager": keys, "captured": keys, "replayed": keys},
+                  f"{name}: sampler calls {sampled}, expected each block's first call at a "
+                  f"size eager and captured ({keys}), its second a replay")
+            nets = sampling.replicas_of(many.net_g).of(many.net_g, many.mesh)
+            nodes = []
+            for net in nets:
+                for graph in sampling.cache_of(net).graphs.graphs.values():
+                    names = kernel_node_names(graph.graph)
+                    nodes.append(len(names))
+                    check(sum("dfn_forward_kernel" in k for k in names) == 1,
+                          f"{name}: a replica's graph holds "
+                          f"{sum('dfn_forward_kernel' in k for k in names)} DFN kernel nodes")
+            worst, held, faults = {}, {}, {}
+            for (n, call), frames in got.items():
+                many.generator.set_state(before[n, call])
+                motion, content = (torch.from_numpy(a).cuda()
+                                   for a in _batch_motion_content(cfg, batches[n]))
+                noise = many.net_g.draw_noise(n, cfg.VIDEO_LEN, many.generator)
+                rows = n // split[n]
+                planted = {"the next block's noise": [], "a stale replica": []}
+                for k in range(split[n]):
+                    block = slice(k * rows, (k + 1) * rows)
+                    nxt = slice((k + 1) % split[n] * rows, ((k + 1) % split[n] + 1) * rows)
+                    with torch.no_grad(), float32_math():
+                        ref = many.net_g.sample_videos(
+                            motion[block], content[block],
+                            noise=tuple(t[block] for t in noise)).image.float().cpu().numpy()
+                        if call == 0 and split[n] > 1:  # the planted faults
+                            planted["the next block's noise"].append(many.net_g.sample_videos(
+                                motion[block], content[block],
+                                noise=tuple(t[nxt] for t in noise)).image.float().cpu().numpy())
+                            planted["a stale replica"].append(ref if k == 0 else stale.sample_videos(
+                                motion[block], content[block],
+                                noise=tuple(t[block] for t in noise)).image.float().cpu().numpy())
+                    check(np.array_equal(frames[block], ref),
+                          f"{name} {n} stories, call {call}: block {k} differs from an eager "
+                          f"one-device call on its rows by {float(abs(frames[block] - ref).max())}")
+                one.generator.set_state(before[n, call])
+                whole, _ = one.sample_videos_np(batches[n])
+                check(torch.equal(one.generator.get_state(), after[n, call]),
+                      f"{name} {n} stories: the split and the unsplit call left the generator "
+                      "apart")
+                check(whole.shape == frames.shape and bool(np.isfinite(frames).all()),
+                      f"{name} {n} stories: frames {frames.shape}, unsplit {whole.shape}")
+                worst[n, call] = float(abs(frames - whole).max())
+                if split[n] == 1:  # run whole: the unsplit call's bits
+                    held[n, call] = (worst[n, call], 0.0)
+                    check(worst[n, call] == 0, f"{name} {n} stories, run whole: "
+                                               f"{worst[n, call]:.3e} from one device's call")
+                    continue
+                # float32 in max |difference|, bfloat16 in relative L2
+                reading = (lambda a: rel_l2(a, whole)) if bf16 else (
+                    lambda a: float(abs(a - whole).max()))
+                bound = SHARD_BF16_BOUND if bf16 else SHARD_F32_BOUND
+                held[n, call] = (reading(frames), bound)
+                check(held[n, call][0] <= bound, f"{name} {n} stories: split frames "
+                      f"{held[n, call][0]:.3e} from the unsplit call's, above {bound}")
+                for kind, blocks_of in planted.items():
+                    if blocks_of:
+                        fault = np.concatenate(blocks_of)
+                        faults[n, kind] = (reading(fault), float(abs(fault - whole).max()),
+                                           rel_l2(fault, whole))
+                        check(faults[n, kind][0] > bound, f"{name} {n} stories: {kind} reads "
+                              f"{faults[n, kind][0]:.3e}, within the bound {bound}")
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        out["launches"] += counts["dfn_forward"]
+        if cfg.COMPUTE_DTYPE == "bfloat16":
+            out["bf16_launches"] += counts["dfn_forward"]
+        print(f"{name} {cfg.COMPUTE_DTYPE} split over {how} [{card}]: {calls} calls of "
+              f"{', '.join(map(str, STORY_SIZES))} stories, blocks by stories {split}; each block "
+              "bit for bit an eager one-device call on its rows and noise slice "
+              "(cudnn.deterministic); split against unsplit by (stories, call), "
+              + ("relative L2 / bound: " if bf16 else "max |difference| / bound: ")
+              + ", ".join(f"{k}: {v:.3e} / {t:.3e}" for k, (v, t) in held.items())
+              + "; max |difference| " + ", ".join(f"{k}: {v:.3e}" for k, v in worst.items())
+              + f"; planted faults (a stale replica: {SHARD_STALE_STEP} a parameter): "
+              + ", ".join(f"{n} stories, {kind}: max |difference| {m:.3e}, relative L2 {r:.3e}"
+                          for (n, kind), (_, m, r) in faults.items())
+              + f"; the generator left alike; dfn_forward {counts['dfn_forward']} "
+              f"= the blocks of {calls} calls; sampler {sampled}; kernel nodes a replica's graph {nodes}, "
+              "one dfn_forward_kernel in each")
+        for n, batch in batches.items():
+            split, whole = call_ms(many, batch), call_ms(one, batch)
+            out["ms"][name, n] = {"split": split, "whole": whole}
+            print(f"{name} {n} stories [{card}]: split over {how} {split:.2f} ms a call "
+                  f"({n * cfg.VIDEO_LEN / split * 1e3:.1f} frames/s) against one device "
+                  f"{whole:.2f} ms ({n * cfg.VIDEO_LEN / whole * 1e3:.1f} frames/s), median of 5")
+        del one, many, stale
+        if torch.cuda.device_count() > 1:  # frames/s at 1, 2 and 4 cards
+            n = STORY_SIZES[-1]
+            for m in (1, 2, 4):
+                if m <= torch.cuda.device_count():
+                    infer = Infer(cfg, state, device="cuda", seed=seed, devices=devices[:m])
+                    ms = call_ms(infer, batches[n])
+                    out["ms"][name, n, m] = ms
+                    print(f"{name} {n} stories over {m} card(s) [{card}]: {ms:.2f} ms a call, "
+                          f"{n * cfg.VIDEO_LEN / ms * 1e3:.1f} frames/s")
+                    del infer
+        del state
+        torch.cuda.empty_cache()
+    return out
 
 
 def bf16_serving(card: str, seed: int) -> dict:
@@ -2756,7 +2983,7 @@ def bn_new_maps(gen, card: str) -> dict:
 def seq_cli(card: str, cfg_file: str, per_step: dict[str, int], seed: int,
             root: Path) -> dict[str, int]:
     """Phase 24, the seq-consistency variant through the port's CLI in this
-    process: --synthetic CLI_SYNTHETIC for 2 epochs straight (its checkpoint
+    process: --synthetic SEQ_SYNTHETIC for 2 epochs straight (its checkpoint
     saves skipped: it is the reference), then in another working directory 1
     epoch and a --continue_ckpt auto epoch. The
     resumed epoch's host shuffles equal the straight run's epoch 1 bit for
@@ -2771,8 +2998,8 @@ def seq_cli(card: str, cfg_file: str, per_step: dict[str, int], seed: int,
     from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 
     cfg = config_from_file(cfg_file)
-    args = ["--cfg", cfg_file, "--synthetic", str(CLI_SYNTHETIC), "--manualSeed", str(seed)]
-    steps_an_epoch = max(CLI_SYNTHETIC, cfg.TRAIN.ST_BATCH_SIZE) // cfg.TRAIN.ST_BATCH_SIZE
+    args = ["--cfg", cfg_file, "--synthetic", str(SEQ_SYNTHETIC), "--manualSeed", str(seed)]
+    steps_an_epoch = max(SEQ_SYNTHETIC, cfg.TRAIN.ST_BATCH_SIZE) // cfg.TRAIN.ST_BATCH_SIZE
     shuffles = []  # (shuffled stories, labels) bytes of every host shuffle, in order
     real_shuffle = trainer_module.create_random_shuffle
 
@@ -2885,7 +3112,7 @@ def variant_phases(card: str, gen, seed: int, build_dir: Path) -> types.SimpleNa
         phase("23. BN kernels at the variants' new largest maps: the InfoNCE head's B² rows, "
               "the VideoEncoder's stem")
         new_maps = bn_new_maps(gen, card)
-        phase(f"24. the variants through the CLI: final_seq.yml --synthetic {CLI_SYNTHETIC}, 2 "
+        phase(f"24. the variants through the CLI: final_seq.yml --synthetic {SEQ_SYNTHETIC}, 2 "
               "epochs and an auto-resumed epoch; final_noseg.yml, one epoch, served")
         seq_counts = seq_cli(card, variants["final_seq.yml"], runs_var["final_seq.yml"].expected,
                              seed, Path(tmp))
@@ -3496,18 +3723,19 @@ def clevr_disk(card: str, per_step: dict[str, int], seed: int, root: Path) -> di
 
 
 # ------------------------------------------------------ 29-31: data parallel
-def launch_dp(tag: str, job: dict, root: Path, world: int, env=None, mode: str = None):
+def spawn_dp(tag: str, root: Path, world: int, env=None, mode: str = None):
     """Start `world` ranks of this script (`--dp-worker mode`, `tag` unless
-    named), each in its own process on the one card, the job handed over in
-    a file named by `tag`; returns a function that waits for them
-    (DP_TIMEOUT) and returns each rank's result. A rank that fails fails the
-    phase, its output's tail printed."""
+    named), each in its own process on the one card, which makes its CUDA
+    context and then waits for its job, handed over in a file named by
+    `tag`: ranks spawned a phase ahead start up beside it. Returns
+    `start(job)`, which writes the job and returns a function that waits
+    for the ranks (DP_TIMEOUT) and returns each rank's result. A rank that
+    fails fails the phase, its output's tail printed."""
     import atexit
 
     import torch
 
     job_path = root / f"{tag}_job.pt"
-    torch.save(job, job_path)
     procs, outs = [], []
     atexit.register(kill_all, procs)  # a phase that fails while the ranks run stops them too
     for rank in range(world):
@@ -3519,6 +3747,12 @@ def launch_dp(tag: str, job: dict, root: Path, world: int, env=None, mode: str =
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True, env={**os.environ, **(env(rank) if env else {})}))
         outs.append(out)
+
+    def start(job: dict):
+        staged = job_path.with_suffix(".staged")
+        torch.save(job, staged)
+        os.replace(staged, job_path)  # whole when a rank sees it
+        return wait
 
     def wait():
         logs = []
@@ -3532,7 +3766,7 @@ def launch_dp(tag: str, job: dict, root: Path, world: int, env=None, mode: str =
         check(all(p.returncode == 0 for p in procs), f"{tag}: a rank failed")
         return [torch.load(o, weights_only=False) for o in outs]
 
-    return wait
+    return start
 
 
 def kill_all(procs) -> None:
@@ -3553,7 +3787,7 @@ def grad_bit_sums(state):
 
 
 def dp_worker(args) -> int:
-    """One rank of phases 29-33 (a process of its own, `launch_dp`):
+    """One rank of phases 29-33 (a process of its own, `spawn_dp`):
       steps: phase 29's D+G step on this rank's data shard in a gloo group
              under the job's MESH_SHAPE ("" or phase 32's DP_FOUR), and with
              the job's "model" (phase 32's DP_MODEL) the same step again from
@@ -3573,6 +3807,11 @@ def dp_worker(args) -> int:
     from cpcsv_tpu_torch.train.state import create_train_state, state_checksums
     from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
 
+    torch.zeros(1, device="cuda")  # the CUDA context, before the job arrives
+    waited = time.perf_counter()
+    while not os.path.exists(args.dp_job):  # `spawn_dp`'s start
+        check(time.perf_counter() - waited < SPAWN_WAIT, f"no job in {SPAWN_WAIT} s")
+        time.sleep(0.05)
     job = torch.load(args.dp_job, weights_only=False)
     rank, world = args.dp_rank, args.dp_world
     out = {}
@@ -3756,7 +3995,7 @@ def dp_step_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dic
     job = {"config": DP_CONFIG, "seed": seed, "backend": "gloo", "st": st_host, "im": im_host,
            "noise": [tuple(tuple(t.cpu() for t in draws) for draws in pair) for pair in noise]}
     t = time.perf_counter()
-    wait = launch_dp("steps", {**job, "model": DP_MODEL}, root, DP_WORLD)
+    wait = spawn_dp("steps", root, DP_WORLD)({**job, "model": DP_MODEL})
     # meanwhile, the one-process reference on the card
     run = types.SimpleNamespace(
         name=f"{DP_CONFIG} at {b_im} / {b_st} in one process", cfg=cfg, state=state,
@@ -3805,7 +4044,7 @@ def dp_step_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dic
             {"job": job, "ranks": ranks, "one": one})
 
 
-def model_axis_phase(card: str, root: Path, p29: dict) -> dict[str, int]:
+def model_axis_phase(card: str, root: Path, p29: dict, four_ranks) -> dict[str, int]:
     """Phase 32, a mesh with a model axis: (a) phase 29's two ranks' step
     under DP_MODEL, each rank the whole global batch in a data group of
     itself, against phase 29's one process on that batch; (b) 2 × DP_WORLD
@@ -3814,7 +4053,8 @@ def model_axis_phase(card: str, root: Path, p29: dict) -> dict[str, int]:
     29's rank r // 2. Each bit for bit: metrics, state checksums,
     gradients' bit sums (cuDNN deterministic; a data group of one rank adds
     nothing, and a sum of two operands does not depend on their order); each
-    rank's BN launches a step as phase 6's. Returns the launches of both."""
+    rank's BN launches a step as phase 6's; (b)'s ranks spawned ahead
+    (`four_ranks`, `spawn_dp`'s start). Returns the launches of both."""
     import dataclasses
 
     from cpcsv_tpu_torch.config import config_from_file
@@ -3846,8 +4086,7 @@ def model_axis_phase(card: str, root: Path, p29: dict) -> dict[str, int]:
                                ST_BATCH_SIZE=cfg.TRAIN.ST_BATCH_SIZE // 2)
     world = 2 * DP_WORLD
     t = time.perf_counter()
-    four = launch_dp("four", {**p29["job"], "mesh": DP_FOUR, "train": half}, root, world,
-                     mode="steps")()
+    four = four_ranks({**p29["job"], "mesh": DP_FOUR, "train": half})()
     seconds = time.perf_counter() - t
     for rank, r in enumerate(four):
         ref = ranks[rank // 2]
@@ -3874,7 +4113,7 @@ def model_axis_phase(card: str, root: Path, p29: dict) -> dict[str, int]:
     return counts
 
 
-def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> tuple[dict, dict]:
+def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float, nccl_rank) -> tuple[dict, dict]:
     """Phase 30: one rank in an NCCL group of one (`initialize_distributed`;
     its data group is the whole world, the default group), so every
     collective runs: its D+G step of DP_CONFIG at the config's
@@ -3882,8 +4121,9 @@ def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> tuple[dict
     checksums, gradients; cuDNN deterministic), an all-reduce of one rank
     being exact. Then WARMUP_STEPS + TIMED_STEPS steps timed as phase 6's:
     their median against phase 6's prices the collectives. The same rank
-    then trains phase 35 (b)'s run. Returns the launches of phase 30 and
-    that run's readings."""
+    then trains phase 35 (b)'s run. The rank is spawned ahead (`nccl_rank`,
+    `spawn_dp`'s start). Returns the launches of phase 30 and that run's
+    readings."""
     import torch
 
     from cpcsv_tpu_torch.config import config_from_file
@@ -3909,9 +4149,9 @@ def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> tuple[dict
     sums, bits = state_checksums(state).cpu().numpy(), grad_bit_sums(state).cpu().numpy()
     del state
     torch.cuda.empty_cache()
-    # the rank starts after the reference is done: nothing else runs beside its timed steps
-    (r,) = launch_dp("nccl", {"config": DP_CONFIG, "seed": seed, "backend": "nccl",
-                              "scan": True, "root": str(root)}, root, 1)()
+    # the rank gets its job after the reference is done: nothing else runs beside its timed steps
+    (r,) = nccl_rank({"config": DP_CONFIG, "seed": seed, "backend": "nccl", "scan": True,
+                      "root": str(root)})()
     check(r["metrics"] == metrics and (r["sums"] == sums).all() and (r["grad_bits"] == bits).all(),
           "phase 30: the NCCL rank's step differs from one process's")
     check(r["data_group"] == [0], f"phase 30: the NCCL rank's data group {r['data_group']}")
@@ -3930,7 +4170,14 @@ def nccl_phase(card: str, seed: int, root: Path, phase6_ms: float) -> tuple[dict
     return got, r["scan"]
 
 
-def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict[str, int]]:
+def cli_env(root: Path):
+    """Phase 31's ranks' CPCSV_* variables, by rank."""
+    return lambda rank: {"CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
+                         "CPCSV_NUM_PROCESSES": str(DP_WORLD), "CPCSV_PROCESS_ID": str(rank)}
+
+
+def dp_cli_phase(card: str, seed: int, root: Path, cli_ranks,
+                 one_rank) -> tuple[dict[str, int], dict[str, int]]:
     """Phase 31: the Pororo CLI with two gloo ranks on the card
     (CPCSV_COORDINATOR / CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, --backend
     gloo), DP_CONFIG --synthetic DP_SYNTHETIC (one step an epoch at the global
@@ -3943,8 +4190,10 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict
     rank 1 waits and returns None. Phase 33 in the same processes: one epoch of DP_CONFIG
     under MESH_SHAPE DP_MODEL (its final save alone), against one process
     (a third, beside them) at the doubled batches, its saves skipped: the
-    steps' metrics and the final state bit for bit on both ranks. Returns
-    the launches of phase 31 and of phase 33, summed over the processes."""
+    steps' metrics and the final state bit for bit on both ranks. The
+    processes are spawned ahead (`cli_ranks`, `one_rank`: `spawn_dp`'s
+    starts, the ranks with `cli_env`). Returns the launches of phase 31 and
+    of phase 33, summed over the processes."""
     import numpy as np
     import yaml
 
@@ -3976,10 +4225,8 @@ def dp_cli_phase(card: str, seed: int, root: Path) -> tuple[dict[str, int], dict
         ("model", str(root / "cli_one"), ["--cfg", str(one_file), *seeded, "--max_epoch", "1"],
          "none")]}
     t = time.perf_counter()
-    wait = launch_dp("cli", job, root, DP_WORLD, env=lambda rank: {
-        "CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
-        "CPCSV_NUM_PROCESSES": str(DP_WORLD), "CPCSV_PROCESS_ID": str(rank)})
-    (one,) = launch_dp("cli_one", one_job, root, 1, mode="cli")()
+    wait = cli_ranks(job)
+    (one,) = one_rank(one_job)()
     r0, r1 = wait()
     seconds = time.perf_counter() - t
     for label in ("straight", "first", "resumed"):
@@ -4212,7 +4459,7 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
     synchronise),
     the card's busy ms a step (the union of the kernels' intervals) and the
     idle share from one torch.profiler trace (the card's activity only) of
-    a warm chunk and of SCAN_TIMED_K single pairs, the captured
+    a warm chunk and of SCAN_TIMED_PAIRS single pairs, the captured
     graph's nodes by type, and the memory the capture took. Returns the
     launches."""
     import numpy as np
@@ -4279,14 +4526,14 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
         # on the chunks' stream, where the state's gradient accumulators were made
         with scan.graphs.stream(dev), profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            for k in range(K):
+            for k in range(SCAN_TIMED_PAIRS):
                 pair(k)
             traced_pairs_s = time.perf_counter() - t
-        busy_pairs = busy_ms(prof) / K
+        busy_pairs = busy_ms(prof) / SCAN_TIMED_PAIRS
         eager_ms = pair_ms[name]
         got = read_counts()
         counts.update(got)
-        steps = (3 + SCAN_TIMED_CHUNKS) * K
+        steps = (2 + SCAN_TIMED_CHUNKS) * K + SCAN_TIMED_PAIRS
         per_step = per_step_launches(state)
         check(got == {k: v * steps for k, v in per_step.items()},
               f"{name}: launches {got} for {steps} pairs of {per_step}")
@@ -4299,9 +4546,10 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
               f"{1 - busy / chunk_ms:.3f} untraced, {1 - busy * K / (traced_s * 1e3):.3f} traced")
         print(f"{name} one pair at a time [{card}]: {eager_ms:.2f} ms a step (phase "
               f"{16 if name in BF16_CONFIGS else 6}'s median), busy {busy_pairs:.2f} ms a step "
-              f"over {K} pairs, each read back (traced {traced_pairs_s * 1e3 / K:.2f} ms a "
-              f"step): idle share {1 - busy_pairs / eager_ms:.3f} untraced, "
-              f"{1 - busy_pairs * K / (traced_pairs_s * 1e3):.3f} traced; the chunk "
+              f"over {SCAN_TIMED_PAIRS} pairs, each read back (traced "
+              f"{traced_pairs_s * 1e3 / SCAN_TIMED_PAIRS:.2f} ms a step): idle share "
+              f"{1 - busy_pairs / eager_ms:.3f} untraced, "
+              f"{1 - busy_pairs * SCAN_TIMED_PAIRS / (traced_pairs_s * 1e3):.3f} traced; the chunk "
               f"{chunk_ms / eager_ms:.3f}x the pair's ms a step")
         print(f"{name} captured pair [{card}]: {sum(nodes.values())} graph nodes, {kernel_nodes} "
               f"kernel nodes (by CUgraphNodeType {dict(sorted(nodes.items()))}); memory reserved "
@@ -4315,7 +4563,7 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    # one rank of phases 29-31, started by the script itself (`launch_dp`)
+    # one rank of phases 29-31, started by the script itself (`spawn_dp`)
     parser.add_argument("--dp-worker", choices=("steps", "nccl", "cli"), help=argparse.SUPPRESS)
     for flag, kind in (("--dp-rank", int), ("--dp-world", int), ("--dp-init", str),
                        ("--dp-job", str), ("--dp-out", str)):
@@ -4600,6 +4848,10 @@ def main() -> int:
     phase("15. serving at bfloat16: throughput.yml and procedural.yml through Infer")
     serving_bf16 = bf16_serving(card, args.seed)
 
+    # ------------------------- 36. generation split over the eval mesh
+    phase("36. generation split over the eval mesh through Infer: final.yml, procedural.yml")
+    shard = sharded_serving(card, args.seed)
+
     # ----------------------- 6-7. training at full width, each config in turn
     runs = {}
     build_dir = REPO / "build"
@@ -4859,19 +5111,26 @@ def main() -> int:
 
     # ------------------------------------------- 29-31. data parallelism
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_", dir=build_dir) as tmp:
+        root = Path(tmp)
+        # the ranks of phases 32, 30 and 31 start up a phase ahead (`spawn_dp`)
+        four_ranks = spawn_dp("four", root, 2 * DP_WORLD, mode="steps")
         phase(f"29. {DP_WORLD} gloo ranks on the card: a D+G step of {DP_CONFIG} against one "
               "process on the global batch")
-        dp_counts, p29 = dp_step_phase(card, args.seed, Path(tmp))
+        dp_counts, p29 = dp_step_phase(card, args.seed, root)
+        nccl_rank = spawn_dp("nccl", root, 1)
+        cli_ranks = spawn_dp("cli", root, DP_WORLD, env=cli_env(root))
+        one_rank = spawn_dp("cli_one", root, 1, mode="cli")
         phase(f"32. a model axis: {DP_WORLD} gloo ranks under {DP_MODEL} (in phase 29's launch) "
               f"against one process, {2 * DP_WORLD} under {DP_FOUR} against phase 29's "
               f"{DP_WORLD}")
-        model_counts = model_axis_phase(card, Path(tmp), p29)
+        model_counts = model_axis_phase(card, root, p29, four_ranks)
         del p29
         phase("30. one NCCL rank, its data group the world: phase 6's step bit for bit, then timed")
-        nccl_counts, nccl_scan = nccl_phase(card, args.seed, Path(tmp), runs[DP_CONFIG].step_ms)
+        nccl_counts, nccl_scan = nccl_phase(card, args.seed, root, runs[DP_CONFIG].step_ms,
+                                            nccl_rank)
         phase(f"31. the CLI with {DP_WORLD} gloo ranks: 2 epochs, 1 + an auto-resumed one, "
               "--eval_ssim on rank 0")
-        dp_cli_counts, one_cli_counts = dp_cli_phase(card, args.seed, Path(tmp))
+        dp_cli_counts, one_cli_counts = dp_cli_phase(card, args.seed, root, cli_ranks, one_rank)
     for name in kernels:
         kernels[name]["launches"] += (dp_counts[name] + nccl_counts[name] + dp_cli_counts[name]
                                       + model_counts[name] + one_cli_counts[name])
@@ -4922,6 +5181,13 @@ def main() -> int:
                   f"({e['ms'] / g['ms']:.3f}x), busy {g['busy_ms']:.3f} / {e['busy_ms']:.3f}, "
                   f"idle {g['idle']:.3f} / {e['idle']:.3f}, ops {g['ops']:.0f} / {e['ops']:.0f}, "
                   f"nodes {nodes[name][n]}")
+
+    kernels["dfn_forward"]["launches"] += shard["launches"]
+    kernels["dfn_forward"]["bf16_launches"] += shard["bf16_launches"]
+    kernels["dfn_forward"]["shard_launches"] = shard["launches"]
+    print(f"phase 36 [{card}], ms a call split over {shard_devices()[1]} / on one device: "
+          + "; ".join(f"{name} {n}: {t['split']:.2f} / {t['whole']:.2f}"
+                      for (name, n, *_), t in shard["ms"].items() if isinstance(t, dict)))
 
     phase("done")
     print(json.dumps({"kernels": list(kernels.values())}))

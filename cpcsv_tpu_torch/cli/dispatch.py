@@ -79,7 +79,9 @@ def loader_shard(args):
 
 def dispatch(cfg, args, output_dir, imageloader, storyloader, testloader):
     """The reference's ladder: an evaluation walk, else --load_ckpt's sample
-    dump, else training; the walks run on args.device as training does."""
+    dump, else training; the walks and the dump generate over the eval mesh
+    of cfg.MESH_SHAPE on args.device's cards (`Infer`), training runs on
+    args.device."""
     walk = _walk(args)
     if walk or args.load_ckpt is not None:
         from cpcsv_tpu_torch.evaluation.drivers import Infer

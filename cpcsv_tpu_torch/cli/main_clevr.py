@@ -15,7 +15,8 @@ the in-memory synthetic datasets at the config's VIDEO_LEN and dims instead.
 The seeds are the JAX CLI's: manualSeed + 10 for the image dataset's frame
 picks, manualSeed, + 1 and + 2 for the image, story and test loaders. Runs
 go under ./output/torch/{CONFIG_NAME} (./output/torch/debug with --debug),
-and the evaluation flags walk that directory's snapshots. Several processes
+and the evaluation flags walk that directory's snapshots, over the eval
+mesh of the run's MESH_SHAPE as the Pororo CLI's do. Several processes
 train data-parallel as the Pororo CLI's do (`cli/main_pororo.py`).
 """
 

@@ -29,6 +29,12 @@ group's backend (NCCL on CUDA, gloo on the CPU by default; gloo lets several
 ranks share one GPU). Rank 0 alone writes the run directory, and the
 evaluation walks run on rank 0 over the whole test set while the others
 wait.
+
+One process walks (--eval_*) and dumps (--load_ckpt) over an eval mesh of
+the run's MESH_SHAPE, as the JAX CLI does: with --device cuda every card
+of the host ("" or a mesh larger than the host), each generation call split
+over its `data` axis (`evaluation/drivers.py:Infer`); a rank-0 walk in a
+process group runs on its own card alone.
 """
 
 from __future__ import annotations

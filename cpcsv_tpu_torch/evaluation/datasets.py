@@ -9,6 +9,7 @@ Items are numpy HWC float32 in [-1, 1], as the training datasets'.
 from __future__ import annotations
 
 import os
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -80,17 +81,23 @@ class StoryGANDataset:
     fid/utils.py:52-87), generated `chunk` stories at a time on the
     generator's device through the sampler (`sampling.sample`; a ragged last
     chunk is one more key): `net_g` in eval mode, its noise from `generator`
-    (a torch.Generator on that device), float32 with TF32 off."""
+    (a torch.Generator on that device), float32 with TF32 off. Given an eval
+    `mesh` (`mesh.make_eval_mesh`), each chunk is split over it where
+    `mesh.eval_shards` allows,
+    as the JAX package's (`cpcsv_tpu/evaluation/datasets.py:134-150`): full
+    chunks shard, a ragged tail that the data axis does not divide runs on
+    the generator's device."""
 
     keep_real = False  # StoryGANSSIMDataset keeps the real stories it read
 
     def __init__(self, net_g, testdataset, generator: torch.Generator, text_dim: int = 356,
-                 chunk: int = 64):
+                 chunk: int = 64, mesh: Optional[Sequence[torch.device]] = None):
         self.net_g = net_g
         self.ds = testdataset
         self.generator = generator
         self.text_dim = text_dim
         self.chunk = chunk
+        self.mesh = mesh
         self.device = next(net_g.parameters()).device
         self._cache: dict[int, np.ndarray] = {}
         self._real_cache: dict[int, np.ndarray] = {}
@@ -110,7 +117,7 @@ class StoryGANDataset:
                 self._real_cache[i] = np.asarray(item["images"], np.float32)
         fake, _ = sampling.sample(self.net_g, torch.from_numpy(np.stack(motions)).to(self.device),
                                   torch.from_numpy(np.stack(contents)).to(self.device),
-                                  generator=self.generator)
+                                  generator=self.generator, mesh=self.mesh)
         fake = fake.float().cpu().numpy()
         for j, i in enumerate(idxs):
             self._cache[i] = fake[j]

@@ -20,21 +20,30 @@ the reference's file protocol:
     (reference trainer.py:160-174), no PNGs, the real side's statistics
     cached under ./.cache/.
 
-`Infer` holds an eval-mode generator on one device. It takes the weights
-either as a `state_dict` (a `netG_epoch_E.pth`, or JAX variables converted
-by `utils.weights.generator_state_dict_from_jax`) or from the run directory
+`Infer` holds an eval-mode generator on its lead device and generates over
+an eval mesh, as the JAX package's `Infer` does
+(`cpcsv_tpu/evaluation/drivers.py:132-146`, `:253-265`): the mesh of
+cfg.MESH_SHAPE over the local devices (`parallel/mesh.py:make_eval_mesh`;
+"" is every card of an index-less "cuda", a larger mesh falls back to them
+with a warning, `devices=` names the list outright), each call split over
+its data axis where `eval_shards` says so, each block on a replica of the
+generator on its device. It takes the weights either as a `state_dict` (a
+`netG_epoch_E.pth`, or JAX variables converted by
+`utils.weights.generator_state_dict_from_jax`) or from the run directory
 `output_dir` (`load_ckpt=E`, `load_epoch(E)`, and the walks). Noise comes
-from one `torch.Generator` on the device, seeded with `seed`. Every
-generation call goes through `sampling.sample`, as every JAX one through a
-jitted sampler: on a card the graphs captured at a walk's first snapshot
-replay on the next, whose weights `load_epoch` copies in place.
+from one `torch.Generator` on the lead device, seeded with `seed`, drawn
+for the whole batch whatever the split, so a sharded call gives the
+one-device call's frames. Every generation call goes through
+`sampling.sample`, as every JAX one through a jitted sampler: on a card the
+graphs captured at a walk's first snapshot replay on the next, whose
+weights `load_epoch` copies in place, into the replicas too. The metric
+backbones run on the lead device.
 
 In a process group the walks and the --load_ckpt dump run on rank 0 alone,
-over the whole test set (`_centralized`, as the JAX package's); `Infer`
-takes any MESH_SHAPE and walks on its one device, as the JAX package's
-`make_eval_mesh` falls back to the local devices, with the same numbers.
-The port never wrote the JAX package's legacy params-only snapshots, so it
-does not read them.
+over the whole test set (`_centralized`, as the JAX package's), unsharded
+on the rank's card, as the JAX package's `eval_shardings` declines in a
+run of several processes. The port never wrote the JAX package's legacy
+params-only snapshots, so it does not read them.
 """
 
 from __future__ import annotations
@@ -70,7 +79,7 @@ from cpcsv_tpu_torch.evaluation.r2plus1d import make_fsd_extractor
 from cpcsv_tpu_torch.evaluation.ssim import ssim_score
 from cpcsv_tpu_torch.models.factory import generator_from_config
 from cpcsv_tpu_torch.parallel.distributed import is_distributed, process_info
-from cpcsv_tpu_torch.parallel.mesh import host_barrier
+from cpcsv_tpu_torch.parallel.mesh import host_barrier, make_eval_mesh
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.utils.image import save_all_img, save_png, save_story_results
 
@@ -120,7 +129,9 @@ def _append_row(path: str, row: list) -> None:
 
 
 class Infer:
-    """Eval-mode story generation and the checkpoint walks on one device."""
+    """Eval-mode story generation and the checkpoint walks over an eval mesh
+    of the local devices (`devices`: a list to span instead, such as a card
+    or the CPU listed several times)."""
 
     def __init__(
         self,
@@ -130,9 +141,11 @@ class Infer:
         output_dir: str = "output",
         seed: int = 0,
         load_ckpt: Optional[int] = None,
+        devices: Optional[list] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_eval_mesh(cfg.MESH_SHAPE, self.device, devices)
         self.output_dir = output_dir
         self.model_dir = os.path.join(output_dir, "Model")
         self.eval_dir = os.path.join(output_dir, "Evaluation", cfg.CONFIG_NAME or "eval")
@@ -152,9 +165,11 @@ class Infer:
 
     def load_epoch(self, epoch: int) -> None:
         """The generator of the run's netG_epoch_{epoch}.pth, its BN statistics
-        included (reference inference.py:82-89). A missing snapshot raises
-        FileNotFoundError naming the run's Model directory: scores of an
-        untrained generator must never pass for a checkpoint's."""
+        included (reference inference.py:82-89), copied in place, and into
+        the replicas at the next sharded call (`sampling.Replicas`). A
+        missing snapshot raises FileNotFoundError naming the run's Model
+        directory: scores of an untrained generator must never pass for a
+        checkpoint's."""
         self.net_g.load_state_dict(self.ckpt.restore_generator(epoch), strict=True)
         self.loaded = True
 
@@ -172,7 +187,8 @@ class Infer:
         None), numpy float32, computed in cfg.COMPUTE_DTYPE (float32 whatever
         the global TF32 flags say, or bfloat16) through the sampler
         (`sampling.sample`: on a card a CUDA graph replayed after the first
-        call at a set of shapes), its noise from `self.generator`."""
+        call at a set of shapes), split over the eval mesh, its noise from
+        `self.generator`."""
         if not self.loaded:
             raise RuntimeError(
                 "no generator weights: pass a state_dict, or load_ckpt=E or load_epoch(E) "
@@ -180,7 +196,7 @@ class Infer:
         motion, content = _batch_motion_content(self.cfg, batch)
         image, mask = sampling.sample(self.net_g, torch.from_numpy(motion).to(self.device),
                                       torch.from_numpy(content).to(self.device), seg=seg,
-                                      generator=self.generator)
+                                      generator=self.generator, mesh=self.mesh)
         mask = mask.float().cpu().numpy() if mask is not None else None
         return image.float().cpu().numpy(), mask
 
@@ -345,7 +361,7 @@ class Infer:
         if not self.loaded:
             raise RuntimeError(f"eval_ssim: no generator loaded (snapshots in {self.model_dir})")
         ds = StoryGANSSIMDataset(self.net_g, testdataset, self.generator,
-                                 text_dim=self.cfg.TEXT.DIMENSION)
+                                 text_dim=self.cfg.TEXT.DIMENSION, mesh=self.mesh)
         n = n or len(ds)
         return ssim_score((ds[i] for i in range(n)), device=self.device)
 

@@ -20,9 +20,9 @@ from cpcsv_tpu_torch.parallel.mesh import parse_mesh_shape
 # any mesh with a `data` axis that spans the process group, sharding the
 # batches over `data` and replicating over the other axes
 # (`mesh.check_training_mesh`, which the trainer and the steps call), while
-# serving and the walks accept any well-formed mesh and run on their one
-# device, as the JAX package's `make_eval_mesh` falls back to the local
-# devices.
+# serving and the walks split each generation call over the `data` axis of
+# an eval mesh of the process's cards (`mesh.make_eval_mesh`, which falls
+# back to the local cards for a larger mesh, as the JAX package's does).
 # The JAX package's TPU lowering choices, accepted at every value its config
 # accepts, each with one meaning in the port:
 #   SCAN_STEPS (K > 1: K D+G pairs a dispatch, lax.scan; else one): K > 1
@@ -31,7 +31,8 @@ from cpcsv_tpu_torch.parallel.mesh import parse_mesh_shape
 #     pair on a card, eagerly on the CPU and under gloo; else one pair at
 #     a time;
 #   USE_PALLAS (the Pallas DFN on a TPU): on a CUDA device the DFN always
-#     runs its CUDA kernel, on the CPU its plain version;
+#     runs its CUDA kernel, on the CPU its plain version; unlike the JAX
+#     package's, it does not narrow the eval mesh to one device;
 #   BN_BACKEND ("xla": flax BatchNorm; "mxu": its statistics as matmuls;
 #     "pallas": as Pallas kernels): the port's train BN is the Pallas arm's
 #     arithmetic on the BN kernels (`ops/batchnorm.py`) under every value.

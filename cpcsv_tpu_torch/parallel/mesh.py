@@ -29,20 +29,29 @@ P("data") and replicates its parameters. Each collective of a step runs
 over the rank's data group, the D ranks that share all its other
 coordinates (`distributed.form_data_groups`), so that the ranks of a group
 compute the JAX program over the global batch and the groups repeat one
-another bit for bit. Serving and the walks take any well-formed mesh and
-run on their one device.
+another bit for bit.
+
+Eval-mode generation (serving, the walks, the in-training hook) runs in one
+process over an eval mesh of that process's devices (`make_eval_mesh`), as
+the JAX package's `make_eval_mesh` / `eval_shardings` / `shard_eval_inputs`
+shard a generation call's batch over its local devices: `eval_shards` says
+into how many contiguous row blocks a batch is split, one a device of
+`make_eval_mesh`, by the JAX rules, and `evaluation/sampling.py` runs each
+block on a replica of the generator there.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
-from typing import NamedTuple
+import warnings
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from cpcsv_tpu_torch.device import resolve_device
 from cpcsv_tpu_torch.parallel.distributed import (
     data_group,
     data_info,
@@ -190,3 +199,59 @@ def host_barrier() -> None:
     without a group."""
     if is_distributed():
         dist.barrier(group=host_group())
+
+
+def local_devices(device: str | torch.device = "cuda") -> list[torch.device]:
+    """The devices an eval mesh may span, as `jax.devices()` lists them:
+    every card of the host for an index-less "cuda", else `device` alone
+    (a named card, or the CPU)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def make_eval_mesh(mesh_shape: str = "", device: str | torch.device = "cuda",
+                   devices: Optional[Sequence] = None) -> tuple[torch.device, ...]:
+    """The devices one process generates on: the eval mesh of MESH_SHAPE over
+    `devices` (default `local_devices(device)`; tests and chip_smoke.py name
+    a list, a card or the CPU listed several times), one device a data index,
+    in data order, the first the lead. "" is every device on `data`; a mesh
+    larger than the list falls back to the list, with the JAX package's
+    warning (walking a run trained on more cards than this host has); an
+    axis other than `data` keeps its size, and a mesh without `data` has a
+    data extent of 1. On a mesh with other axes (data:4,model:2) the JAX
+    package runs each data shard on every device of its row, replicas that
+    repeat the same rows; the port runs it once, on the row's first device
+    (its other coordinates 0). Unlike the JAX
+    package's, it never narrows to one device for USE_PALLAS: the DFN's CUDA
+    kernel runs on every card, where a Mosaic call has no partitioning rule."""
+    local = [torch.device(d) for d in devices] if devices is not None else local_devices(device)
+    axes = parse_mesh_shape(mesh_shape)
+    if axes and math.prod(size for _, size in axes) > len(local):
+        warnings.warn(
+            f"MESH_SHAPE {mesh_shape!r} needs {mesh_size(mesh_shape)} devices "
+            f"but only {len(local)} are visible — eval falls back to "
+            "the local device set (numerically identical, just less parallel).")
+        axes = []
+    axes = tuple(axes) or ((DATA_AXIS, len(local)),)
+    names, sizes = [n for n, _ in axes], [s for _, s in axes]
+    grid = np.arange(math.prod(sizes)).reshape(sizes)
+    if DATA_AXIS in names:
+        k = names.index(DATA_AXIS)
+        rows = grid[tuple(slice(None) if i == k else 0 for i in range(len(sizes)))]
+    else:
+        rows = grid.reshape(-1)[:1]
+    return tuple(local[int(i)] for i in rows)
+
+
+def eval_shards(mesh: Optional[Sequence[torch.device]], batch: int) -> int:
+    """Into how many row blocks a generation call of `batch` stories is split
+    (`cpcsv_tpu/parallel/mesh.py:eval_shardings`): the data extent where it
+    is above 1 and divides the batch, outside a process group of several
+    ranks (whose walks run on rank 0, over its own card); else 1, unsharded.
+    A ragged batch is no error: a walk's last batch often is."""
+    if mesh is None or process_info()[1] > 1:
+        return 1
+    data = len(mesh)
+    return data if data > 1 and batch % data == 0 else 1

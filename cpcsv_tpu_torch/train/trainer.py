@@ -447,6 +447,9 @@ class GANTrainer:
                 self._eval_extractors = make_in_memory_extractors(self.device)
             generator = self._eval_generator("vfid", 1234 + epoch)
             with self._eval_mode(state) as gen:
+                # the JAX trainer passes its training mesh; a port trainer is
+                # one process on one card (a multi-GPU run is a process a card),
+                # so the hook generates on that card, unsplit
                 scores = evaluate_fid_fsd_in_memory(self.cfg, gen, testloader, generator,
                                                     extractors=self._eval_extractors)
         scores = broadcast_from_rank0(scores)

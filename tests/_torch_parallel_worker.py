@@ -10,9 +10,12 @@ on the CPU in a gloo process group:
 file's scenarios (a config, a state, the global batches and noise, and for
 some a MESH_SHAPE of the ranks): one D and one G step each from the state,
 on this rank's data shard, in float32 and in float64; then D+G, a save, a
-restore and one more D+G step; then a --load_ckpt dump through the
-centralized walk. `mesh` joins the group with the JOB's MESH_SHAPE and runs
-the first scenario's D+G step on its data shard. `cli` runs the port's CLIs
+restore and one more D+G step of the first; then a --load_ckpt dump
+through the centralized walk. Where the JOB names a `first` file, the
+first scenario is read from it once the caller has written it (the JAX
+package's run, which the caller computes while the ranks step the
+others). `mesh` joins the group with the JOB's MESH_SHAPE and runs the
+first scenario's D+G step on its data shard. `cli` runs the port's CLIs
 in this process, the group formed from CPCSV_COORDINATOR /
 CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, which the caller sets (the tests
 also call it in their own process, with none). `bn` runs train-mode BNs on
@@ -229,6 +232,19 @@ def bn_reading(bn_job: dict, rank: int, device: str) -> dict:
     return out
 
 
+def read_when_written(path: str, timeout: float = 120.0):
+    """What the caller saves to `path` (written elsewhere, then renamed
+    there), once it is there."""
+    import time
+
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} was not written within {timeout:.0f} s")
+        time.sleep(0.05)
+    return torch.load(path, weights_only=False)
+
+
 def run_steps(job, rank, world, out_dir):
     from cpcsv_tpu_torch.data.loader import DataLoader
     from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset
@@ -237,12 +253,16 @@ def run_steps(job, rank, world, out_dir):
     from cpcsv_tpu_torch.train.state import check_replicas, state_checksums
     from cpcsv_tpu_torch.train.steps import make_train_steps
 
-    result = {sc["id"]: run_steps_one(sc, rank, world) for sc in job["scenarios"]}
+    scenarios = list(job["scenarios"])
+    result = {sc["id"]: run_steps_one(sc, rank, world) for sc in scenarios}
+    if job.get("first"):
+        scenarios.insert(0, read_when_written(job["first"]))
+        result[scenarios[0]["id"]] = run_steps_one(scenarios[0], rank, world)
     result["float64"] = {sc["id"]: run_steps_one(sc, rank, world, torch.float64)
-                         for sc in job["scenarios"]}
+                         for sc in scenarios}
 
     # a D+G step, a save, a restore on every rank, one more D+G step
-    sc = job["scenarios"][0]
+    sc = scenarios[0]
     dg = run_dg(sc, rank, world)
     state = dg.pop("state")
     result["dg"] = dg

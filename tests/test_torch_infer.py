@@ -87,17 +87,19 @@ def test_generator_refuses_keys_it_does_not_honour(key, value):
 
 @pytest.mark.parametrize("mesh_shape", ["data:4", "data:4,model:2"])
 def test_generator_and_infer_take_any_mesh(mesh_shape):
-    """Serving and the walks accept any well-formed MESH_SHAPE and run on
-    their one device, as the JAX package's `make_eval_mesh` falls back to
-    the local devices; the models build under any mesh, and training holds
-    the mesh to the process group (`mesh.check_training_mesh`), a model
-    axis included."""
+    """Serving and the walks accept any well-formed MESH_SHAPE and split
+    their calls over its `data` axis on the local devices; on the CPU, one
+    device, a larger mesh falls back to it with the JAX package's warning
+    (`make_eval_mesh`; the split itself: `tests/test_torch_eval_mesh.py`);
+    the models build under any mesh, and training holds the mesh to the
+    process group (`mesh.check_training_mesh`), a model axis included."""
     from cpcsv_tpu_torch.models.factory import build_models
     from cpcsv_tpu_torch.parallel.mesh import check_training_mesh
 
     cfg = config_from_file("final.yml").with_updates(GAN=TINY, MESH_SHAPE=mesh_shape)
-    infer = Infer(cfg, device="cpu")
-    assert infer.net_g is not None
+    with pytest.warns(UserWarning, match="falls back"):
+        infer = Infer(cfg, device="cpu")
+    assert infer.net_g is not None and infer.mesh == (torch.device("cpu"),)
     assert build_models(cfg)[0] is not None
     with pytest.raises(ValueError, match="but the run has 1 process"):
         check_training_mesh(cfg.MESH_SHAPE)

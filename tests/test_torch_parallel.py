@@ -87,17 +87,22 @@ TOL = dict(rtol=1e-3, atol=1e-4)
 # other test processes; the ranks are waited on together and a rank that
 # fails ends the launch at once (`worker.wait_ranks`)
 TIMEOUT = 120
+# the widths of the scenarios and CLI runs that are not compared with the
+# JAX package (the sampler and scan tests' widths); final.yml's scenario
+# takes test_torch_train_step.py's, the JAX run's
+NARROW = dict(CONDITION_DIM=124, Z_DIM=100, DF_DIM=8, GF_DIM=4, GF_SEG_DIM=16)
 
 
-def _cfg(name, keys):
-    return config_from_file(name).with_updates(GAN=GanConfig(**tts.TINY), **keys)
+def _cfg(name, keys, widths=None):
+    return config_from_file(name).with_updates(GAN=GanConfig(**(widths or NARROW)), **keys)
 
 
 def _scenario(sid, jax_run):
     """The job of one scenario: the config, the initial state dicts, the
     global batches and the global noise of the D and the G step."""
     name, keys = SCENARIOS[sid]
-    cfg = _cfg(name, keys)
+    widths = tts.TINY if sid == "final" else NARROW  # final: the JAX run's
+    cfg = _cfg(name, keys, widths)
     if sid == "final":  # the JAX package's state, batches and noise draws
         state0, outs, (st, im) = jax_run
         state = copy.deepcopy(tts.port_init("final.yml"))
@@ -113,7 +118,7 @@ def _scenario(sid, jax_run):
         gen = torch.Generator().manual_seed(11)
         noise = [(state.gen.draw_noise(B, cfg.VIDEO_LEN, gen), state.gen.draw_noise(B, 1, gen))
                  for _ in range(2)]
-    return {"id": sid, "cfg": (name, tts.TINY, keys), "mesh": MESHES.get(sid),
+    return {"id": sid, "cfg": (name, widths, keys), "mesh": MESHES.get(sid),
             "state": {n: {k: v.clone() for k, v in net.state_dict().items()}
                       for n, net in state.nets().items()},
             "st": {k: np.asarray(v) for k, v in st.items()},
@@ -156,8 +161,10 @@ def _tiny_yaml(path: Path, name: str, mesh: str = f"data:{WORLD}", **train) -> s
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The three launches, the four ranks' after the others', and the
-    one-process references computed meanwhile: {"steps": [rank0, rank1],
+    """The three launches and the one-process references computed
+    meanwhile: the steps ranks start on the scenarios of the port's own
+    states while this process runs the JAX package's step, then read its
+    scenario; the four ranks start with it. {"steps": [rank0, rank1],
     "one": one process, "cli": [rank0, rank1], "cli_one": the CLIs in one
     process, "four": [rank0, ..., rank3] on FOUR, "jax":
     test_torch_train_step's final.yml run}."""
@@ -194,29 +201,33 @@ def runs(tmp_path_factory):
         "CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
         "CPCSV_NUM_PROCESSES": str(WORLD), "CPCSV_PROCESS_ID": str(rank)})
 
-    jax_run = tts._run("final.yml")
     bn_rng = np.random.default_rng(5)
+    first = root / "final_scenario.pt"  # the JAX run's, read by the ranks when written
     job = {"root": str(root / "steps"), "run_dir": str(root / "steps" / "run"),
-           "scenarios": [_scenario(sid, jax_run) for sid in SCENARIOS],
-           "test_stories": 6, "test_batch": WORLD,
+           "scenarios": [_scenario(sid, None) for sid in SCENARIOS if sid != "final"],
+           "first": str(first), "test_stories": 6, "test_batch": WORLD,
            "bn": {"x": bn_rng.standard_normal((3, 5, 2, 2)).astype(np.float32) * 2 + 0.5,
                   "w": bn_rng.standard_normal((3, 5, 2, 2)).astype(np.float32),
                   "split": [3, 0]}}
     steps = _launch("steps", job, root)
 
-    one_job = {**job, "root": str(root / "one"), "run_dir": str(root / "one" / "run")}
+    jax_run = tts._run("final.yml")
+    final = _scenario("final", jax_run)
+    torch.save(final, root / "final_scenario.tmp")
+    os.replace(root / "final_scenario.tmp", first)
+    four = _launch("mesh", {"root": str(root / "four"), "scenarios": [final], "mesh": FOUR},
+                   root, world=2 * WORLD)
+    one_job = {**job, "root": str(root / "one"), "run_dir": str(root / "one" / "run"),
+               "scenarios": [final, *job["scenarios"]], "first": None}
     one = worker.run_steps(one_job, 0, 1, None)
     cli_one = worker.run_cli({"root": str(cli_root), "runs": {
         f"{name}_model": ("clevr" if name == "clevr" else "pororo", str(cli_root / f"{name}_one"),
                           ["--cfg", files[1], *base, "--max_epoch", "1"])
         for name, files in model_yamls.items()}}, 0, 1, None)
-    cli = cli()
-    # the four ranks start once this process and the cli ranks are done, so
-    # that no more processes than cores compete while the steps ranks run
-    four = _launch("mesh", {"root": str(root / "four"), "scenarios": job["scenarios"][:1],
-                            "mesh": FOUR}, root, world=2 * WORLD)
-    return {"steps": steps(), "one": one, "cli": cli, "cli_one": cli_one, "four": four(),
-            "jax": jax_run, "root": root}
+    out = {"steps": steps(), "one": one, "cli": cli(), "cli_one": cli_one, "four": four(),
+           "jax": jax_run, "root": root}
+    first.unlink()
+    return out
 
 
 def _rel_l2(a: dict, ref: dict) -> float:

@@ -5,7 +5,8 @@ routes through it; on the CPU it runs eagerly, bit for bit a direct
 bounded; the parameters and buffers a graph reads stay in place across a
 snapshot load and a D+G step; the trainer's kept generators draw what fresh
 ones did. On a card (`cuda`-marked, skipped here): graphed calls against
-eager ones bit for bit, and a failed capture raises.
+eager ones bit for bit, calls split over the cards (or one card listed
+twice) against one-device calls, and a failed capture raises.
 
 No JAX here, so that the `cuda` tests run where JAX is absent:
 
@@ -111,11 +112,11 @@ def run(tmp_path_factory):
 @pytest.fixture
 def spy(monkeypatch):
     """Every call of `sampling.sample` as (net, B, seg, generator, image),
-    passed on to the real one."""
+    passed on to the real one with its eval mesh."""
     calls, real = [], sampling.sample
 
-    def spying(net_g, motion, content, seg=False, generator=None):
-        out = real(net_g, motion, content, seg=seg, generator=generator)
+    def spying(net_g, motion, content, seg=False, generator=None, mesh=None):
+        out = real(net_g, motion, content, seg=seg, generator=generator, mesh=mesh)
         calls.append((net_g, motion.shape[0], seg, generator, out[0].clone()))
         return out
 
@@ -399,6 +400,63 @@ def _graphed_calls_equal_eager_calls(name, tmp_path):
     assert len(cache.graphs.graphs) <= sampling.MAX_GRAPHS
     # 4 keys, captured again after the flip only (the snapshot replays)
     assert sampling.totals["eager"] - eager == sampling.totals["captured"] - captured == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ("final.yml", "procedural.yml"))
+def test_cuda_sharded_calls_equal_one_device(name):
+    """On the cards (every local one, or cuda:0 listed twice on a host of
+    one), float32 and bfloat16, under cudnn.deterministic: a call split over
+    the eval mesh (`parallel/mesh.py`) gives, in each block, the bits of an
+    eager one-device call on its rows and its slice of the batch's noise,
+    and in all within 1e-4 (bfloat16 0.03125) of the unsplit call, with the
+    generator advanced alike; a ragged batch runs whole; each call after a
+    key's first replays on every device; one DFN launch a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cpcsv_tpu_torch.device import float32_math
+    from cpcsv_tpu_torch.parallel.mesh import make_eval_mesh
+
+    count = torch.cuda.device_count()
+    devices = [torch.device("cuda", i) for i in range(count)] if count > 1 else ["cuda:0"] * 2
+    mesh = make_eval_mesh(devices=devices)
+    shards = len(mesh)
+    cfg = config_from_file(name).with_updates(GAN=TINY)
+    net = seeded_net(cfg, "cuda:0")
+    gen = torch.Generator(device="cuda:0").manual_seed(3)
+    bound = 1e-4 if net.dtype is None else 0.03125
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for call, stories in enumerate((2 * shards, 2 * shards, 2 * shards + 1)):
+            motion, content = motion_content(cfg, stories, seed=stories, device="cuda:0")
+            rng = gen.get_state()
+            whole, _ = _eager(net, motion, content, False, gen)
+            gen.set_state(rng)
+            noise = net.draw_noise(stories, cfg.VIDEO_LEN, gen)
+            gen.set_state(rng)
+            dfn, replays = _count_dfn(), sampling.totals["replayed"]
+            image, _ = sampling.sample(net, motion, content, generator=gen, mesh=mesh)
+            split = stories % shards == 0
+            assert _count_dfn() - dfn == (shards if split else 1)
+            assert image.device == motion.device and image.shape == whole.shape
+            after = gen.get_state()
+            gen.set_state(rng)
+            _eager(net, motion, content, False, gen)
+            assert torch.equal(gen.get_state(), after)
+            assert float((image.float() - whole.float()).abs().max()) <= bound
+            if not split:
+                continue
+            rows = stories // shards
+            for k in range(shards):
+                block = slice(k * rows, (k + 1) * rows)
+                with torch.no_grad(), float32_math():
+                    ref = net.sample_videos(motion[block], content[block],
+                                            noise=tuple(n[block] for n in noise)).image
+                assert torch.equal(image[block], ref), (name, stories, k)
+            assert sampling.totals["replayed"] - replays == (shards if call == 1 else 0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 @pytest.mark.cuda

@@ -33,6 +33,7 @@ from torch_cpu import one_torch_thread  # noqa: F401  (an autouse fixture)
 # the trainer tests' widths: these tests check the chunking, not the maths
 TINY = GanConfig(CONDITION_DIM=124, Z_DIM=100, DF_DIM=8, GF_DIM=4, GF_SEG_DIM=16)
 K = 2  # pairs of the chunk compared with the JAX package's
+DRAW = "noise_draw/"  # the JAX scan's metric keys that carry a raw step's noise draws
 LR_D, LR_G = 4e-4, 1e-4
 
 
@@ -47,41 +48,59 @@ def jax_scan():
     the identity (an SGD step, as that file recovers gradients), and the
     noise each pair drew: JAX's own draws, tapped while the scan runs its
     raw D and G steps at its keys (`split(rng, K)`, then `split(key)` into
-    the D's and the G's), each generator draw handed out by an ordered
-    `jax.debug.callback`: (state before, state after, stacked metrics,
-    draws, batches)."""
+    the D's and the G's), each raw step's draws returned among its metrics
+    (under DRAW, taken out before the comparison), which the scan stacks
+    over the pairs; a pure program, so the compilation cache holds it (a
+    host callback would compile it anew every run): (state before, state
+    after, stacked metrics, draws, batches)."""
     import jax
     import jax.numpy as jnp
     import optax
 
     import test_torch_train_step as tts
     from cpcsv_tpu.models import build_models as jax_build_models
-    from cpcsv_tpu.train.steps import make_scan_steps as jax_make_scan_steps
+    from cpcsv_tpu.train import steps as jax_steps
 
     jcfg, tcfg = tts.configs("final.yml")
     models = jax_build_models(jcfg)
     state0 = tts.jax_state_from_port(tts.port_init("final.yml"), optax.identity())
-    with mock.patch("cpcsv_tpu.train.steps.make_adam", lambda cfg=None: optax.identity()):
-        scan = jax_make_scan_steps(jcfg, models, donate=False)
+    real_steps, real = jax_steps.make_train_steps, jax.random.normal
+
+    def drawing(step, first):
+        def run(*args):
+            draws = []
+
+            def tap(key, shape=(), dtype=jnp.float32):
+                x = real(key, shape, dtype)
+                if sys._getframe(1).f_code.co_filename.endswith("models/generator.py"):
+                    draws.append(x)
+                return x
+
+            with mock.patch.object(jax.random, "normal", tap):
+                state, metrics = step(*args)
+            return state, {**metrics, **{f"{DRAW}{first + i}": d for i, d in enumerate(draws)}}
+        return run
+
+    def raw_steps(*args, **kwargs):
+        d_step, g_step = real_steps(*args, **kwargs)
+        return drawing(d_step, 0), drawing(g_step, 6)
+
+    with mock.patch.object(jax_steps, "make_adam", lambda cfg=None: optax.identity()), \
+            mock.patch.object(jax_steps, "make_train_steps", raw_steps):
+        scan = jax_steps.make_scan_steps(jcfg, models, donate=False)
     pairs = [synthetic_batches(tcfg, tts.B_ST, tts.B_IM, seed=10 + k) for k in range(K)]
     st, im = _stack([p[0] for p in pairs]), _stack([p[1] for p in pairs])
-    draws, real = [], jax.random.normal
-
-    def tap(key, shape=(), dtype=jnp.float32):
-        x = real(key, shape, dtype)
-        if sys._getframe(1).f_code.co_filename.endswith("models/generator.py"):
-            jax.debug.callback(lambda v: draws.append(np.array(v)), x, ordered=True)
-        return x
-
-    with jax.default_matmul_precision("highest"), mock.patch.object(jax.random, "normal", tap):
+    with jax.default_matmul_precision("highest"):
         after, metrics = scan(state0, jax.random.PRNGKey(3), st, im, LR_D, LR_G)
-        jax.effects_barrier()
-    # 6 draws a step (story, then image: CA eps, motion-GRU h0, per-step
-    # noise), a D and a G step a pair
-    assert len(draws) == K * 2 * 6
-    draws = [[draws[12 * k + 6 * j:12 * k + 6 * j + 6] for j in range(2)] for k in range(K)]
     to_np = lambda s: jax.tree.map(np.array, s)  # noqa: E731
-    return to_np(state0), to_np(after), to_np(metrics), draws, (st, im)
+    metrics = to_np(metrics)
+    # 6 draws a step (story, then image: CA eps, motion-GRU h0, per-step
+    # noise), a D and a G step a pair: the D's under DRAW0-5, the G's 6-11
+    stacked = {k: metrics.pop(k) for k in [k for k in metrics if k.startswith(DRAW)]}
+    assert set(stacked) == {f"{DRAW}{i}" for i in range(12)}
+    draws = [[[stacked[f"{DRAW}{6 * j + i}"][k] for i in range(6)] for j in range(2)]
+             for k in range(K)]
+    return to_np(state0), to_np(after), metrics, draws, (st, im)
 
 
 def _sgd_step(self, closure=None):
@@ -185,14 +204,14 @@ def _train(tmp_path, cfg, stories, tag):
 
 @pytest.mark.parametrize("name", ["cascade.yml", "final.yml"])
 def test_trainer_chunks_equal_single_pairs(tmp_path, monkeypatch, name, capsys):
-    """GANTrainer on the CPU over a 7-step epoch (14 stories at ST_BATCH 2),
-    SCAN_STEPS 3 (chunks of 3, 3 and 1, eager on the CPU) against SCAN_STEPS
+    """GANTrainer on the CPU over a 5-step epoch (10 stories at ST_BATCH 2),
+    SCAN_STEPS 2 (chunks of 2, 2 and 1, eager on the CPU) against SCAN_STEPS
     1, bit for bit: every metrics.jsonl row and every tensor of the state
     (`state_checksums`: parameters, BN statistics, SN vectors, Adam moments
     and steps). The chunks' host shuffles (USE_SEQ_CONSISTENCY) are held
     against the JAX package's in test_torch_objectives.py."""
     monkeypatch.setitem(sys.modules, "tensorboardX", None)  # metrics.jsonl only
-    ref, ref_rows = _train(tmp_path, _tiny(name, SCAN_STEPS=1), 14, "pairs")
+    ref, ref_rows = _train(tmp_path, _tiny(name, SCAN_STEPS=1), 10, "pairs")
     chunks = []
     real = make_scan_steps
 
@@ -205,11 +224,11 @@ def test_trainer_chunks_equal_single_pairs(tmp_path, monkeypatch, name, capsys):
         return run
 
     with mock.patch("cpcsv_tpu_torch.train.trainer.make_scan_steps", counting):
-        state, rows = _train(tmp_path, _tiny(name, SCAN_STEPS=3), 14, "chunks")
-    assert chunks == [3, 3, 1]
-    assert "SCAN_STEPS 3: each chunk's pairs run eagerly" in capsys.readouterr().out
-    assert rows == ref_rows and any(tag == "st_D/loss" and step == 6 for tag, step, _ in rows)
-    assert state.step == ref.step == 7
+        state, rows = _train(tmp_path, _tiny(name, SCAN_STEPS=2), 10, "chunks")
+    assert chunks == [2, 2, 1]
+    assert "SCAN_STEPS 2: each chunk's pairs run eagerly" in capsys.readouterr().out
+    assert rows == ref_rows and any(tag == "st_D/loss" and step == 4 for tag, step, _ in rows)
+    assert state.step == ref.step == 5
     assert torch.equal(state_checksums(state), state_checksums(ref))
 
 

@@ -140,9 +140,11 @@ def port_init(name):
     return create_train_state(configs(name)[1], seed=0, device="cpu")
 
 
+@functools.lru_cache(maxsize=None)
 def _run(name):
     """JAX state before, after its D step and after its G step (both from the
-    state before), with their metrics and noise, and the batches."""
+    state before), with their metrics and noise, and the batches; traced
+    once a process, for every module that compares with it (read only)."""
     jcfg, tcfg = configs(name)
     models = jax_build_models(jcfg)
     state0 = jax_state_from_port(port_init(name), optax.identity())
@@ -165,15 +167,9 @@ def _run(name):
 
 @pytest.fixture(scope="module")
 def runs():
-    """name -> `_run(name)`, each config's JAX steps traced once a module."""
-    cache = {}
-
-    def get(name):
-        if name not in cache:
-            cache[name] = _run(name)
-        return cache[name]
-
-    return get
+    """name -> `_run(name)`, each config's JAX steps traced once a process
+    (`tests/test_torch_parallel.py` compares with final.yml's too)."""
+    return _run
 
 
 @pytest.fixture
