@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (cpcsv_tpu_torch) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (cpcsv_tpu_torch) on the NVIDIA GPUs of one host (one is enough).
 
     python3 chip_smoke.py [--seed N]
 
@@ -75,7 +75,9 @@ Phases, each of which exits non-zero on failure:
      calls (as in 13, 14 and 28); TF32 off inside the extractors;
      each backbone on the card against the CPU; seconds a checkpoint by part
      (generation and PNG writing, PNG reading, Inception, R(2+1)D, the host
-     statistics and Frechet);
+     statistics and Frechet); the walk's Frechet distances again by the
+     eigenvalues of C1 C2 (`frechet_by_eigenvalues`, as phases 14 and 34
+     take theirs), within 1e-6 of the covariances' traces;
  13. --eval_fvd 1 twice and --eval_is 1 through the CLI on that run: FVD
      first with no I3D weights (the R(2+1)D fallback), then with a seeded
      random I3D state_dict written as i3d_kinetics400.pth where
@@ -84,8 +86,9 @@ Phases, each of which exits non-zero on failure:
      tags, the warnings, the DFN launches, TF32 off; I3D and the IS
      classifier on the card against the CPU; seconds a checkpoint by part;
  14. rehearsal.yml (cascade.yml's widths, the in-training FID/FSD every
-     epoch) --synthetic 36 --max_epoch 2 through the CLI in a temporary
-     working directory: finite Evaluation/fid and Evaluation/vfid each
+     epoch, its Frechet distances by the eigenvalues of C1 C2, which phase 12
+     holds against the product's sqrtm) --synthetic 36 --max_epoch 2 through
+     the CLI in a temporary working directory: finite Evaluation/fid and Evaluation/vfid each
      epoch, the extractors built once, the real side's .cache/ statistics
      written in epoch 0 and read in epoch 1, a snapshot every epoch, the
      launches, epoch 1's grid and hook replaying epoch 0's sampler graphs;
@@ -181,7 +184,8 @@ Phases, each of which exits non-zero on failure:
      throughput.yml, one step of each and the Adam state's bytes; the CLEVR
      CLI --data_dir on a CLEVR-layout tree written into a temporary
      directory (CLEVR_DISK stories, the loaders' fixed id ranges cut to
-     them), one epoch, then --eval_fid 1 on its snapshot;
+     them), one epoch, then --eval_fid 1 on its snapshot (its Frechet
+     distances by eigenvalues, as phase 14's);
  35. SCAN_STEPS, the JAX trainer's default path, which the shipped configs
      take (20; the CLI phases above run their epochs in chunks, replayed as
      CUDA graphs, the gloo ranks' eagerly): (a) final.yml, cascade.yml and
@@ -200,7 +204,29 @@ Phases, each of which exits non-zero on failure:
      unsplit call (bfloat16: relative L2 within three times its spread
      under another lowering), the generator left alike, DFN launches
      equal to blocks x calls, one DFN kernel node a replica's graph; ms a
-     call split and unsplit, and with several cards at 1, 2 and 4 of them.
+     call split and unsplit, and with several cards at 1, 2 and 4 of them;
+ 37. training across the cards of the host, one NCCL rank a card (after
+     35, the ranks spawned before it; on a host of several cards the phases
+     before it but 36 run on card 0 alone, MESH_SHAPE "" read as "data:1"
+     and the ranks of 29-33 shown card 0 alone, and the CLI runs among them
+     start no ranks): on a host of one card, "" trains in one process and
+     data:2 raises naming the visible cards; on several, final.yml at 90 /
+     18 a rank on every card: (c) one D+G step against one process at the
+     global batch within the float32 tolerances or three times the
+     reordering yardstick, the ranks bit for bit alike; (b) a chunk of 3
+     pairs replayed as a CUDA graph bit for bit the same pairs run eagerly
+     on each rank (cuDNN deterministic), one NCCL kernel node in the graph
+     a pair's all-reduce; (a) after warm chunks of 20, every state tensor
+     bit for bit alike on every rank; (g) each rank's launches as the code
+     implies; (d) with 4 cards, data:2,model:2 (two-rank NCCL data groups)
+     bit for bit data:2 on 2 cards; (e) `python -m
+     cpcsv_tpu_torch.cli.main_pororo --cfg cascade.yml` with no process
+     group in its environment starts a rank a card, writes one run
+     directory and resumes with --continue_ckpt bit for bit; (f) a rank
+     killed mid-epoch ends the command non-zero within 30 s, no rank left;
+     ms a step of a warm chunk of 20 of final.yml and procedural.yml on 1,
+     2 and every card, frames/s, weak-scaling efficiency, all-reduces a
+     step, NCCL's share of rank 0's busy time, `nvidia-smi topo -m`.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -220,9 +246,11 @@ import itertools
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import warnings
@@ -322,11 +350,44 @@ SPAWN_WAIT = 900  # seconds a rank spawned ahead of its phase waits for its job
 # phases 32-33: the meshes with a model axis, on DP_WORLD and twice as many
 # ranks: the same global batch as phase 29's
 DP_MODEL, DP_FOUR = "data:1,model:2", "data:2,model:2"
+# phase 37: training across the cards of the host, one NCCL rank a card:
+# MULTI_CONFIG at its batches a rank; (b) a chunk of MULTI_PAIRS pairs (one
+# eager, the capture, the rest replayed) against as many eager pairs; the
+# CLI on MULTI_CLI, one story step an epoch at the global batch; a rank
+# killed MULTI_KILL_AFTER seconds into the CLI's first epoch, which must end
+# the command within MULTI_KILL_BOUND seconds
+MULTI_CONFIG, MULTI_PAIRS, MULTI_CLI = "final.yml", 3, "cascade.yml"
+MULTI_KILL_AFTER, MULTI_KILL_BOUND = 2.0, 30.0
+GROUP_VARIABLES = ("CPCSV_COORDINATOR", "CPCSV_NUM_PROCESSES", "CPCSV_PROCESS_ID",
+                   "CPCSV_DISTRIBUTED", "LOCAL_RANK")
 # phase 34: the CLEVR tree's train and test stories (4 story steps and one
 # image batch of clevr.yml an epoch; 2 test batches)
 CLEVR_DISK = (64, 32)
 EDGE_BN_SHAPES = ((1, 64, 4096), (90, 1, 1024), (7, 37, 5), (3, 5, 18), (2, 3, 2),
                   (90, 32768, 1), (18, 16384, 1), (90, 9, 1), (1, 1, 1))
+
+
+# a sitecustomize that holds cuDNN deterministic in every Python process
+# started with its directory first on PYTHONPATH (the ranks a CLI command
+# starts come up fresh, beyond this script's reach), after running the
+# sitecustomize it shadows, if there is one
+DETERMINISTIC_SITE = """import importlib.machinery, importlib.util, os, sys
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+import torch
+torch.backends.cudnn.deterministic = True
+"""
+
+
+def deterministic_site(directory: Path) -> str:
+    """Writes DETERMINISTIC_SITE into `directory`; returns the directory,
+    for the front of PYTHONPATH."""
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "sitecustomize.py").write_text(DETERMINISTIC_SITE)
+    return str(directory)
 
 
 T0 = time.perf_counter()
@@ -873,6 +934,29 @@ def per_step_launches(state, infonce: bool = False) -> dict[str, int]:
                            - video),
         **DFN_STEP_LAUNCHES,
     }
+
+
+@contextlib.contextmanager
+def pinned_to_one_card():
+    """While open, on a host of several cards, a config read through
+    `config_from_file` that names no MESH_SHAPE gets "data:1": the JAX
+    package's `make_mesh("data:1")`, devices[:1]. The CLIs' training runs in
+    this process then start no ranks and `Infer`'s eval mesh is cuda:0, so
+    that the phases before 37 read on such a host what they read on a host
+    of one card (36 runs unpinned; the ranks of 29-33 see card 0 alone)."""
+    import torch
+
+    from cpcsv_tpu_torch import config
+
+    real = config.config_from_file
+
+    def pinned(*args, **kwargs):
+        cfg = real(*args, **kwargs)
+        return cfg if cfg.MESH_SHAPE else cfg.with_updates(MESH_SHAPE="data:1")
+
+    with (mock.patch.object(config, "config_from_file", pinned)
+          if torch.cuda.device_count() > 1 else contextlib.nullcontext()):
+        yield
 
 
 @contextlib.contextmanager
@@ -2029,6 +2113,33 @@ def timing(buckets: dict, key: str, fn):
     return timed
 
 
+def frechet_by_eigenvalues(mu1, sigma1, mu2, sigma2) -> float:
+    """The Frechet distance of `evaluation/frechet.py`, |mu1 − mu2|² +
+    Tr(C1 + C2 − 2 sqrt(C1 C2)), with Tr sqrt(C1 C2) taken as the sum of the
+    square roots of C1 C2's eigenvalues (real and ≥ 0 for covariances, up to
+    rounding) where the product takes the trace of scipy's `sqrtm`: the
+    same value, held against the product's in phase 12, for a fraction of
+    the host time (a 2048-d `sqrtm` is 10-22 s on the card's host, most of
+    it the Schur form). Phases 14 and 34 take their Frechet distances so."""
+    import numpy as np
+
+    mu1, mu2 = (np.atleast_1d(np.asarray(m, dtype=np.float64)) for m in (mu1, mu2))
+    s1, s2 = (np.atleast_2d(np.asarray(c, dtype=np.float64)) for c in (sigma1, sigma2))
+    diff = mu1 - mu2
+    root_trace = np.sqrt(np.linalg.eigvals(s1.dot(s2)).astype(complex)).real.sum()
+    return float(diff.dot(diff) + np.trace(s1) + np.trace(s2) - 2 * root_trace)
+
+
+def recorded(calls: list, fn):
+    """`fn`, appending (its arguments, its result) of each call to `calls`."""
+    def record(*args):
+        out = fn(*args)
+        calls.append((args, out))
+        return out
+
+    return record
+
+
 def disk_trainer(card: str, per_step: dict[str, int], phase6: types.SimpleNamespace, seed: int,
                  root: Path) -> tuple[dict[str, int], Path, Path]:
     """Phase 11: a procedural Pororo tree (the port's writer, DISK_EPISODES)
@@ -2304,7 +2415,7 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
     test_stories = (len(np.load(data_dir / "train_test_ids.npy", allow_pickle=True)[1])
                     // cfg.TRAIN.ST_BATCH_SIZE * cfg.TRAIN.ST_BATCH_SIZE)
     host: dict[str, list] = {}
-    extractors, inside = {}, set()
+    extractors, inside, frechets = {}, set(), []
 
     patches = [
         mock.patch.object(drivers.Infer, "generate_story",
@@ -2315,10 +2426,10 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
             host, "PNG reading", datasets.FolderStoryDataset.__getitem__)),
         mock.patch.object(features, "calculate_activation_statistics", timing(
             host, "statistics", features.calculate_activation_statistics)),
-        mock.patch.object(fid, "calculate_frechet_distance", timing(
-            host, "Frechet", fid.calculate_frechet_distance)),
-        mock.patch.object(fsd, "calculate_frechet_distance", timing(
-            host, "Frechet", fsd.calculate_frechet_distance)),
+        mock.patch.object(fid, "calculate_frechet_distance", recorded(frechets, timing(
+            host, "Frechet", fid.calculate_frechet_distance))),
+        mock.patch.object(fsd, "calculate_frechet_distance", recorded(frechets, timing(
+            host, "Frechet", fsd.calculate_frechet_distance))),
     ]
     printed = io.StringIO()
     cwd = os.getcwd()
@@ -2402,6 +2513,19 @@ def walks(card: str, run_dir: Path, data_dir: Path, seed: int) -> dict[str, int]
     print(f"--eval_ssim walk [{card}]: {ssim_s:.2f} s, {ssim_s / n:.2f} s a checkpoint of "
           f"{test_stories} stories; --load_ckpt {epochs[0]}: {dump_s:.2f} s for "
           f"{2 * test_stories * cfg.VIDEO_LEN} PNGs")
+    # the walk's distances again by the eigenvalues of C1 C2, as phases 14
+    # and 34 take theirs: within 1e-6 of the traces they are differences of
+    check(len(frechets) == 2 * n, f"{len(frechets)} Frechet distances in the --eval_fid walk")
+    for (mu1, s1, mu2, s2), got in frechets:
+        t = time.perf_counter()
+        eig = frechet_by_eigenvalues(mu1, s1, mu2, s2)
+        eig_s = time.perf_counter() - t
+        scale = float(np.trace(s1) + np.trace(s2))
+        check(abs(eig - got) <= 1e-6 * scale + 1e-12,
+              f"a {len(mu1)}-d Frechet distance {got!r} by sqrtm, {eig!r} by eigenvalues "
+              f"(traces {scale:.3e})")
+        print(f"  {len(mu1)}-d Frechet distance {got!r} (sqrtm), {eig!r} by the eigenvalues of "
+              f"C1 C2 in {eig_s:.2f} s (|difference| {abs(eig - got):.2e}, traces {scale:.3e})")
 
     # each backbone on the card against the same weights on the CPU, its BN
     # calibrated first (calibrated_copy): a random-init backbone's features
@@ -2619,7 +2743,8 @@ def rehearsal_trainer(card: str, per_step: dict[str, int], seed: int, root: Path
     random-init warning a backbone), the real side's statistics written in
     epoch 0 and read back in epoch 1, a snapshot every epoch, the launches;
     prints the hook's seconds an epoch and its share of the epoch, the host
-    Frechet apart. Returns the launches."""
+    Frechet apart (taken by `frechet_by_eigenvalues`, which phase 12 holds
+    against the product's `sqrtm`). Returns the launches."""
     import numpy as np
     import torch
 
@@ -2672,9 +2797,9 @@ def rehearsal_trainer(card: str, per_step: dict[str, int], seed: int, root: Path
                 mock.patch.object(features, "extract_activations", timing(
                     host, "extraction", features.extract_activations)), \
                 mock.patch.object(fid, "calculate_frechet_distance", timing(
-                    host, "Frechet", fid.calculate_frechet_distance)), \
+                    host, "Frechet", frechet_by_eigenvalues)), \
                 mock.patch.object(fsd, "calculate_frechet_distance", timing(
-                    host, "Frechet", fsd.calculate_frechet_distance)), \
+                    host, "Frechet", frechet_by_eigenvalues)), \
                 contextlib.redirect_stdout(printed), \
                 warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -2735,7 +2860,7 @@ def rehearsal_trainer(card: str, per_step: dict[str, int], seed: int, root: Path
               f"vfid {scores[('Evaluation/vfid', h.epoch)]!r} (random-init extractors); epoch "
               f"{epoch_s[h.epoch]:.2f} s, {fps[h.epoch]:.1f} frames/s; the hook {h.seconds:.2f} s "
               f"({h.seconds / epoch_s[h.epoch]:.3f} of the epoch), of which the host Frechet "
-              f"{h.frechet:.2f} s and the rest {h.seconds - h.frechet:.2f} s")
+              f"{h.frechet:.2f} s (by eigenvalues) and the rest {h.seconds - h.frechet:.2f} s")
     print(f"rehearsal run [{card}]: {run_s:.2f} s in all, state init and 3 checkpoint saves "
           "included")
     return counts
@@ -3651,13 +3776,15 @@ def clevr_disk(card: str, per_step: dict[str, int], seed: int, root: Path) -> di
     loaders' fixed id ranges (train 1-10000, test 10001-13000) cut to the
     tree's, for one epoch (its final save alone): the launches against the
     steps and the sample grid, finite metrics under the v1 tags, the
-    snapshot; then --eval_fid 1 on that snapshot, random-init extractors.
-    Returns the launches."""
+    snapshot; then --eval_fid 1 on that snapshot, random-init extractors,
+    its Frechet distances by eigenvalues (`frechet_by_eigenvalues`). Returns
+    the launches."""
     import numpy as np
 
     from cpcsv_tpu_torch.cli import main_clevr
     from cpcsv_tpu_torch.config import config_from_file
     from cpcsv_tpu_torch.data import clevr as clevr_data
+    from cpcsv_tpu_torch.evaluation import fid, fsd
 
     train, test = CLEVR_DISK
     tree = write_clevr_tree(root / "clevr_tree", train, test, seed)
@@ -3678,7 +3805,9 @@ def clevr_disk(card: str, per_step: dict[str, int], seed: int, root: Path) -> di
             seconds["epoch"] = time.perf_counter() - t
             counts = read_counts()
             reset_counts()  # the main path: the walk
-            with warnings.catch_warnings():
+            with warnings.catch_warnings(), \
+                    mock.patch.object(fid, "calculate_frechet_distance", frechet_by_eigenvalues), \
+                    mock.patch.object(fsd, "calculate_frechet_distance", frechet_by_eigenvalues):
                 warnings.simplefilter("ignore")
                 t = time.perf_counter()
                 fid_rows = main_clevr.main(args + ["--eval_fid", "1"])
@@ -3723,17 +3852,22 @@ def clevr_disk(card: str, per_step: dict[str, int], seed: int, root: Path) -> di
 
 
 # ------------------------------------------------------ 29-31: data parallel
-def spawn_dp(tag: str, root: Path, world: int, env=None, mode: str = None):
+def spawn_dp(tag: str, root: Path, world: int, env=None, mode: str = None,
+             one_card: bool = True):
     """Start `world` ranks of this script (`--dp-worker mode`, `tag` unless
-    named), each in its own process on the one card, which makes its CUDA
-    context and then waits for its job, handed over in a file named by
-    `tag`: ranks spawned a phase ahead start up beside it. Returns
+    named), each in its own process, which makes its CUDA context and then
+    waits for its job, handed over in a file named by `tag`: ranks spawned a
+    phase ahead start up beside it. With `one_card` the ranks share card 0,
+    the only one they see (phases 29-33 read on a host of several cards what
+    they read on one); else `env` places them (phase 37: LOCAL_RANK). Returns
     `start(job)`, which writes the job and returns a function that waits
     for the ranks (DP_TIMEOUT) and returns each rank's result. A rank that
     fails fails the phase, its output's tail printed."""
     import atexit
 
     import torch
+
+    shared = {"CUDA_VISIBLE_DEVICES": "0"} if one_card and torch.cuda.device_count() > 1 else {}
 
     job_path = root / f"{tag}_job.pt"
     procs, outs = [], []
@@ -3745,7 +3879,8 @@ def spawn_dp(tag: str, root: Path, world: int, env=None, mode: str = None):
                f"file://{root / f'{tag}_rendezvous'}", "--dp-job", str(job_path),
                "--dp-out", str(out)]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True, env={**os.environ, **(env(rank) if env else {})}))
+                                      text=True, env={**os.environ, **shared,
+                                                       **(env(rank) if env else {})}))
         outs.append(out)
 
     def start(job: dict):
@@ -3807,6 +3942,8 @@ def dp_worker(args) -> int:
     from cpcsv_tpu_torch.train.state import create_train_state, state_checksums
     from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
 
+    if "LOCAL_RANK" in os.environ:  # a rank a card (phase 37)
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
     torch.zeros(1, device="cuda")  # the CUDA context, before the job arrives
     waited = time.perf_counter()
     while not os.path.exists(args.dp_job):  # `spawn_dp`'s start
@@ -3818,7 +3955,7 @@ def dp_worker(args) -> int:
     torch.backends.cudnn.deterministic = True
     cfg = config_from_file(job["config"]).with_updates(
         MESH_SHAPE=job.get("mesh", ""), **({"TRAIN": job["train"]} if "train" in job else {}))
-    if args.dp_worker in ("steps", "nccl"):  # the steps form their mesh's data groups
+    if args.dp_worker in ("steps", "nccl", "multi"):  # the steps form their mesh's data groups
         distributed.initialize_distributed(args.dp_init, world, rank, backend=job["backend"])
     collectives = collections.Counter()
     real_all_reduce = dist.all_reduce
@@ -3880,6 +4017,8 @@ def dp_worker(args) -> int:
             restore_twin(state, saved)
             out["model"] = step_on(state, cfg.with_updates(MESH_SHAPE=job["model"]),
                                    lambda n: slice(0, n))
+    elif args.dp_worker == "multi":
+        out.update(multi_rank(job, rank, world, step_on, collectives, counted))
     elif args.dp_worker == "nccl":
         state = create_train_state(cfg, job["seed"])
         st_host, im_host = synthetic_batches(cfg, cfg.TRAIN.ST_BATCH_SIZE,
@@ -4416,16 +4555,18 @@ def graph_node_types(graph) -> collections.Counter:
     return collections.Counter(t for _, t in graph_nodes(graph))
 
 
-def raw_device_spans(prof) -> list[tuple[int, int]]:
+def raw_device_spans(prof, name_part: str = "") -> list[tuple[int, int]]:
     """(start, end) in ns of the card's events in a finished torch.profiler
-    trace, read from the raw Kineto events: building the profiler's event
-    tree costs tens of seconds of host time for a chunk's ~10^5 kernels.
-    User annotations' device copies are left out, as `device_events` does."""
+    trace whose names hold `name_part`, read from the raw Kineto events:
+    building the profiler's event tree costs tens of seconds of host time
+    for a chunk's ~10^5 kernels. User annotations' device copies are left
+    out, as `device_events` does."""
     from torch.autograd import DeviceType
 
     return [(e.start_ns(), e.start_ns() + e.duration_ns())
             for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+            and name_part in e.name()]
 
 
 def span_union(spans) -> float:
@@ -4461,7 +4602,7 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
     idle share from one torch.profiler trace (the card's activity only) of
     a warm chunk and of SCAN_TIMED_PAIRS single pairs, the captured
     graph's nodes by type, and the memory the capture took. Returns the
-    launches."""
+    launches and each config's chunk ms a step."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4471,7 +4612,7 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
     from cpcsv_tpu_torch.train.state import create_train_state
     from cpcsv_tpu_torch.train.steps import batch_to_device, make_scan_steps, make_train_steps
 
-    counts = collections.Counter()
+    counts, chunk_ms_of = collections.Counter(), {}
     K = SCAN_TIMED_K
     for name in SCAN_TIMED_CONFIGS:
         cfg = config_from_file(name)
@@ -4512,7 +4653,7 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
             chunk()
             traced_s = time.perf_counter() - t
         busy = busy_ms(prof) / K
-        chunk_ms = median(windows)
+        chunk_ms = chunk_ms_of[name] = median(windows)
 
         d_step, g_step = make_train_steps(cfg)
 
@@ -4557,14 +4698,522 @@ def scan_timing(card: str, seed: int, pair_ms: dict[str, float]) -> dict[str, in
               f"(the state, {K} staged batches, the eager pair and the graph's pool)")
         del state, scan, graph, st_k, im_k, pairs
         torch.cuda.empty_cache()
+    return dict(counts), chunk_ms_of
+
+
+def same_snapshot(a: Path, b: Path) -> list:
+    """The keys at which two torch.save'd checkpoints differ: tensors bit for
+    bit, anything else by ==."""
+    import torch
+
+    def flat(obj, key=()):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from flat(v, key + (k,))
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                yield from flat(v, key + (i,))
+        else:
+            yield key, obj
+
+    x, y = (dict(flat(torch.load(p, map_location="cpu", weights_only=False))) for p in (a, b))
+    return sorted((k for k in x.keys() | y.keys() if k not in x or k not in y or not (
+        torch.equal(x[k], y[k]) if isinstance(x[k], torch.Tensor) else x[k] == y[k])), key=str)
+
+
+def multi_rank(job: dict, rank: int, world: int, step_on, collectives, counted) -> dict:
+    """One NCCL rank of phase 37, on its own card (LOCAL_RANK), cuDNN
+    deterministic: (c) one D+G step of the job's config on its data shard of
+    the job's global batch and noise (`step_on`); with the job's "chunk",
+    (b) a chunk of MULTI_PAIRS pairs through `make_scan_steps` on its shard
+    of fresh global batches (the first pair eager, then the capture and
+    replays), the graph's kernel nodes by name and the all-reduces the pair
+    issued, then the same pairs eagerly from the state before the chunk;
+    then, cuDNN at its defaults as in phase 35 (c), for each of the job's
+    "timed" configs a fresh state, a first chunk of 2 pairs (the capture),
+    SCAN_TIMED_CHUNKS warm chunks of SCAN_TIMED_K pairs timed, the memory
+    the capture took and the state's checksums after; with the job's
+    "trace" one more chunk of the job's config, traced on rank 0: the
+    card's busy time and NCCL's kernels' share. The launches of each part."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.train.state import create_train_state, state_checksums
+    from cpcsv_tpu_torch.train.steps import batch_to_device, make_scan_steps, make_train_steps
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"card": dev.index}
+    cfg = config_from_file(job["config"])
+    state = create_train_state(cfg, job["seed"])
+    out["expected"] = per_step_launches(state)
+
+    def shard(n):
+        local = n // world
+        return slice(rank * local, (rank + 1) * local)
+
+    def local_chunk(c, k: int, seed: int):
+        """k pairs of this rank's shard of fresh global batches of config c,
+        stacked on its card (4 batches at most, repeated)."""
+        hosts = [synthetic_batches(c, c.TRAIN.ST_BATCH_SIZE * world, c.TRAIN.IM_BATCH_SIZE * world,
+                                   seed + i) for i in range(min(k, 4))]
+        order = [hosts[i % len(hosts)] for i in range(k)]
+        return tuple(batch_to_device({f: np.stack([b[j][f][shard(len(b[j][f]))] for b in order])
+                                      for f in order[0][j]}, dev) for j in (0, 1))
+
+    # the step on the side stream of (b)'s chunk: the gradient accumulators
+    # it leaves (spectral norm's cached weights hold them) must live on the
+    # stream the chunk captures on (`train/graphs.py`)
+    scan = make_scan_steps(cfg) if job.get("chunk") else None
+    with scan.graphs.stream(dev) if scan else contextlib.nullcontext():
+        out["step"] = step_on(state, cfg, shard)
+    if rank == 0:
+        nets = state.nets()
+        out["grads"] = {(n, k): p.grad.cpu() for n, net in nets.items()
+                        for k, p in net.named_parameters()}
+        out["stats"] = {(n, k): b.to("cpu", copy=True) for n, net in nets.items()
+                        for k, b in net.named_buffers() if k.endswith(("running_mean",
+                                                                        "running_var"))}
+    if job.get("chunk"):
+        saved = save_twin(state)
+        st_k, im_k = local_chunk(cfg, MULTI_PAIRS, job["seed"] + 10)
+        rng = torch.Generator(device=dev)
+        rng.manual_seed(job["seed"] + 3)
+        reset_counts()
+        collectives.clear()
+        with mock.patch.object(dist, "all_reduce", counted):
+            _, metrics = scan(state, rng, st_k, im_k, LR_D, LR_G)
+        rows = torch.stack(list(metrics.values()), 1).tolist()
+        (graph,) = scan.graphs.graphs.values()
+        names = kernel_node_names(graph.graph)
+        out["chunk"] = {"rows": rows, "sums": state_checksums(state).cpu().numpy(),
+                        "counts": read_counts(), "kernel_nodes": len(names),
+                        "nccl_nodes": sum("nccl" in n.lower() for n in names),
+                        # the eager pair's and the capture's calls
+                        "all_reduces": collectives["all_reduce"]}
+        restore_twin(state, saved)
+        rng.manual_seed(job["seed"] + 3)
+        d_step, g_step = make_train_steps(cfg)
+        rows = []
+        reset_counts()
+        with scan.graphs.stream(dev):  # where the chunk made the gradient accumulators
+            for k in range(MULTI_PAIRS):
+                st, im = ({f: v[k] for f, v in b.items()} for b in (st_k, im_k))
+                _, dm = d_step(state, rng, st, im, LR_D)
+                _, gm = g_step(state, rng, st, im, LR_G)
+                rows.append(torch.stack([v.float().reshape(()) for v in {**dm, **gm}.values()])
+                            .tolist())
+        out["eager"] = {"rows": rows, "sums": state_checksums(state).cpu().numpy(),
+                        "counts": read_counts()}
+        del scan, graph, saved, st_k, im_k
+    del state
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False  # timed as phase 35 (c) runs
+    out["timed"] = {}
+    for name in job.get("timed", ()):
+        tcfg = config_from_file(name)
+        state = create_train_state(tcfg, job["seed"])
+        st_k, im_k = local_chunk(tcfg, SCAN_TIMED_K, job["seed"])
+        scan = make_scan_steps(tcfg)
+        rng = torch.Generator(device=dev).manual_seed(job["seed"])
+
+        def chunk(st, im):
+            _, metrics = scan(state, rng, st, im, LR_D, LR_G)
+            return torch.stack(list(metrics.values()), 1).tolist()  # the one readback
+
+        reset_counts()
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        t = time.perf_counter()
+        rows = chunk(*({f: v[:2] for f, v in b.items()} for b in (st_k, im_k)))
+        first_s = time.perf_counter() - t
+        pool = torch.cuda.memory_reserved() - reserved
+        windows = []
+        for _ in range(SCAN_TIMED_CHUNKS):
+            t = time.perf_counter()
+            rows += chunk(st_k, im_k)
+            windows.append((time.perf_counter() - t) * 1e3 / SCAN_TIMED_K)
+        pairs, traced = 2 + SCAN_TIMED_CHUNKS * SCAN_TIMED_K, None
+        if job.get("trace") and name == job["config"]:  # every rank runs it, rank 0 traces
+            with (profile(activities=[ProfilerActivity.CUDA]) if rank == 0
+                  else contextlib.nullcontext()) as prof:
+                chunk(st_k, im_k)
+            pairs += SCAN_TIMED_K
+            if rank == 0:
+                traced = {"busy_ms": span_union(raw_device_spans(prof)) / 1e6 / SCAN_TIMED_K,
+                          "nccl_ms": span_union(raw_device_spans(prof, "nccl")) / 1e6
+                          / SCAN_TIMED_K}
+        out["timed"][name] = {
+            "first_s": first_s, "windows": windows, "pool": pool, "pairs": pairs,
+            "finite": bool(np.isfinite(rows).all()), "counts": read_counts(),
+            "expected": per_step_launches(state), "traced": traced,
+            "sums": state_checksums(state).cpu().numpy()}
+        del state, scan, st_k, im_k
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_command(argv: list, cwd: Path, env: dict, timeout: float) -> tuple[int, str, float]:
+    """A command in a session of its own: (its exit code, its output, its
+    seconds); at `timeout` the whole session is killed, ranks and all."""
+    t = time.perf_counter()
+    p = subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        text, _ = p.communicate()
+        text += f"\n(killed at its {timeout} s time limit)"
+    return p.returncode, text, time.perf_counter() - t
+
+
+def rank_pids(parent: int) -> list[int]:
+    """The processes `parallel.launch.run_ranks` spawned under `parent`
+    (their command lines run multiprocessing's spawn_main), by pid."""
+    pids = []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+            cmdline = Path(f"/proc/{d}/cmdline").read_bytes()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == parent and b"spawn_main" in cmdline:
+            pids.append(int(d))
+    return sorted(pids)
+
+
+def alive(pid: int) -> bool:
+    """Whether a process runs (a zombie does not)."""
+    try:
+        os.kill(pid, 0)
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] != "Z"
+    except (ProcessLookupError, FileNotFoundError):
+        return False
+
+
+def multi_cli(card: str, seed: int, root: Path, world: int) -> dict:
+    """Phase 37 (e)-(f): `python -m cpcsv_tpu_torch.cli.main_pororo --cfg
+    MULTI_CLI --synthetic N`, no process group in its environment, N the
+    global story batch (one step an epoch), cuDNN deterministic in every
+    process (`deterministic_site`): (e) 2 epochs, and in another directory
+    1 epoch plus --continue_ckpt auto, each a command that starts `world`
+    ranks (the trainer says so, with the global batches); one run directory,
+    one metrics row a step, the resumed checkpoint bit for bit the
+    uninterrupted one; (f) a longer run whose last rank is killed
+    MULTI_KILL_AFTER seconds after the ranks began training: the command
+    exits non-zero within MULTI_KILL_BOUND seconds and leaves no rank
+    alive. Returns the seconds of each command."""
+    from cpcsv_tpu_torch.config import config_from_file
+
+    cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / MULTI_CLI)
+    cfg = config_from_file(cfg_file)
+    env = {k: v for k, v in os.environ.items() if k not in GROUP_VARIABLES}
+    env["PYTHONPATH"] = os.pathsep.join([deterministic_site(root / "site"), str(REPO)])
+    stories = cfg.TRAIN.ST_BATCH_SIZE * world
+    base = [sys.executable, "-m", "cpcsv_tpu_torch.cli.main_pororo", "--cfg", cfg_file,
+            "--synthetic", str(stories), "--manualSeed", str(seed)]
+    said = (f"DATA PARALLEL: {world} ranks, MESH_SHAPE data:{world}, global batches IM "
+            f"{cfg.TRAIN.IM_BATCH_SIZE * world} / ST {stories}")
+    seconds, outputs = {}, {}
+    for label, where, extra in (("straight", "a", ["--max_epoch", "2"]),
+                                ("first", "b", ["--max_epoch", "1"]),
+                                ("resumed", "b", ["--max_epoch", "2", "--continue_ckpt", "auto"])):
+        (root / where).mkdir(exist_ok=True)
+        code, outputs[label], seconds[label] = run_command(base + extra, root / where, env, 600)
+        if code != 0:
+            print(outputs[label][-6000:])
+        check(code == 0, f"phase 37 (e): the {label} command exited {code}")
+        check(said in outputs[label], f"phase 37 (e): the {label} command's output lacks '{said}'")
+    check("Auto-resume from epoch 1" in outputs["resumed"],
+          "phase 37 (e): the resumed command did not print 'Auto-resume from epoch 1'")
+    runs = root / "a" / "output" / "torch"
+    check(os.listdir(runs) == [cfg.CONFIG_NAME],
+          f"phase 37 (e): run directories {os.listdir(runs)}")
+    rows = [json.loads(line) for line in (runs / cfg.CONFIG_NAME / "log" / "metrics.jsonl").open()]
+    check(sum(r["tag"] == "st_D/loss" for r in rows) == 2,
+          "phase 37 (e): not one st_D/loss row a step of the 2 (rank 0 alone logs)")
+    state = Path("output", "torch", cfg.CONFIG_NAME, "Model", "train_state_last.pth")
+    differ = same_snapshot(root / "a" / state, root / "b" / state)
+    check(not differ, f"phase 37 (e): the resumed run's {state.name} differs from the straight "
+                      f"run's at {differ[:4]} ({len(differ)} keys)")
+    print(f"phase 37 (e) [{card}]: `python -m cpcsv_tpu_torch.cli.main_pororo --cfg {MULTI_CLI} "
+          f"--synthetic {stories}` with no process group in its environment: '{said}'; one run "
+          f"directory, one metrics row a step; 1 epoch + --continue_ckpt auto equal 2 straight "
+          f"ones bit for bit (train_state_last.pth: every net, Adam state and the step); "
+          f"seconds a command "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+
+    (root / "k").mkdir()
+    p = subprocess.Popen(base + ["--max_epoch", "100"], cwd=root / "k", env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    lines, ranks, code, seconds_kill = [], [], None, None
+    try:
+        for line in p.stdout:
+            lines.append(line)
+            if line.startswith("LR DECAY EPOCH"):  # rank 0's state is built, its epoch starts
+                break
+        drain = threading.Thread(target=lambda: lines.extend(p.stdout), daemon=True)
+        drain.start()
+        time.sleep(MULTI_KILL_AFTER)
+        ranks = rank_pids(p.pid)
+        check(len(ranks) == world, f"phase 37 (f): {len(ranks)} ranks under the command")
+        os.kill(ranks[-1], signal.SIGKILL)
+        t = time.perf_counter()
+        code = p.wait(timeout=MULTI_KILL_BOUND + 60)
+        seconds_kill = time.perf_counter() - t
+        drain.join(10)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    text = "".join(lines)
+    left = [pid for pid in ranks if alive(pid)]
+    check(code not in (None, 0) and seconds_kill <= MULTI_KILL_BOUND and not left,
+          f"phase 37 (f): killed a rank; the command exited {code} after {seconds_kill} s "
+          f"(bound {MULTI_KILL_BOUND} s), ranks left {left}; its output's end:\n{text[-3000:]}")
+    check(f"exited {128 + signal.SIGKILL}" in text,
+          f"phase 37 (f): the command did not name the killed rank: {text[-2000:]}")
+    print(f"phase 37 (f) [{card}]: rank {world - 1}'s process killed {MULTI_KILL_AFTER} s after "
+          f"the ranks began training: the command exited {code} after {seconds_kill:.2f} s "
+          f"(bound {MULTI_KILL_BOUND} s), none of its {world} ranks alive")
+    return seconds
+
+
+def multi_card_phase(card: str, seed: int, root: Path, world: int, ranks: dict,
+                     one_card: dict) -> dict:
+    """Phase 37 on a host of `world` >= 2 cards, the ranks spawned ahead
+    (`ranks`: "all" on every card, "two" on cards 0-1 where there are more,
+    "four" under DP_FOUR where there are 4 or more). (c) the reference: one
+    process on the `world` ranks' global batch (`twin_step` with the
+    reordering yardstick), on the last card while the two ranks run on
+    cards 0-1 (else first); the two ranks' step (the reference of (d)) and
+    their timed chunks; then every card's ranks: (c) their step against the
+    reference within the float32 tolerances or three times the yardstick,
+    the ranks' steps bit for bit alike; (b) each rank's chunk bit for bit
+    its eager pairs, one NCCL kernel node in the graph for each all-reduce
+    of a pair; (a) after the timed chunks every state tensor (parameters,
+    BN statistics, SN vectors, Adam moments) bit for bit alike on every
+    rank; (g) each rank's launches as the code implies; then (d) the four
+    ranks under DP_FOUR against the two ranks' step, bit for bit; (e)-(f)
+    the CLI (`multi_cli`). Prints ms a step of a warm chunk on 1 (phase 35
+    (c)'s, `one_card`), 2 and `world` cards, frames/s, the weak-scaling
+    efficiency, all-reduces a step, NCCL's share of rank 0's busy time, the
+    capture's memory a rank. Returns the launches summed over the ranks."""
+    import dataclasses
+
+    import torch
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.synthetic import synthetic_batches
+    from cpcsv_tpu_torch.train.state import create_train_state
+    from cpcsv_tpu_torch.train.steps import batch_to_device, make_train_steps
+
+    for query in (["topo", "-m"], ["nvlink", "-s"]):
+        done = subprocess.run(["nvidia-smi", *query], capture_output=True, text=True)
+        text = (done.stdout + done.stderr).rstrip()[:3000]
+        print(f"nvidia-smi {' '.join(query)} [{card}]:\n{text}")
+    peers = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(world)]
+             for i in range(world)]
+    print(f"peer access between the {world} cards (torch.cuda.can_device_access_peer): {peers}")
+    cfg = config_from_file(MULTI_CONFIG)
+    timed = list(SCAN_TIMED_CONFIGS)
+    ref_card = world - 1 if "two" in ranks else 0
+    jobs, noise = {}, {}
+    t = time.perf_counter()
+    with torch.cuda.device(ref_card):
+        state = create_train_state(cfg, seed)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        for w in sorted({world, 2}):
+            b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE * w, cfg.TRAIN.IM_BATCH_SIZE * w
+            st_host, im_host = synthetic_batches(cfg, b_st, b_im, seed)
+            noise[w] = [(state.gen.draw_noise(b_st, cfg.VIDEO_LEN, gen),
+                         state.gen.draw_noise(b_im, 1, gen)) for _ in range(2)]
+            jobs[w] = {"config": MULTI_CONFIG, "seed": seed, "backend": "nccl", "st": st_host,
+                       "im": im_host, "noise": [tuple(tuple(x.cpu() for x in draws)
+                                                      for draws in pair) for pair in noise[w]]}
+    wait_two = ranks["two"]({**jobs[2], "timed": timed}) if "two" in ranks else None
+    with torch.cuda.device(ref_card):
+        b_st, b_im = cfg.TRAIN.ST_BATCH_SIZE * world, cfg.TRAIN.IM_BATCH_SIZE * world
+        d_step, g_step = make_train_steps(cfg)
+        run = types.SimpleNamespace(
+            name=f"{MULTI_CONFIG} at {b_im} / {b_st} in one process", cfg=cfg, state=state,
+            st_batch=batch_to_device(jobs[world]["st"], torch.device("cuda")),
+            im_batch=batch_to_device(jobs[world]["im"], torch.device("cuda")),
+            d_step=d_step, g_step=g_step)
+        ref = twin_step(run, seed, noise=noise[world], yard=True)
+        del run, state, noise
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t
+    two = wait_two() if wait_two else None
+    t = time.perf_counter()
+    every = ranks["all"]({**jobs[world], "chunk": True, "timed": timed, "trace": True})()
+    every_s = time.perf_counter() - t
+    r0 = every[0]
+    counts = collections.Counter()
+    for rank, r in enumerate(every):
+        check(r["card"] == rank, f"phase 37: rank {rank} ran on card {r['card']}")
+        # (g) the launches as the code implies: the step, the chunk's and the
+        # eager pairs, the timed chunks
+        exp = r["expected"]
+        got = {k: r["step"]["counts"][k] for k in exp}
+        check(got == exp, f"phase 37 (g) rank {rank}: the step launched {got}, a step {exp}")
+        for part in ("chunk", "eager"):
+            want = {k: v * MULTI_PAIRS for k, v in exp.items()}
+            check(r[part]["counts"] == want, f"phase 37 (g) rank {rank}: the {part} pairs "
+                                             f"launched {r[part]['counts']}, expected {want}")
+        for name, tr in r["timed"].items():
+            want = {k: v * tr["pairs"] for k, v in tr["expected"].items()}
+            check(tr["counts"] == want and tr["finite"],
+                  f"phase 37 (g) rank {rank} {name}: {tr['pairs']} pairs launched "
+                  f"{tr['counts']}, expected {want}, or a non-finite metric")
+            counts.update(tr["counts"])
+        counts.update(r["step"]["counts"])
+        counts.update(r["chunk"]["counts"])
+        counts.update(r["eager"]["counts"])
+        # (b) the replayed chunk against the same pairs run eagerly
+        check(r["chunk"]["rows"] == r["eager"]["rows"]
+              and (r["chunk"]["sums"] == r["eager"]["sums"]).all(),
+              f"phase 37 (b) rank {rank}: the replayed chunk differs from its pairs run eagerly")
+        per_pair = r["chunk"]["all_reduces"] // 2
+        check(r["chunk"]["nccl_nodes"] == per_pair == r0["step"]["collectives"]["all_reduce"],
+              f"phase 37 (b) rank {rank}: {r['chunk']['nccl_nodes']} NCCL kernel nodes in the "
+              f"graph for {per_pair} all-reduces a pair")
+    # (c) the ranks alike, and within the yardstick of one process
+    for rank, r in enumerate(every[1:], 1):
+        check(r["step"]["metrics"] == r0["step"]["metrics"]
+              and (r["step"]["sums"] == r0["step"]["sums"]).all()
+              and (r["step"]["grad_bits"] == r0["step"]["grad_bits"]).all(),
+              f"phase 37 (c): rank {rank}'s step differs from rank 0's")
+    with torch.cuda.device(ref_card):
+        ours = (r0["step"]["metrics"], {k: g.cuda() for k, g in r0["grads"].items()},
+                {k: b.cuda() for k, b in r0["stats"].items()})
+        errs, (worst, _, m_key) = step_spread(ours, ref["kernels"])
+        del ours, ref["kernels"]
+        torch.cuda.empty_cache()
+    tols = ref["tolerances"]
+    check(all(e <= tol for e, tol in zip(errs, tols)),
+          f"phase 37 (c): {world} NCCL ranks vs one process {errs} above {tols}")
+    # (a) every rank's state after the warm chunks
+    for name in timed:
+        check(all((r["timed"][name]["sums"] == r0["timed"][name]["sums"]).all() for r in every),
+              f"phase 37 (a): after the warm chunks of {name} the ranks' states differ")
+    step = r0["step"]["collectives"]
+    print(f"phase 37 (c) [{card}]: {world} NCCL ranks, one a card, at {cfg.TRAIN.IM_BATCH_SIZE} / "
+          f"{cfg.TRAIN.ST_BATCH_SIZE} a rank against one process at {b_im} / {b_st}, one D+G "
+          "step from one state, batch and noise (cuDNN deterministic): largest metric error "
+          "{:.3e} (tol {:.3e}, {}), accuracy {:.3e} (tol {:.3e}), gradient {:.3e} (tol {:.3e}), "
+          "zero gradient {:.3e} (tol {:.3e}), BN statistics {:.3e} (tol {:.3e}); worst gradients "
+          "{}; the ranks' steps bit for bit alike; {} all-reduces a step ({:.3f} GiB); the "
+          "reference {:.1f} s, the ranks' launch {:.1f} s".format(
+              errs[0], tols[0], m_key, errs[1], tols[1], errs[2], tols[2], errs[3], tols[3],
+              errs[4], tols[4], worst, step["all_reduce"], step["bytes"] / 2**30, ref_s, every_s))
+    print(f"phase 37 (b) [{card}]: on each of {world} ranks a chunk of {MULTI_PAIRS} pairs (an "
+          f"eager pair, the capture, {MULTI_PAIRS - 1} replays) bit for bit the same pairs run "
+          f"eagerly ({len(r0['chunk']['rows'][0])} metrics a pair, "
+          f"{len(r0['chunk']['sums'])} state tensors); the graph's kernel nodes "
+          f"{r0['chunk']['kernel_nodes']}, of which NCCL {r0['chunk']['nccl_nodes']}: one a "
+          "pair's all-reduce, on every rank")
+    print(f"phase 37 (a) [{card}]: after a first chunk of 2 pairs and {SCAN_TIMED_CHUNKS} warm "
+          f"chunk(s) of {SCAN_TIMED_K} (cuDNN at its defaults), every state tensor "
+          f"({len(r0['timed'][MULTI_CONFIG]['sums'])}: parameters, BN statistics, SN vectors, "
+          f"Adam moments and steps) bit for bit alike on the {world} ranks, for "
+          + " and ".join(timed))
+    print(f"phase 37 (g) [{card}]: launches a rank as the code implies: a step {r0['expected']}; "
+          f"the ranks' launches summed {dict(counts)}")
+    if two is not None:
+        for r in two:
+            for name, tr in r["timed"].items():
+                want = {k: v * tr["pairs"] for k, v in tr["expected"].items()}
+                check(tr["counts"] == want and tr["finite"],
+                      f"phase 37 (g), 2 ranks, {name}: launches {tr['counts']}, expected {want}")
+                counts.update(tr["counts"])
+            counts.update(r["step"]["counts"])
+    if "four" in ranks:
+        half = dataclasses.replace(cfg.TRAIN, IM_BATCH_SIZE=cfg.TRAIN.IM_BATCH_SIZE // 2,
+                                   ST_BATCH_SIZE=cfg.TRAIN.ST_BATCH_SIZE // 2)
+        four = ranks["four"]({**jobs[2], "mesh": DP_FOUR, "train": half})()
+        for rank, r in enumerate(four):
+            ref2 = two[rank // 2]["step"] if two else every[rank // 2]["step"]
+            check(r["metrics"] == ref2["metrics"] and (r["sums"] == ref2["sums"]).all()
+                  and (r["grad_bits"] == ref2["grad_bits"]).all(),
+                  f"phase 37 (d): rank {rank} under {DP_FOUR} differs from rank {rank // 2} of "
+                  f"the 2 ranks under data:2")
+            check(r["data_group"] == [rank % 2, rank % 2 + 2],
+                  f"phase 37 (d): rank {rank}'s data group {r['data_group']}")
+            got = {k: r["counts"][k] for k in r["expected"]}
+            check(got == r["expected"], f"phase 37 (d) rank {rank}: launches {got}")
+            counts.update(r["counts"])
+        print(f"phase 37 (d) [{card}]: 4 NCCL ranks under MESH_SHAPE {DP_FOUR} (NCCL data groups "
+              f"{[r['data_group'] for r in four]}) at {half.IM_BATCH_SIZE} / "
+              f"{half.ST_BATCH_SIZE} a device, one D+G step bit for bit that of the 2 ranks "
+              f"under data:2 at the same global batch, rank r as rank r // 2")
+    else:
+        print(f"phase 37 (d) [{card}]: {DP_FOUR} needs 4 cards; this host shows {world}")
+    # the timings
+    rows = {w: rs for w, rs in ((2, two or (every if world == 2 else None)), (world, every))
+            if rs is not None}
+    frames = cfg.TRAIN.ST_BATCH_SIZE * cfg.VIDEO_LEN + cfg.TRAIN.IM_BATCH_SIZE
+    print(f"phase 37 timings [{card}]: a warm chunk of {SCAN_TIMED_K} pairs at 90 / 18 a rank, "
+          "ms a step (rank 0's median window; 1 card: phase 35 (c)), frames/s over the cards, "
+          "weak-scaling efficiency (1 card's ms / W cards' ms); a first chunk of 2 pairs (the "
+          "capture) in s and the memory it reserved a rank")
+    for name in timed:
+        parts = [f"1 card {one_card[name]:.2f} ms ({frames / one_card[name] * 1e3:.1f} frames/s)"]
+        for w, rs in sorted(rows.items()):
+            tr = rs[0]["timed"][name]
+            ms = median(tr["windows"])
+            parts.append(f"{w} cards {ms:.2f} ms ({w * frames / ms * 1e3:.1f} frames/s, efficiency "
+                         f"{one_card[name] / ms:.3f}; first chunk {tr['first_s']:.2f} s, "
+                         f"reserved {max(r['timed'][name]['pool'] for r in rs) / 2**30:.2f} GiB "
+                         "a rank at most)")
+        print(f"  {name}: " + "; ".join(parts))
+    traced = r0["timed"][MULTI_CONFIG]["traced"]
+    print(f"  {MULTI_CONFIG} on {world} cards, one traced chunk on rank 0: busy "
+          f"{traced['busy_ms']:.2f} ms a step, NCCL's kernels {traced['nccl_ms']:.2f} ms "
+          f"({traced['nccl_ms'] / traced['busy_ms']:.3f} of the busy time)")
+    multi_cli(card, seed, root, world)
     return dict(counts)
+
+
+def one_card_phase(card: str, root: Path) -> None:
+    """Phase 37 on a host of one card: the CLI's training run of "" stays in
+    this process (`launch.local_world` gives 1), and MESH_SHAPE data:2
+    raises through the CLI, naming the visible cards."""
+    import yaml
+
+    from cpcsv_tpu_torch.cli import dispatch, main_pororo
+    from cpcsv_tpu_torch.parallel import launch
+
+    cfg_file = REPO / "cpcsv_tpu_torch" / "configs" / MULTI_CLI
+    args = main_pororo.parse_args(["--cfg", str(cfg_file), "--synthetic", "36"])
+    world = launch.local_world("", args.device, dispatch.trains(args))
+    check(world == 1, f"phase 37: one card gives {world} ranks")
+    two = root / "data2.yml"
+    two.write_text(yaml.safe_dump({**yaml.safe_load(cfg_file.read_text()), "MESH_SHAPE": "data:2"}))
+    try:
+        main_pororo.main(["--cfg", str(two), "--synthetic", "36"])
+        message = None
+    except ValueError as e:
+        message = str(e)
+    check(message is not None and "needs 2 devices, have 1" in message,
+          f"phase 37: MESH_SHAPE data:2 on one card: {message!r}")
+    print(f"phase 37 [{card}]: MESH_SHAPE \"\" trains in this process (the CLI runs of the phases "
+          f"before started no ranks); data:2 raises: {message}")
+    print("phase 37: training across cards (NCCL ranks, one a card) needs two or more cards; "
+          "this host shows 1")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     # one rank of phases 29-31, started by the script itself (`spawn_dp`)
-    parser.add_argument("--dp-worker", choices=("steps", "nccl", "cli"), help=argparse.SUPPRESS)
+    parser.add_argument("--dp-worker", choices=("steps", "nccl", "cli", "multi"),
+                        help=argparse.SUPPRESS)
     for flag, kind in (("--dp-rank", int), ("--dp-world", int), ("--dp-init", str),
                        ("--dp-job", str), ("--dp-out", str)):
         parser.add_argument(flag, type=kind, help=argparse.SUPPRESS)
@@ -4581,7 +5230,7 @@ def main() -> int:
     if args.dp_worker:
         return dp_worker(args)
 
-    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch import config as config_module  # read at each call: phases pin it
     from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset, story_batches
     from cpcsv_tpu_torch.device import float32_math
     from cpcsv_tpu_torch.evaluation import sampling
@@ -4594,6 +5243,16 @@ def main() -> int:
         dynamic_filter_conv1d_backward_plain,
         dynamic_filter_conv1d_plain,
     )
+
+    # the ranks the CLIs start in this process: none before phase 37 (pinned
+    # to one card on a host of several)
+    from cpcsv_tpu_torch.parallel import launch
+
+    started, run_ranks = [], launch.run_ranks
+    launch.run_ranks = lambda main, argv, world: (started.append(world),
+                                                  run_ranks(main, argv, world))[1]
+    cards = torch.cuda.device_count()
+    pins = contextlib.ExitStack()
 
     # TF32 allowed globally, as cuDNN allows it by default, and for matmuls
     # too: the entry point must hold its float32 itself (phase 4 checks it),
@@ -4739,12 +5398,13 @@ def main() -> int:
 
     # ------------------------------------------- 4. the slice at full width
     phase("4. the slice at full width")
+    pins.enter_context(pinned_to_one_card())
     launches = 0
     expected_launches = 0
     serving_ms, sampler_nodes = {}, {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for name in ("final.yml", "cascade.yml"):
-            cfg = config_from_file(name)
+            cfg = config_module.config_from_file(name)
             batches = {
                 n: next(story_batches(SyntheticStoryDataset(n, seed=args.seed), n))
                 for n in STORY_SIZES
@@ -4850,7 +5510,9 @@ def main() -> int:
 
     # ------------------------- 36. generation split over the eval mesh
     phase("36. generation split over the eval mesh through Infer: final.yml, procedural.yml")
+    pins.close()  # every card of the host
     shard = sharded_serving(card, args.seed)
+    pins.enter_context(pinned_to_one_card())
 
     # ----------------------- 6-7. training at full width, each config in turn
     runs = {}
@@ -5141,6 +5803,20 @@ def main() -> int:
           f"the model axis {model_counts}, NCCL {nccl_counts}, the CLI {dp_cli_counts} (phase "
           f"33's step among them), phase 33's one process {one_cli_counts}")
 
+    # phase 37's ranks, one a card, start up beside phase 35
+    multi_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_multi_", dir=build_dir)
+    multi_root, multi_ranks = Path(multi_tmp.name), {}
+    if cards > 1:
+        on_cards = lambda rank: {"LOCAL_RANK": str(rank)}  # noqa: E731
+        multi_ranks["all"] = spawn_dp("multi_all", multi_root, cards, on_cards, "multi",
+                                      one_card=False)
+        if cards > 2:
+            multi_ranks["two"] = spawn_dp("multi_two", multi_root, 2, on_cards, "multi",
+                                          one_card=False)
+        if cards >= 4:
+            multi_ranks["four"] = spawn_dp("multi_four", multi_root, 4, on_cards, "steps",
+                                           one_card=False)
+
     # ------------------- 35. SCAN_STEPS: chunks of pairs as CUDA graph replays
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_", dir=build_dir) as tmp:
         phase(f"35 (a). SCAN_STEPS {SCAN_PAIRS} against 1 through GANTrainer, 2 epochs of "
@@ -5159,7 +5835,7 @@ def main() -> int:
           f"{nccl_scan['counts']}")
     phase(f"35 (c). SCAN_STEPS {SCAN_TIMED_K} timed: a warm chunk against {SCAN_TIMED_K} pairs "
           f"one at a time, {', '.join(SCAN_TIMED_CONFIGS)}")
-    timing_counts = scan_timing(card, args.seed, {
+    timing_counts, chunk_ms = scan_timing(card, args.seed, {
         n: (runs_bf16 if n in BF16_CONFIGS else runs)[n].step_ms for n in SCAN_TIMED_CONFIGS})
     for name in kernels:
         kernels[name]["launches"] += (scan["counts"][name] + nccl_scan["counts"][name]
@@ -5169,6 +5845,24 @@ def main() -> int:
                                           "timed": timing_counts[name]}
     print(f"launches of phase 35, CUDA graph replays included: the trainer runs {scan['counts']}, "
           f"the NCCL rank's {nccl_scan['counts']}, the timed chunks and pairs {timing_counts}")
+
+    # ------------------------------ 37. training across the cards of the host
+    pins.close()
+    phase(f"37. training across the cards of the host: {cards} card(s)")
+    t = time.perf_counter()
+    check(started == [], f"the CLI runs of phases 10-34 started ranks: {started}")
+    print(f"phase 37 [{card}]: the CLI runs of the phases before, in this process on one card, "
+          "started no ranks")
+    if cards > 1:
+        multi_counts = multi_card_phase(card, args.seed, multi_root, cards, multi_ranks, chunk_ms)
+    else:
+        one_card_phase(card, multi_root)
+        multi_counts = {}
+    multi_tmp.cleanup()
+    print(f"phase 37 [{card}]: {time.perf_counter() - t:.1f} s")
+    for name in kernels:
+        kernels[name]["launches"] += multi_counts.get(name, 0)
+        kernels[name]["multi_card_launches"] = multi_counts.get(name, 0)
 
     # phases 5 and 15 again, side by side: a call replayed against eager
     print(f"serving [{card}], a call graphed / eager: ms (median of 5), device busy ms and idle "

@@ -65,12 +65,35 @@ def _walk(args):
     return next((method for flag, method in WALKS if getattr(args, flag)), None)
 
 
+def trains(args) -> bool:
+    """Whether the CLI trains: no evaluation walk and no --load_ckpt dump."""
+    return _walk(args) is None and args.load_ckpt is None
+
+
+def start_ranks(main, argv, args, cfg) -> bool:
+    """The CLIs' first step: on a host of several cards a training run with
+    --device cuda and no process group in its environment runs as one rank
+    a card of cfg.MESH_SHAPE's training world (`parallel/launch.py`), the
+    JAX CLI's every local device; returns True once those ranks have all
+    exited 0 (a failed one exits this process with its code), False where
+    this process runs alone or is a rank."""
+    import sys
+
+    from cpcsv_tpu_torch.parallel import launch
+
+    world = launch.local_world(cfg.MESH_SHAPE, args.device, trains(args))
+    if world <= 1:
+        return False
+    launch.run_ranks(main, sys.argv[1:] if argv is None else argv, world)
+    return True
+
+
 def loader_shard(args):
     """The data shard the CLI's loaders read (`data.loader.training_loaders`):
     None, the training mesh's, for a training run; (rank, world) for the
     walks and --load_ckpt's dump, which read the test set whole on rank 0
     and take any well-formed mesh."""
-    if _walk(args) is None and args.load_ckpt is None:
+    if trains(args):
         return None
     from cpcsv_tpu_torch.parallel.distributed import process_info
 

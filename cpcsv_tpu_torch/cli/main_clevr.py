@@ -17,7 +17,8 @@ picks, manualSeed, + 1 and + 2 for the image, story and test loaders. Runs
 go under ./output/torch/{CONFIG_NAME} (./output/torch/debug with --debug),
 and the evaluation flags walk that directory's snapshots, over the eval
 mesh of the run's MESH_SHAPE as the Pororo CLI's do. Several processes
-train data-parallel as the Pororo CLI's do (`cli/main_pororo.py`).
+train data-parallel as the Pororo CLI's do (`cli/main_pororo.py`), one a
+card of the host started by this command itself.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from cpcsv_tpu_torch.cli.dispatch import (
     add_eval_flags,
     dispatch,
     loader_shard,
+    start_ranks,
 )
 from cpcsv_tpu_torch.cli.main_pororo import synthetic_loaders
 
@@ -76,8 +78,10 @@ def main(argv=None):
     from cpcsv_tpu_torch.parallel.distributed import maybe_initialize_from_env
 
     args = parse_args(argv)
-    maybe_initialize_from_env(args.backend, args.device)  # as the Pororo CLI
     cfg = config_from_file(args.cfg_file)
+    if start_ranks(main, argv, args, cfg):  # as the Pororo CLI
+        return None
+    maybe_initialize_from_env(args.backend, args.device)
     if args.data_dir:
         cfg = cfg.with_updates(DATA_DIR=args.data_dir)
     if args.max_epoch is not None:

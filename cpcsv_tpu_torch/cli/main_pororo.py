@@ -16,10 +16,15 @@ instead, built as the JAX package builds them. Runs go under
 the JAX package's ./output/..., so that the two never share a
 last_epoch.txt; the evaluation flags walk the snapshots of that directory.
 
-Data-parallel training runs one process a rank, each with the same command
-and CPCSV_COORDINATOR=host:port, CPCSV_NUM_PROCESSES=W and
-CPCSV_PROCESS_ID=r (or under torchrun with CPCSV_DISTRIBUTED=1); the config's
-MESH_SHAPE ("", every rank on `data`, or named axes such as
+Data-parallel training runs one process a rank. On one host this command
+starts them itself, one a card, as the JAX CLI trains over every local
+device (`parallel/launch.py`): with --device cuda, training and no process
+group in the environment, MESH_SHAPE "" takes every visible card and a
+named mesh the product of its sizes (cards 0 .. W − 1; more than the host
+has raises); "data:1" keeps one card. Across hosts each rank is the same
+command with CPCSV_COORDINATOR=host:port, CPCSV_NUM_PROCESSES=W and
+CPCSV_PROCESS_ID=r (or runs under torchrun with CPCSV_DISTRIBUTED=1); the
+config's MESH_SHAPE ("", every rank on `data`, or named axes such as
 "data:4,model:2") must have a `data` axis and span the W ranks, the product
 of its axis sizes. The batches in the config are each rank's, the global
 batch W times them; a rank reads its shard on the `data` axis and the ranks
@@ -51,6 +56,7 @@ from cpcsv_tpu_torch.cli.dispatch import (
     add_eval_flags,
     dispatch,
     loader_shard,
+    start_ranks,
 )
 
 
@@ -97,10 +103,13 @@ def main(argv=None):
     from cpcsv_tpu_torch.parallel.distributed import maybe_initialize_from_env
 
     args = parse_args(argv)
-    # a multi-process run joins its process group before anything else
-    # (nothing happens unless CPCSV_COORDINATOR or CPCSV_DISTRIBUTED is set)
-    maybe_initialize_from_env(args.backend, args.device)
     cfg = config_from_file(args.cfg_file)
+    # on several cards, a training run is one rank a card of the mesh
+    if start_ranks(main, argv, args, cfg):
+        return None
+    # a rank joins its process group before anything else (nothing happens
+    # unless CPCSV_COORDINATOR or CPCSV_DISTRIBUTED is set)
+    maybe_initialize_from_env(args.backend, args.device)
     if args.data_dir:
         cfg = cfg.with_updates(DATA_DIR=args.data_dir)
     if args.max_epoch is not None:

@@ -22,6 +22,13 @@ gloo), each partition once. A mesh whose one data group is the whole world
 ("", "data:W") keeps the default group and forms none. Before any mesh is
 named the data group is the whole world.
 
+Under NCCL every communicator forms before the first step, not at its
+first collective: the default group's at `initialize_distributed` (bound to
+the rank's card), a data group's where `form_data_groups` forms it (one
+all-reduce of one element). A chunk's D+G pair is captured as a CUDA graph
+with its all-reduces in it (`train/steps.py:make_scan_steps`), and a
+communicator cannot form inside a capture.
+
 Nothing here falls back to one process: a failed `init_process_group`, a
 half-set environment or a world size that does not match the run raises.
 """
@@ -84,6 +91,8 @@ def initialize_distributed(
     if cuda:  # LOCAL_RANK where the launcher sets it, else the rank modulo the cards
         local = os.environ.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None else rank % torch.cuda.device_count())
+        if backend == "nccl":  # the communicator forms now, on this card
+            kwargs["device_id"] = torch.device("cuda", torch.cuda.current_device())
     dist.init_process_group(backend, init_method=init, **kwargs)
     _host_group = dist.new_group(backend="gloo", timeout=barrier_timeout())
 
@@ -101,7 +110,10 @@ def form_data_groups(groups) -> None:
         _data = None
         return
     if groups not in _data_groups:
-        _data_groups[groups] = dist.new_subgroups_by_enumeration([list(g) for g in groups])[0]
+        group = dist.new_subgroups_by_enumeration([list(g) for g in groups])[0]
+        if dist.get_backend() == "nccl":  # its communicator forms here, outside any capture
+            dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
+        _data_groups[groups] = group
     rank = dist.get_rank()
     mine = next(g for g in groups if rank in g)
     _data = (_data_groups[groups], mine.index(rank), len(mine))
@@ -121,6 +133,12 @@ def data_info() -> tuple[int, int]:
     if _data is None or not is_distributed():
         return process_info()
     return _data[1], _data[2]
+
+
+def env_names_group() -> bool:
+    """Whether the environment asks for a process group: CPCSV_COORDINATOR
+    set, or CPCSV_DISTRIBUTED=1 (`maybe_initialize_from_env`'s triggers)."""
+    return bool(os.environ.get("CPCSV_COORDINATOR")) or os.environ.get("CPCSV_DISTRIBUTED") == "1"
 
 
 def maybe_initialize_from_env(backend: Optional[str] = None, device: str = "cuda") -> bool:

@@ -31,6 +31,11 @@ coordinates (`distributed.form_data_groups`), so that the ranks of a group
 compute the JAX program over the global batch and the groups repeat one
 another bit for bit.
 
+On one host the CLIs start the ranks themselves, one a visible card
+(`parallel/launch.py`): `training_world` gives their number by the JAX
+package's rules, so that one command trains over every card, as one JAX
+process trains over all its local devices.
+
 Eval-mode generation (serving, the walks, the in-training hook) runs in one
 process over an eval mesh of that process's devices (`make_eval_mesh`), as
 the JAX package's `make_eval_mesh` / `eval_shardings` / `shard_eval_inputs`
@@ -79,6 +84,23 @@ def parse_mesh_shape(mesh_shape: str) -> list[tuple[str, int]]:
     return axes
 
 
+def training_world(mesh_shape: str, cards: int) -> int:
+    """The ranks a training run of MESH_SHAPE takes on a host of `cards`
+    visible cards, one a card, as the JAX package's `make_mesh` takes the
+    devices of its process (`cpcsv_tpu/parallel/mesh.py:27-39`): "" is every
+    card, a named mesh the product of its sizes on cards 0 .. W − 1
+    (`devices[:n]`). A mesh larger than the host raises, as `make_mesh`'s
+    assert does."""
+    axes = parse_mesh_shape(mesh_shape)
+    if not axes:
+        return cards
+    n = math.prod(size for _, size in axes)
+    if n > cards:
+        raise ValueError(f"MESH_SHAPE {mesh_shape!r} needs {n} devices, have {cards} "
+                         "visible cards")
+    return n
+
+
 def mesh_size(mesh_shape: str = "") -> int:
     """The ranks a mesh spans, the reference's `num_gpu` factor of the global
     batch (main_pororo.py:64): the world size for "", else the product of
@@ -113,9 +135,9 @@ def mesh_layout(mesh_shape: str, rank: int, world: int) -> MeshLayout:
     if math.prod(sizes) != world:
         raise ValueError(
             f"MESH_SHAPE {mesh_shape!r} spans {math.prod(sizes)} ranks but the run has "
-            f"{world} process{'es' if world > 1 else ''}: launch one process a rank "
-            "(CPCSV_COORDINATOR / CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, or torchrun with "
-            "CPCSV_DISTRIBUTED=1)")
+            f"{world} process{'es' if world > 1 else ''}: launch one process a rank (the "
+            "CLIs start one a card of this host themselves; across hosts CPCSV_COORDINATOR / "
+            "CPCSV_NUM_PROCESSES / CPCSV_PROCESS_ID, or torchrun with CPCSV_DISTRIBUTED=1)")
     k = names.index(DATA_AXIS)
     coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
     others = [range(s) for i, s in enumerate(sizes) if i != k]

@@ -335,10 +335,11 @@ def _passes(cfg: Config):
 
 def captures_chunks(device: torch.device) -> bool:
     """Whether `make_scan_steps` replays a CUDA graph of the D+G pair on
-    `device`: on a CUDA device alone or under NCCL, whose collectives a
-    graph captures; not on the CPU, and not under gloo, which stages its
-    collectives through the host. Decided by the device and the backend,
-    never by trying a capture."""
+    `device`: on a CUDA device alone or under NCCL, on one card or across
+    several, whose all-reduces the graph captures as nodes of its own (the
+    communicators formed before: `parallel/distributed.py`); not on the
+    CPU, and not under gloo, which stages its collectives through the host.
+    Decided by the device and the backend, never by trying a capture."""
     if device.type != "cuda":
         return False
     return not is_distributed() or dist.get_backend() == "nccl"

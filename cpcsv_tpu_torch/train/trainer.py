@@ -69,7 +69,9 @@ alone writes the run directory: `setting.yml` and the sources, the logger,
 the sample grids, the checkpoints (`train/checkpoint.py`; every rank
 restores), the profile trace. The in-training FID/FSD runs on rank 0 over
 the whole test set, as the JAX hook scores it, writing the real side's
-`.cache` file, and the other ranks receive its scores.
+`.cache` file, and the other ranks receive its scores. A rank runs on its
+own card, named by index (the batch prefetch thread copies there), and
+says how many ranks train and at which global batches.
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ import torch
 from torch.profiler import record_function
 
 from cpcsv_tpu_torch.config import Config
-from cpcsv_tpu_torch.data.loader import DataLoader, WrapAroundIterator
+from cpcsv_tpu_torch.data.loader import DataLoader, WrapAroundIterator, global_batches
 from cpcsv_tpu_torch.data.prefetch import BatchCopier, device_prefetch, stack_batches
 from cpcsv_tpu_torch.device import resolve_device
 from cpcsv_tpu_torch.evaluation import sampling
@@ -152,6 +154,10 @@ class GANTrainer:
         check_training_mesh(cfg.MESH_SHAPE)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # this rank's card by its index: the batch prefetch thread's
+            # current card is cuda:0, whatever this thread's is
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.rank = process_info()[0]
         self.output_dir = output_dir
         self.model_dir = os.path.join(output_dir, "Model")
@@ -231,6 +237,11 @@ class GANTrainer:
         num_step = len(storyloader)
         c_time = time.time()
         print(f"LR DECAY EPOCH: {cfg.TRAIN.LR_DECAY_EPOCH}")
+        world = process_info()[1]
+        if world > 1:
+            im_bs, st_bs = global_batches(cfg)
+            print(f"DATA PARALLEL: {world} ranks, MESH_SHAPE {cfg.MESH_SHAPE or f'data:{world}'}, "
+                  f"global batches IM {im_bs} / ST {st_bs}")
         if self.scan_steps is not None:
             way = ("replayed as a CUDA graph of the D+G pair" if captures_chunks(self.device)
                    else "run eagerly")

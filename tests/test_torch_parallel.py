@@ -25,7 +25,10 @@ port):
     `cli.main_clevr` for one epoch; both CLIs for one epoch under
     data:1,model:2 against one process at the doubled batches, bit for bit;
   * `mesh`: four ranks under data:2,model:2, one D+G step of final.yml, bit
-    for bit the `steps` launch's two ranks on the same global batch.
+    for bit the `steps` launch's two ranks on the same global batch;
+  * one command of two ranks through the CLIs' launcher
+    (`parallel/launch.py`), --device cpu and gloo: the `cli` launch's
+    straight run, bit for bit.
 
 Tolerances: the metrics at rtol 1e-3 / atol 1e-4, as
 `tests/test_multiprocess.py` holds the JAX package; the two ranks bit for
@@ -44,6 +47,7 @@ is held to that file's 1e-2.
 import copy
 import dataclasses
 import os
+import subprocess
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -53,6 +57,7 @@ import pytest
 import torch
 import yaml
 
+import chip_smoke
 import test_torch_train_step as tts
 from cpcsv_tpu.data.loader import DataLoader as JaxDataLoader
 from cpcsv_tpu_torch.config import GanConfig, config_from_file
@@ -197,6 +202,19 @@ def runs(tmp_path_factory):
                              ["--cfg", files[0], *base, "--max_epoch", "1"])
            for name, files in model_yamls.items()},
     }}
+    # the straight run again as one command of two ranks, through the CLIs'
+    # launcher (`parallel.launch.run_ranks`), beside the launches
+    (cli_root / "one_command").mkdir()
+    one_command_log = root / "one_command.log"
+    with open(one_command_log, "w") as log:
+        one_command = subprocess.Popen(
+            [sys.executable, "-c", "import sys; from cpcsv_tpu_torch.cli import main_pororo; "
+             "from cpcsv_tpu_torch.parallel import launch; "
+             "launch.run_ranks(main_pororo.main, sys.argv[1:], 2)",
+             "--cfg", pororo, *base, "--max_epoch", "2", "--backend", "gloo"],
+            cwd=cli_root / "one_command", stdout=log, stderr=subprocess.STDOUT,
+            env={**{k: v for k, v in os.environ.items() if not k.startswith("CPCSV_")},
+                 "OMP_NUM_THREADS": "1", "PYTHONPATH": str(worker.REPO)})
     cli = _launch("cli", cli_job, root, env=lambda rank: {
         "CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
         "CPCSV_NUM_PROCESSES": str(WORLD), "CPCSV_PROCESS_ID": str(rank)})
@@ -226,6 +244,12 @@ def runs(tmp_path_factory):
         for name, files in model_yamls.items()}}, 0, 1, None)
     out = {"steps": steps(), "one": one, "cli": cli(), "cli_one": cli_one, "four": four(),
            "jax": jax_run, "root": root}
+    try:
+        one_command.wait(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        one_command.kill()
+        one_command.wait()
+    out["one_command"] = (one_command.returncode, one_command_log)
     first.unlink()
     return out
 
@@ -427,6 +451,19 @@ def test_cli_trains_with_two_ranks(runs):
     log = runs["root"] / "cli" / "a" / "output" / "torch" / "final_model" / "log" / "metrics.jsonl"
     tags = [line for line in log.read_text().splitlines() if '"st_D/loss"' in line]
     assert len(tags) == 2 * 2, "one metrics.jsonl row a step: rank 0 alone logs"
+
+
+def test_one_command_writes_the_ranks_snapshot(runs):
+    """The CLIs' launcher (`parallel.launch.run_ranks`) given --device cpu,
+    gloo and 2 ranks, MESH_SHAPE data:2, 2 epochs: its run directory holds
+    the checkpoint of the same 2 ranks started by hand with CPCSV_* (the
+    `cli` launch's straight run), bit for bit."""
+    code, log = runs["one_command"]
+    assert code == 0, log.read_text()[-3000:]
+    model = Path("output", "torch", "final_model", "Model")
+    for name in ("train_state_last.pth", "netG_epoch_2.pth"):
+        assert chip_smoke.same_snapshot(runs["root"] / "cli" / "one_command" / model / name,
+                                        runs["root"] / "cli" / "a" / model / name) == [], name
 
 
 @pytest.mark.parametrize("shuffle,n,batch", [(True, 23, 4), (False, 10, 4), (True, 8, 2)],
