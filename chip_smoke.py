@@ -226,7 +226,22 @@ Phases, each of which exits non-zero on failure:
      killed mid-epoch ends the command non-zero within 30 s, no rank left;
      ms a step of a warm chunk of 20 of final.yml and procedural.yml on 1,
      2 and every card, frames/s, weak-scaling efficiency, all-reduces a
-     step, NCCL's share of rank 0's busy time, `nvidia-smi topo -m`.
+     step, NCCL's share of rank 0's busy time, `nvidia-smi topo -m`;
+ 38. training across hosts (folded into 37): on a host of one card only the
+     launch rules (a host of one card runs its rank in its own process, a
+     named mesh must take every card of every host, the hosts' rendezvous
+     refuses unequal cards) and the host-side cost of the seq-consistency
+     story shuffle over a host's stories; on an even count of 4 or more
+     cards, the cards as two hosts of half of them each
+     (CUDA_VISIBLE_DEVICES): NCCL ranks spawned so, rank r on physical card
+     r by UUID, a D+G step bit for bit phase 37's one host, a warm chunk of
+     20 of final.yml timed beside it; then 37 (e)'s one command is the
+     reference of two host commands of the CLI (CPCSV_COORDINATOR at
+     127.0.0.1, CPCSV_NUM_PROCESSES 2, CPCSV_PROCESS_ID 0 and 1): 1 epoch
+     and an auto-resumed one whose checkpoint equals the one command's bit
+     for bit (NCCL_ALGO / NCCL_PROTO pinned in both, NCCL's choice
+     printed), and (f) a rank of host 1 killed mid-epoch, which ends both
+     commands within 30 s; on 2-3 cards two hosts of one card each.
 The line before the last is a JSON object of the kernels, with bfloat16
 times, bounds, library calls and launches (`bf16_*`) beside float32's; the last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside a
@@ -359,7 +374,11 @@ DP_MODEL, DP_FOUR = "data:1,model:2", "data:2,model:2"
 MULTI_CONFIG, MULTI_PAIRS, MULTI_CLI = "final.yml", 3, "cascade.yml"
 MULTI_KILL_AFTER, MULTI_KILL_BOUND = 2.0, 30.0
 GROUP_VARIABLES = ("CPCSV_COORDINATOR", "CPCSV_NUM_PROCESSES", "CPCSV_PROCESS_ID",
-                   "CPCSV_DISTRIBUTED", "LOCAL_RANK")
+                   "CPCSV_DISTRIBUTED", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "CPCSV_LAUNCHED")
+# phases 37 (e)-(f) and 38: NCCL's algorithm and protocol pinned in the CLI
+# commands whose checkpoints are held bit for bit against one another (never
+# in the package), NCCL saying what it chose
+HOST_NCCL = {"NCCL_ALGO": "Ring", "NCCL_PROTO": "Simple", "NCCL_DEBUG": "INFO"}
 # phase 34: the CLEVR tree's train and test stories (4 story steps and one
 # image batch of clevr.yml an epoch; 2 test batches)
 CLEVR_DISK = (64, 32)
@@ -4746,7 +4765,8 @@ def multi_rank(job: dict, rank: int, world: int, step_on, collectives, counted) 
     from cpcsv_tpu_torch.train.steps import batch_to_device, make_scan_steps, make_train_steps
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    out = {"card": dev.index}
+    out = {"card": dev.index, "uuid": str(getattr(torch.cuda.get_device_properties(dev), "uuid",
+                                                  dev.index))}
     cfg = config_from_file(job["config"])
     state = create_train_state(cfg, job["seed"])
     out["expected"] = per_step_launches(state)
@@ -4895,92 +4915,210 @@ def alive(pid: int) -> bool:
         return False
 
 
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def host_split(cards: int) -> int:
+    """Phase 38's cards a "host": half of an even count of 4 or more, else 1
+    (two hosts of one card each)."""
+    return cards // 2 if cards >= 4 and cards % 2 == 0 else 1
+
+
+def host_envs(env: dict, per_host: int) -> list[dict]:
+    """Phase 38's two host commands' environments: host h sees cards h × per_host
+    .. h × per_host + per_host − 1 alone (CUDA_VISIBLE_DEVICES), and both meet at
+    127.0.0.1 on a free port (CPCSV_COORDINATOR, CPCSV_NUM_PROCESSES 2,
+    CPCSV_PROCESS_ID h)."""
+    port = free_port()
+    return [{**env, "CUDA_VISIBLE_DEVICES": ",".join(
+                 str(h * per_host + i) for i in range(per_host)),
+             "CPCSV_COORDINATOR": f"127.0.0.1:{port}", "CPCSV_NUM_PROCESSES": "2",
+             "CPCSV_PROCESS_ID": str(h)} for h in range(2)]
+
+
+def said_cards(text: str) -> list[str]:
+    """The card of each rank, as a trainer's 'DATA PARALLEL cards:' line says."""
+    line = next((ln for ln in text.splitlines() if ln.startswith("DATA PARALLEL cards: ")), "")
+    return [part.split(" ", 2)[2] for part in line.removeprefix("DATA PARALLEL cards: ")
+            .split(", ") if part]
+
+
+def nccl_choice(text: str) -> list[str]:
+    """NCCL's own lines (NCCL_DEBUG=INFO) on its version, the settings it
+    read, its rings and its transports, deduplicated, at most 12."""
+    keys = ("NCCL version", "NCCL_ALGO", "NCCL_PROTO", "Channel 00", "via ", "comm 0x")
+    found = []
+    for line in text.splitlines():
+        rest = line.split("NCCL INFO ", 1)[-1].strip()
+        if "NCCL INFO" in line and any(k in rest for k in keys) and rest not in found:
+            found.append(rest)
+    return found[:12]
+
+
 def multi_cli(card: str, seed: int, root: Path, world: int) -> dict:
-    """Phase 37 (e)-(f): `python -m cpcsv_tpu_torch.cli.main_pororo --cfg
-    MULTI_CLI --synthetic N`, no process group in its environment, N the
-    global story batch (one step an epoch), cuDNN deterministic in every
-    process (`deterministic_site`): (e) 2 epochs, and in another directory
-    1 epoch plus --continue_ckpt auto, each a command that starts `world`
-    ranks (the trainer says so, with the global batches); one run directory,
-    one metrics row a step, the resumed checkpoint bit for bit the
-    uninterrupted one; (f) a longer run whose last rank is killed
-    MULTI_KILL_AFTER seconds after the ranks began training: the command
-    exits non-zero within MULTI_KILL_BOUND seconds and leaves no rank
-    alive. Returns the seconds of each command."""
+    """Phase 37 (e)-(f) and 38: `python -m cpcsv_tpu_torch.cli.main_pororo
+    --cfg MULTI_CLI --synthetic N`, no process group in its environment but
+    the ones named, N the global story batch (one step an epoch), cuDNN
+    deterministic in every process (`deterministic_site`), NCCL's algorithm
+    and protocol pinned (HOST_NCCL, which also has NCCL say its choice):
+    (e) 2 epochs as one command that starts `world` ranks (the trainer says
+    so, with the global batches and every rank's card); one run directory,
+    one metrics row a step. 38: in another directory 1 epoch plus
+    --continue_ckpt auto, each as two host commands (`host_envs`: two hosts
+    of `host_split(world)` cards, CPCSV_COORDINATOR at 127.0.0.1), rank r on
+    physical card r; the resumed checkpoint bit for bit the one-command
+    run's when the hosts hold its `world` cards. (f) on 4 cards or more a
+    longer run as two host commands whose last rank, on host 1, is killed
+    MULTI_KILL_AFTER seconds after host 1's ranks began training: both
+    commands exit non-zero within MULTI_KILL_BOUND seconds, no rank alive
+    (on 2-3 cards one command of `world` ranks). Returns the
+    seconds of each command."""
+    import torch
+
     from cpcsv_tpu_torch.config import config_from_file
 
     cfg_file = str(REPO / "cpcsv_tpu_torch" / "configs" / MULTI_CLI)
     cfg = config_from_file(cfg_file)
     env = {k: v for k, v in os.environ.items() if k not in GROUP_VARIABLES}
     env["PYTHONPATH"] = os.pathsep.join([deterministic_site(root / "site"), str(REPO)])
-    stories = cfg.TRAIN.ST_BATCH_SIZE * world
-    base = [sys.executable, "-m", "cpcsv_tpu_torch.cli.main_pororo", "--cfg", cfg_file,
-            "--synthetic", str(stories), "--manualSeed", str(seed)]
-    said = (f"DATA PARALLEL: {world} ranks, MESH_SHAPE data:{world}, global batches IM "
-            f"{cfg.TRAIN.IM_BATCH_SIZE * world} / ST {stories}")
+    env.update(HOST_NCCL)
+    per_host = host_split(world)
+    hosts_world = 2 * per_host
+    uuids = [str(getattr(torch.cuda.get_device_properties(i), "uuid", i)) for i in range(world)]
+
+    def said(w, hosts, per):
+        return (f"DATA PARALLEL: {w} ranks on {hosts} host(s) of {per}, MESH_SHAPE data:{w}, "
+                f"global batches IM {cfg.TRAIN.IM_BATCH_SIZE * w} / ST {cfg.TRAIN.ST_BATCH_SIZE * w}")
+
+    def base(w):
+        return [sys.executable, "-m", "cpcsv_tpu_torch.cli.main_pororo", "--cfg", cfg_file,
+                "--synthetic", str(cfg.TRAIN.ST_BATCH_SIZE * w), "--manualSeed", str(seed)]
+
     seconds, outputs = {}, {}
-    for label, where, extra in (("straight", "a", ["--max_epoch", "2"]),
-                                ("first", "b", ["--max_epoch", "1"]),
-                                ("resumed", "b", ["--max_epoch", "2", "--continue_ckpt", "auto"])):
-        (root / where).mkdir(exist_ok=True)
-        code, outputs[label], seconds[label] = run_command(base + extra, root / where, env, 600)
-        if code != 0:
-            print(outputs[label][-6000:])
-        check(code == 0, f"phase 37 (e): the {label} command exited {code}")
-        check(said in outputs[label], f"phase 37 (e): the {label} command's output lacks '{said}'")
-    check("Auto-resume from epoch 1" in outputs["resumed"],
-          "phase 37 (e): the resumed command did not print 'Auto-resume from epoch 1'")
+    (root / "a").mkdir(exist_ok=True)
+    code, outputs["straight"], seconds["straight"] = run_command(
+        base(world) + ["--max_epoch", "2"], root / "a", env, 600)
+    if code != 0:
+        print(outputs["straight"][-6000:])
+    check(code == 0, f"phase 37 (e): the straight command exited {code}")
+    check(said(world, 1, world) in outputs["straight"],
+          f"phase 37 (e): the command's output lacks '{said(world, 1, world)}'")
+    check(said_cards(outputs["straight"]) == uuids,
+          f"phase 37 (e): the ranks' cards {said_cards(outputs['straight'])}, not {uuids}")
     runs = root / "a" / "output" / "torch"
     check(os.listdir(runs) == [cfg.CONFIG_NAME],
           f"phase 37 (e): run directories {os.listdir(runs)}")
     rows = [json.loads(line) for line in (runs / cfg.CONFIG_NAME / "log" / "metrics.jsonl").open()]
     check(sum(r["tag"] == "st_D/loss" for r in rows) == 2,
           "phase 37 (e): not one st_D/loss row a step of the 2 (rank 0 alone logs)")
-    state = Path("output", "torch", cfg.CONFIG_NAME, "Model", "train_state_last.pth")
-    differ = same_snapshot(root / "a" / state, root / "b" / state)
-    check(not differ, f"phase 37 (e): the resumed run's {state.name} differs from the straight "
-                      f"run's at {differ[:4]} ({len(differ)} keys)")
     print(f"phase 37 (e) [{card}]: `python -m cpcsv_tpu_torch.cli.main_pororo --cfg {MULTI_CLI} "
-          f"--synthetic {stories}` with no process group in its environment: '{said}'; one run "
-          f"directory, one metrics row a step; 1 epoch + --continue_ckpt auto equal 2 straight "
-          f"ones bit for bit (train_state_last.pth: every net, Adam state and the step); "
-          f"seconds a command "
-          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+          f"--synthetic {cfg.TRAIN.ST_BATCH_SIZE * world}` with no process group in its "
+          f"environment: '{said(world, 1, world)}', rank r on card r; one run directory, one "
+          f"metrics row a step; {seconds['straight']:.1f} s. NCCL ({HOST_NCCL}): "
+          + " | ".join(nccl_choice(outputs["straight"])))
 
+    phase(f"38. training across hosts: two host commands of {per_host} card(s) each "
+          f"(CUDA_VISIBLE_DEVICES), CPCSV_COORDINATOR at 127.0.0.1, 1 epoch + --continue_ckpt auto")
+    (root / "b").mkdir(exist_ok=True)
+    for label, extra in (("first", ["--max_epoch", "1"]),
+                         ("resumed", ["--max_epoch", "2", "--continue_ckpt", "auto"])):
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            done = list(pool.map(lambda e: run_command(base(hosts_world) + extra, root / "b", e,
+                                                       600), host_envs(env, per_host)))
+        for h, (code, text, secs) in enumerate(done):
+            outputs[label, h], seconds[label, h] = text, secs
+            if code != 0:
+                print(text[-6000:])
+            check(code == 0, f"phase 38: host {h}'s {label} command exited {code}")
+        host0 = outputs[label, 0]
+        check(said(hosts_world, 2, per_host) in host0,
+              f"phase 38: host 0's {label} output lacks '{said(hosts_world, 2, per_host)}'")
+        check(said_cards(host0) == uuids[:hosts_world],
+              f"phase 38: the {label} ranks' cards {said_cards(host0)}, not "
+              f"{uuids[:hosts_world]}")
+    check("Auto-resume from epoch 1" in outputs["resumed", 0],
+          "phase 38: the resumed commands did not print 'Auto-resume from epoch 1'")
+    model = Path("output", "torch", cfg.CONFIG_NAME, "Model")
+    held = hosts_world == world
+    # the one command's snapshots (its epoch 0 and its end); the hosts' first
+    # command also wrote netG_epoch_1 at its end
+    snapshots = sorted(p.name for p in (root / "a" / model).glob("*.pth"))
+    if held:
+        missing = sorted(set(snapshots) - {p.name for p in (root / "b" / model).glob("*.pth")})
+        check(not missing, f"phase 38: the two hosts wrote no {missing}")
+        for name in snapshots:
+            differ = same_snapshot(root / "a" / model / name, root / "b" / model / name)
+            check(not differ, f"phase 38: the two hosts' {name} differs from the one command's "
+                              f"at {differ[:4]} ({len(differ)} keys)")
+    print(f"phase 38 [{card}]: two host commands of {per_host} card(s) each, CUDA_VISIBLE_DEVICES "
+          f"{[e['CUDA_VISIBLE_DEVICES'] for e in host_envs({}, per_host)]}: "
+          f"'{said(hosts_world, 2, per_host)}', rank r on physical card r (by UUID); 1 epoch + "
+          "--continue_ckpt auto "
+          + (f"equal the one command's 2 epochs bit for bit ({', '.join(snapshots)}; "
+             "train_state_last.pth: every net, Adam state and the step)" if held else
+             f"not held against the one command's {world} cards (another global batch)")
+          + "; seconds a command by host: "
+          + ", ".join(f"{k[0]} host {k[1]} {v:.1f}" for k, v in seconds.items()
+                      if isinstance(k, tuple))
+          + ". NCCL on host 0: " + " | ".join(nccl_choice(outputs["resumed", 0])))
+
+    kill_hosts = world >= 4
     (root / "k").mkdir()
-    p = subprocess.Popen(base + ["--max_epoch", "100"], cwd=root / "k", env=env,
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                         start_new_session=True)
-    lines, ranks, code, seconds_kill = [], [], None, None
+    envs = host_envs(env, per_host) if kill_hosts else [env]
+    argv = (base(hosts_world) if kill_hosts else base(world)) + ["--max_epoch", "100"]
+    procs = [subprocess.Popen(argv, cwd=root / "k", env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+             for e in envs]
+    lines = [[] for _ in procs]
+    ranks, codes, ends = [], [None] * len(procs), [None] * len(procs)
     try:
-        for line in p.stdout:
-            lines.append(line)
-            if line.startswith("LR DECAY EPOCH"):  # rank 0's state is built, its epoch starts
+        watched = procs[-1]  # the host of the rank killed
+        for line in watched.stdout:
+            lines[-1].append(line)
+            if line.startswith("LR DECAY EPOCH"):  # its first rank's state is built
                 break
-        drain = threading.Thread(target=lambda: lines.extend(p.stdout), daemon=True)
-        drain.start()
+        drains = [threading.Thread(target=lambda i=i: lines[i].extend(procs[i].stdout),
+                                   daemon=True) for i in range(len(procs))]
+        for d in drains:
+            d.start()
         time.sleep(MULTI_KILL_AFTER)
-        ranks = rank_pids(p.pid)
-        check(len(ranks) == world, f"phase 37 (f): {len(ranks)} ranks under the command")
-        os.kill(ranks[-1], signal.SIGKILL)
+        ranks = [rank_pids(p.pid) for p in procs]
+        want = per_host if kill_hosts else world
+        check(all(len(r) == want for r in ranks), f"phase 37 (f): ranks under the commands "
+                                                  f"{[len(r) for r in ranks]}, not {want} each")
+        os.kill(ranks[-1][-1], signal.SIGKILL)
         t = time.perf_counter()
-        code = p.wait(timeout=MULTI_KILL_BOUND + 60)
-        seconds_kill = time.perf_counter() - t
-        drain.join(10)
+        for i, p in enumerate(procs):
+            codes[i] = p.wait(timeout=MULTI_KILL_BOUND + 60)
+            ends[i] = time.perf_counter() - t
+        for d in drains:
+            d.join(10)
     finally:
-        if p.poll() is None:
-            os.killpg(p.pid, signal.SIGKILL)
-            p.wait()
-    text = "".join(lines)
-    left = [pid for pid in ranks if alive(pid)]
-    check(code not in (None, 0) and seconds_kill <= MULTI_KILL_BOUND and not left,
-          f"phase 37 (f): killed a rank; the command exited {code} after {seconds_kill} s "
-          f"(bound {MULTI_KILL_BOUND} s), ranks left {left}; its output's end:\n{text[-3000:]}")
-    check(f"exited {128 + signal.SIGKILL}" in text,
-          f"phase 37 (f): the command did not name the killed rank: {text[-2000:]}")
-    print(f"phase 37 (f) [{card}]: rank {world - 1}'s process killed {MULTI_KILL_AFTER} s after "
-          f"the ranks began training: the command exited {code} after {seconds_kill:.2f} s "
-          f"(bound {MULTI_KILL_BOUND} s), none of its {world} ranks alive")
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    texts = ["".join(ln) for ln in lines]
+    left = [pid for r in ranks for pid in r if alive(pid)]
+    killed = (hosts_world if kill_hosts else world) - 1
+    check(all(c not in (None, 0) for c in codes) and all(e <= MULTI_KILL_BOUND for e in ends)
+          and not left,
+          f"phase 37 (f): killed rank {killed}; the commands exited {codes} after {ends} s "
+          f"(bound {MULTI_KILL_BOUND} s), ranks left {left}; their outputs' ends:\n"
+          + "\n".join(t[-3000:] for t in texts))
+    check(all(f"rank {killed} of {killed + 1} exited {128 + signal.SIGKILL}" in t for t in texts),
+          f"phase 37 (f): a command did not name the killed rank: {[t[-2000:] for t in texts]}")
+    print(f"phase {'38 (f)' if kill_hosts else '37 (f)'} [{card}]: rank {killed}'s process "
+          f"killed {MULTI_KILL_AFTER} s after {'host 1' if kill_hosts else 'the command'}'s "
+          f"ranks began training: the command(s) exited {codes} after "
+          + ", ".join(f"{e:.2f}" for e in ends) + f" s (bound {MULTI_KILL_BOUND} s), none of "
+          f"their ranks alive")
     return seconds
 
 
@@ -4999,8 +5137,12 @@ def multi_card_phase(card: str, seed: int, root: Path, world: int, ranks: dict,
     of a pair; (a) after the timed chunks every state tensor (parameters,
     BN statistics, SN vectors, Adam moments) bit for bit alike on every
     rank; (g) each rank's launches as the code implies; then (d) the four
-    ranks under DP_FOUR against the two ranks' step, bit for bit; (e)-(f)
-    the CLI (`multi_cli`). Prints ms a step of a warm chunk on 1 (phase 35
+    ranks under DP_FOUR against the two ranks' step, bit for bit; phase 38
+    with an even count of 4 or more cards, "hosts": the `world` ranks as two
+    hosts of half the cards each (CUDA_VISIBLE_DEVICES split, LOCAL_RANK
+    within), rank r on physical card r by UUID, their step bit for bit the
+    one host's, their timed chunks; (e)-(f) and 38 the CLI (`multi_cli`).
+    Prints ms a step of a warm chunk on 1 (phase 35
     (c)'s, `one_card`), 2 and `world` cards, frames/s, the weak-scaling
     efficiency, all-reduces a step, NCCL's share of rank 0's busy time, the
     capture's memory a rank. Returns the launches summed over the ranks."""
@@ -5154,6 +5296,35 @@ def multi_card_phase(card: str, seed: int, root: Path, world: int, ranks: dict,
               f"under data:2 at the same global batch, rank r as rank r // 2")
     else:
         print(f"phase 37 (d) [{card}]: {DP_FOUR} needs 4 cards; this host shows {world}")
+    hosts = None
+    if "hosts" in ranks:  # phase 38: the same ranks as two "hosts" of the cards' halves
+        per_host = host_split(world)
+        uuids = [str(getattr(torch.cuda.get_device_properties(i), "uuid", i))
+                 for i in range(world)]
+        t = time.perf_counter()
+        hosts = ranks["hosts"]({**jobs[world], "timed": [MULTI_CONFIG]})()
+        hosts_s = time.perf_counter() - t
+        for rank, r in enumerate(hosts):
+            check(r["uuid"] == uuids[rank] and r["card"] == rank % per_host,
+                  f"phase 38: rank {rank} ran on card {r['uuid']} (cuda:{r['card']} of its "
+                  f"host), not physical card {rank} {uuids[rank]}")
+            ref_step = every[rank]["step"]
+            check(r["step"]["metrics"] == ref_step["metrics"]
+                  and (r["step"]["sums"] == ref_step["sums"]).all()
+                  and (r["step"]["grad_bits"] == ref_step["grad_bits"]).all(),
+                  f"phase 38: rank {rank}'s step over two hosts differs from the one host's")
+            tr = r["timed"][MULTI_CONFIG]
+            want = {k: v * tr["pairs"] for k, v in tr["expected"].items()}
+            check(tr["counts"] == want and tr["finite"],
+                  f"phase 38 rank {rank}: launches {tr['counts']}, expected {want}")
+            got = {k: r["step"]["counts"][k] for k in r["expected"]}
+            check(got == r["expected"], f"phase 38 rank {rank}: the step launched {got}")
+            counts.update(tr["counts"])
+            counts.update(r["step"]["counts"])
+        print(f"phase 38 [{card}]: {world} NCCL ranks as two hosts of {per_host} cards "
+              "(CUDA_VISIBLE_DEVICES split, LOCAL_RANK on each), rank r on physical card r (by "
+              "UUID): one D+G step bit for bit the one host's ranks' (metrics, state, "
+              f"gradients); the launch {hosts_s:.1f} s")
     # the timings
     rows = {w: rs for w, rs in ((2, two or (every if world == 2 else None)), (world, every))
             if rs is not None}
@@ -5172,6 +5343,15 @@ def multi_card_phase(card: str, seed: int, root: Path, world: int, ranks: dict,
                          f"reserved {max(r['timed'][name]['pool'] for r in rs) / 2**30:.2f} GiB "
                          "a rank at most)")
         print(f"  {name}: " + "; ".join(parts))
+    if hosts is not None:
+        tr, one = hosts[0]["timed"][MULTI_CONFIG], median(r0["timed"][MULTI_CONFIG]["windows"])
+        ms = median(tr["windows"])
+        print(f"  {MULTI_CONFIG} over two hosts of {host_split(world)} cards on this machine "
+              f"(phase 38; the rendezvous and rank numbering, not a network between hosts): "
+              f"{ms:.2f} ms ({world * frames / ms * 1e3:.1f} frames/s, efficiency "
+              f"{one_card[MULTI_CONFIG] / ms:.3f}) against {one:.2f} ms as one command; first "
+              f"chunk {tr['first_s']:.2f} s, reserved "
+              f"{max(r['timed'][MULTI_CONFIG]['pool'] for r in hosts) / 2**30:.2f} GiB a rank")
     traced = r0["timed"][MULTI_CONFIG]["traced"]
     print(f"  {MULTI_CONFIG} on {world} cards, one traced chunk on rank 0: busy "
           f"{traced['busy_ms']:.2f} ms a step, NCCL's kernels {traced['nccl_ms']:.2f} ms "
@@ -5206,6 +5386,84 @@ def one_card_phase(card: str, root: Path) -> None:
           f"before started no ranks); data:2 raises: {message}")
     print("phase 37: training across cards (NCCL ranks, one a card) needs two or more cards; "
           "this host shows 1")
+
+
+def host_rules(card: str) -> None:
+    """Phase 38's launch rules on a host of one card: as host 0 of a run of
+    two (CPCSV_COORDINATOR, CPCSV_NUM_PROCESSES, CPCSV_PROCESS_ID) a
+    training command runs its one rank in its own process, a named mesh of
+    more cards than the hosts' raises and one of fewer does too; the hosts'
+    rendezvous (`launch.meet`, an in-process store, one thread a host)
+    raises on every host for unequal cards."""
+    import torch.distributed as dist
+
+    from cpcsv_tpu_torch.parallel import launch
+
+    said = {}
+    with mock.patch.dict(os.environ, {"CPCSV_COORDINATOR": "127.0.0.1:1",
+                                      "CPCSV_NUM_PROCESSES": "2", "CPCSV_PROCESS_ID": "0"}):
+        check(launch.local_world("", "cuda", True) == 1,
+              "phase 38: a host of one card starts ranks")
+        for mesh_shape in ("data:4", "data:1"):
+            try:
+                launch.local_world(mesh_shape, "cuda", True)
+            except ValueError as e:
+                said[mesh_shape] = str(e)
+    check("needs 4 devices, have 2 (2 hosts of 1" in said.get("data:4", "")
+          and "takes 1 devices, not every one of the 2" in said.get("data:1", ""),
+          f"phase 38: the named meshes across two hosts of one card: {said}")
+    store, raised = dist.HashStore(), [None, None]
+
+    def host(h):
+        try:
+            launch.meet(store, h, 2, 1 + h, 10.0)
+        except ValueError as e:
+            raised[h] = str(e)
+
+    threads = [threading.Thread(target=host, args=(h,)) for h in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(all(r and "host 0 starts 1 rank(s), host 1 starts 2" in r for r in raised),
+          f"phase 38: hosts of 1 and 2 cards met: {raised}")
+    print(f"phase 38 [{card}]: as host 0 of two, \"\" trains its one rank in this process; "
+          f"data:4 raises ({said['data:4']}); data:1 raises ({said['data:1']}); hosts of 1 "
+          f"and 2 cards both raise ({raised[0]})")
+
+
+def seq_shuffle_cost(card: str, per_host: int = 4, batches: int = 3) -> None:
+    """Phase 38: the host-side price of the seq-consistency shuffle being the
+    host's. A rank of a host of `per_host` reads its host's story batches
+    (`training_loaders` under USE_SEQ_CONSISTENCY) and shuffles all of them
+    (`create_random_shuffle`), where before it read and shuffled its own:
+    ms a batch of each at final.yml's ST_BATCH_SIZE, synthetic stories, on
+    the loader's prefetch thread (which overlaps the steps)."""
+    import numpy as np
+
+    from cpcsv_tpu_torch.config import config_from_file
+    from cpcsv_tpu_torch.data.loader import DataLoader
+    from cpcsv_tpu_torch.data.synthetic import SyntheticStoryDataset
+    from cpcsv_tpu_torch.losses.shuffle import create_random_shuffle
+
+    cfg = config_from_file("final.yml")
+    st = cfg.TRAIN.ST_BATCH_SIZE
+    data = SyntheticStoryDataset(st * per_host * batches, cfg.VIDEO_LEN, cfg.IMSIZE,
+                                 cfg.TEXT.DIMENSION, cfg.LABEL_NUM)
+    ms = {}
+    for label, shards in (("its own", (0,)), ("its host's", tuple(range(per_host)))):
+        loader = DataLoader(data, st * per_host, shuffle=True, seed=1, drop_last=True,
+                            process_index=0, process_count=per_host, shards=shards)
+        rng = np.random.default_rng([0, 0])
+        t = time.perf_counter()
+        for batch in loader:
+            create_random_shuffle(batch["images"], rng=rng)
+        ms[label] = (time.perf_counter() - t) * 1e3 / batches
+    own, host = ms["its own"], ms["its host's"]
+    print(f"phase 38 [{card}]: the seq-consistency story batch of a rank of a host of {per_host}, "
+          f"read and shuffled on the host, ms a batch (the mean of {batches}): {st} stories, "
+          f"its own, {own:.1f} ms; {st * per_host}, its host's, {host:.1f} ms "
+          f"(+{host - own:.1f} ms a step, on the prefetch thread)")
 
 
 def main() -> int:
@@ -5816,6 +6074,13 @@ def main() -> int:
         if cards >= 4:
             multi_ranks["four"] = spawn_dp("multi_four", multi_root, 4, on_cards, "steps",
                                            one_card=False)
+        if host_split(cards) > 1:  # phase 38: the cards as two hosts' halves
+            per_host = host_split(cards)
+            multi_ranks["hosts"] = spawn_dp(
+                "multi_hosts", multi_root, cards, lambda rank: {
+                    "CUDA_VISIBLE_DEVICES": ",".join(
+                        str(rank // per_host * per_host + i) for i in range(per_host)),
+                    "LOCAL_RANK": str(rank % per_host)}, "multi", one_card=False)
 
     # ------------------- 35. SCAN_STEPS: chunks of pairs as CUDA graph replays
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scan_", dir=build_dir) as tmp:
@@ -5858,6 +6123,9 @@ def main() -> int:
     else:
         one_card_phase(card, multi_root)
         multi_counts = {}
+        phase("38. training across hosts: the launch rules on one card")
+        host_rules(card)
+    seq_shuffle_cost(card)
     multi_tmp.cleanup()
     print(f"phase 37 [{card}]: {time.perf_counter() - t:.1f} s")
     for name in kernels:

@@ -71,12 +71,16 @@ def trains(args) -> bool:
 
 
 def start_ranks(main, argv, args, cfg) -> bool:
-    """The CLIs' first step: on a host of several cards a training run with
-    --device cuda and no process group in its environment runs as one rank
-    a card of cfg.MESH_SHAPE's training world (`parallel/launch.py`), the
-    JAX CLI's every local device; returns True once those ranks have all
-    exited 0 (a failed one exits this process with its code), False where
-    this process runs alone or is a rank."""
+    """The CLIs' first step: a training run with --device cuda on a host of
+    several cards (alone, or one host of a run named by CPCSV_COORDINATOR,
+    CPCSV_NUM_PROCESSES and CPCSV_PROCESS_ID) runs as one rank a card of
+    the host, cfg.MESH_SHAPE's training world over every host's cards
+    (`parallel/launch.py`), the JAX CLI's every device of every host;
+    returns True once the ranks of every host have all exited 0 (a failed
+    one exits this process with its code), False where this process runs
+    alone, is the one rank of its host, or is a launcher's rank. The walks
+    and the dump start no ranks: one process a host, its walk on process 0
+    over its cards, as the JAX package's (`cpcsv_tpu/evaluation/drivers.py:61-97`)."""
     import sys
 
     from cpcsv_tpu_torch.parallel import launch

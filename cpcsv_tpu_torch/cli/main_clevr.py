@@ -18,7 +18,7 @@ go under ./output/torch/{CONFIG_NAME} (./output/torch/debug with --debug),
 and the evaluation flags walk that directory's snapshots, over the eval
 mesh of the run's MESH_SHAPE as the Pororo CLI's do. Several processes
 train data-parallel as the Pororo CLI's do (`cli/main_pororo.py`), one a
-card of the host started by this command itself.
+card of each host started by this command itself, run once a host.
 """
 
 from __future__ import annotations

@@ -16,20 +16,29 @@ instead, built as the JAX package builds them. Runs go under
 the JAX package's ./output/..., so that the two never share a
 last_epoch.txt; the evaluation flags walk the snapshots of that directory.
 
-Data-parallel training runs one process a rank. On one host this command
-starts them itself, one a card, as the JAX CLI trains over every local
-device (`parallel/launch.py`): with --device cuda, training and no process
-group in the environment, MESH_SHAPE "" takes every visible card and a
-named mesh the product of its sizes (cards 0 .. W − 1; more than the host
-has raises); "data:1" keeps one card. Across hosts each rank is the same
-command with CPCSV_COORDINATOR=host:port, CPCSV_NUM_PROCESSES=W and
-CPCSV_PROCESS_ID=r (or runs under torchrun with CPCSV_DISTRIBUTED=1); the
+Data-parallel training runs one process a rank. This command starts them
+itself, one a card of its host, as the JAX CLI trains over every device
+(`parallel/launch.py`): with --device cuda and training, MESH_SHAPE ""
+takes every visible card and a named mesh the product of its sizes (cards
+0 .. W − 1; more than the host has raises); "data:1" keeps one card. Across
+hosts the same command runs once on every host with CPCSV_COORDINATOR=
+host:port (host 0's address), CPCSV_NUM_PROCESSES=H (the hosts) and
+CPCSV_PROCESS_ID=h, the JAX package's variables: each starts one rank a
+card of its host, rank h × L + l, "" is every card of every host and a
+named mesh must take them all; every host must see the same number of
+cards, and a rank that fails on one host ends every host's command. A
+rank can also be started by hand (CPCSV_* and LOCAL_RANK, LOCAL_WORLD_SIZE,
+as torchrun sets them) or under torchrun with CPCSV_DISTRIBUTED=1; a
+process with CPCSV_* but no LOCAL_RANK and one visible card (or
+--device cpu) is a host of one rank, its rank its host index. The
 config's MESH_SHAPE ("", every rank on `data`, or named axes such as
-"data:4,model:2") must have a `data` axis and span the W ranks, the product
+"data:4,model:2") must have a `data` axis and span the ranks, the product
 of its axis sizes. The batches in the config are each rank's, the global
 batch W times them; a rank reads its shard on the `data` axis and the ranks
 of the other axes replicate it, as the JAX package's mesh does (the same
-global batch and numbers, no speed-up from the replicas). --backend names the process
+global batch and numbers, no speed-up from the replicas). With
+USE_SEQ_CONSISTENCY the story shuffle is the host's, as the JAX process's
+(`train/trainer.py`). --backend names the process
 group's backend (NCCL on CUDA, gloo on the CPU by default; gloo lets several
 ranks share one GPU). Rank 0 alone writes the run directory, and the
 evaluation walks run on rank 0 over the whole test set while the others

@@ -12,7 +12,11 @@ of every global batch at its index d on the mesh's `data` axis
 (`parallel/mesh.py`; D = W, the world size, without other axes), as the JAX
 package's per-host input pipeline does (`cpcsv_tpu/data/loader.py:31-61,86-112`),
 index for index. The replicas of a shard (the ranks that differ only on the
-other axes) read the same rows.
+other axes) read the same rows. With USE_SEQ_CONSISTENCY a training run's
+story loader reads the data shards of the rank's whole host (`shards`,
+`mesh.host_shards`): the batch that the JAX package's process of that host
+holds, which its trainer shuffles before the rank keeps its own rows
+(`train/trainer.py`).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 
 from cpcsv_tpu_torch.data.prefetch import device_prefetch
 from cpcsv_tpu_torch.parallel.distributed import process_info
-from cpcsv_tpu_torch.parallel.mesh import mesh_layout, mesh_size
+from cpcsv_tpu_torch.parallel.mesh import host_shards, mesh_layout, mesh_size
 
 PREFETCH = 2  # batches a loader's background thread keeps ready
 
@@ -52,11 +56,13 @@ class DataLoader:
         seed: int = 0,
         process_index: int = 0,
         process_count: int = 1,
+        shards: Sequence[int] | None = None,
     ):
         """`batch_size` is the global batch. With process_count > 1 (the data
         shards, `training_loaders`), the process reads only
         shard process_index, its contiguous 1/process_count slice of every
-        global batch.
+        global batch, or, where `shards` names them, those shards one after
+        another (a host's, `mesh.host_shards`).
         The shuffle stream derives from `seed` alone, never from the
         process, so every rank draws the same global permutation."""
         if process_count > 1 and batch_size % process_count != 0:
@@ -68,6 +74,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.process_index = process_index
         self.process_count = process_count
+        self.shards = tuple(shards) if shards is not None else (process_index,)
         self._seed = seed
         self._rng = np.random.default_rng(seed)
 
@@ -98,8 +105,7 @@ class DataLoader:
             batch = idx[b * self.batch_size : (b + 1) * self.batch_size]
             if self.process_count > 1:
                 local = len(batch) // self.process_count
-                lo = self.process_index * local
-                batch = batch[lo : lo + local]
+                batch = np.concatenate([batch[s * local : (s + 1) * local] for s in self.shards])
             yield batch
 
     def unsliced(self) -> "DataLoader":
@@ -109,7 +115,7 @@ class DataLoader:
         if self.process_count == 1:
             return self
         full = copy.copy(self)
-        full.process_index, full.process_count = 0, 1
+        full.process_index, full.process_count, full.shards = 0, 1, (0,)
         full._rng = np.random.default_rng(self._seed)
         return full
 
@@ -135,16 +141,21 @@ def training_loaders(cfg, image, story, test, seed: int, shard=None):
     + 1 and + 2 (the test loader in order), each reading data shard
     `shard` = (index, count) (`cpcsv_tpu/data/pororo.py:329-364`). None is
     this rank's shard of the training mesh cfg.MESH_SHAPE (`mesh_layout`,
-    which raises for a mesh training refuses); the walks, which read the
-    test set whole, pass (rank, world) and take any well-formed mesh."""
+    which raises for a mesh training refuses), and with
+    USE_SEQ_CONSISTENCY the story loader reads the shards of the rank's
+    host (`mesh.host_shards`); the walks, which read the test set whole,
+    pass (rank, world) and take any well-formed mesh."""
     im_bs, st_bs = global_batches(cfg)
+    story_shards = None
     if shard is None:
         layout = mesh_layout(cfg.MESH_SHAPE, *process_info())
         shard = layout.data_index, layout.data_count
+        if cfg.USE_SEQ_CONSISTENCY:
+            story_shards = host_shards(cfg.MESH_SHAPE)
     pi, pc = shard
     kw = dict(drop_last=True, process_index=pi, process_count=pc)
     return (DataLoader(image, im_bs, shuffle=True, seed=seed, **kw),
-            DataLoader(story, st_bs, shuffle=True, seed=seed + 1, **kw),
+            DataLoader(story, st_bs, shuffle=True, seed=seed + 1, shards=story_shards, **kw),
             DataLoader(test, st_bs, shuffle=False, seed=seed + 2, **kw))
 
 

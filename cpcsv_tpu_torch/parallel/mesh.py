@@ -31,10 +31,13 @@ coordinates (`distributed.form_data_groups`), so that the ranks of a group
 compute the JAX program over the global batch and the groups repeat one
 another bit for bit.
 
-On one host the CLIs start the ranks themselves, one a visible card
+The CLIs start the ranks themselves, one a visible card of each host
 (`parallel/launch.py`): `training_world` gives their number by the JAX
-package's rules, so that one command trains over every card, as one JAX
-process trains over all its local devices.
+package's rules, so that one command a host trains over every card of
+every host, as one JAX process a host trains over all the devices. Ranks
+are host-major, the JAX package's device order, so `mesh_layout` lays them
+out as `make_mesh` lays out `jax.devices()`; `host_shards` names the data
+shards of a rank's host.
 
 Eval-mode generation (serving, the walks, the in-training hook) runs in one
 process over an eval mesh of that process's devices (`make_eval_mesh`), as
@@ -62,6 +65,7 @@ from cpcsv_tpu_torch.parallel.distributed import (
     data_info,
     form_data_groups,
     host_group,
+    host_info,
     is_distributed,
     process_info,
 )
@@ -84,20 +88,32 @@ def parse_mesh_shape(mesh_shape: str) -> list[tuple[str, int]]:
     return axes
 
 
-def training_world(mesh_shape: str, cards: int) -> int:
-    """The ranks a training run of MESH_SHAPE takes on a host of `cards`
-    visible cards, one a card, as the JAX package's `make_mesh` takes the
-    devices of its process (`cpcsv_tpu/parallel/mesh.py:27-39`): "" is every
-    card, a named mesh the product of its sizes on cards 0 .. W − 1
-    (`devices[:n]`). A mesh larger than the host raises, as `make_mesh`'s
-    assert does."""
+def training_world(mesh_shape: str, cards: int, hosts: int = 1, every_card: bool = False) -> int:
+    """The ranks a training run of MESH_SHAPE takes over `hosts` hosts of
+    `cards` visible cards each, one a card, host-major (rank h × cards + l
+    on host h's card l), as the JAX package's `make_mesh` takes the devices
+    of `jax.devices()`, every host's in process order
+    (`cpcsv_tpu/parallel/mesh.py:27-39`): "" is every card of every host, a
+    named mesh the product of its sizes on the first of them
+    (`devices[:n]`). A mesh larger than the cards raises, as `make_mesh`'s
+    assert does. With `every_card` (a run across hosts) a named mesh must
+    take every card of every host: the JAX package cannot place one that
+    leaves a process's devices out, since each process feeds its slice of
+    the batch to its own devices (`cpcsv_tpu/data/loader.py:43-53`,
+    `make_array_from_process_local_data` in `shard_batch`), so another
+    size raises, naming both counts."""
+    total = cards * hosts
     axes = parse_mesh_shape(mesh_shape)
     if not axes:
-        return cards
+        return total
     n = math.prod(size for _, size in axes)
-    if n > cards:
-        raise ValueError(f"MESH_SHAPE {mesh_shape!r} needs {n} devices, have {cards} "
-                         "visible cards")
+    have = (f"{cards} visible cards" if hosts == 1
+            else f"{total} ({hosts} hosts of {cards} visible cards)")
+    if n > total:
+        raise ValueError(f"MESH_SHAPE {mesh_shape!r} needs {n} devices, have {have}")
+    if every_card and n != total:
+        raise ValueError(f"MESH_SHAPE {mesh_shape!r} takes {n} devices, not every one of the "
+                         f"{have}: across hosts a training mesh takes every card of every host")
     return n
 
 
@@ -157,6 +173,19 @@ def check_training_mesh(mesh_shape: str) -> MeshLayout:
     if is_distributed():
         form_data_groups(layout.groups)
     return layout
+
+
+def host_shards(mesh_shape: str) -> tuple[int, ...]:
+    """The data shards of this rank's host, the data indices of its ranks
+    (`distributed.host_info`) in rank order, each once: the rows of a
+    global batch that the JAX package's process of that host holds
+    (`cpcsv_tpu/data/loader.py:43-53`), the host's story batch of the
+    seq-consistency shuffle. (d,) on a host of one rank or without a
+    process group."""
+    rank, world = process_info()
+    host, _, _, per_host = host_info()
+    ranks = range(host * per_host, (host + 1) * per_host) if per_host > 1 else [rank]
+    return tuple(dict.fromkeys(mesh_layout(mesh_shape, r, world).data_index for r in ranks))
 
 
 class Rows(NamedTuple):

@@ -59,19 +59,25 @@ shard's work, so the global batch and the numbers are the JAX run's on the
 same mesh, with no speed-up from the replicas. Each rank draws the global
 batch's noise from the epoch's generator and keeps its rows
 (`train/steps.py`), so the draws do not depend on the rank count. The
-seq-consistency host shuffle runs on each rank's own stories with the same
-`default_rng([seed, epoch])`, a story's partner drawn among that rank's
-stories: deliberately what each JAX process does to its local slice
-(`cpcsv_tpu/train/trainer.py:127-134`), so the shuffles of a W-rank run are
-those of the JAX package's W-process run, not of a one-process run (the
-replicas of a shard shuffle the same stories the same way). Rank 0
+seq-consistency shuffle is its host's, as in the JAX package, where one
+process a host shuffles the host's whole story batch with
+`default_rng([seed, epoch])` (`cpcsv_tpu/train/trainer.py:127-134`), a
+story's partner drawn among all of them: the story loader reads the data
+shards of the rank's host (`data.loader.training_loaders`), every rank of
+the host shuffles that batch with the same generator, one batch after
+another as the JAX trainer does (within a chunk too), and keeps its own
+rows of the result. A host is a command that the user started (a
+torchrun node), so a one-command run on W cards shuffles as the JAX
+package's one process over its W devices, and ranks started by hand on
+the CPU as hosts of one rank each. Rank 0
 alone writes the run directory: `setting.yml` and the sources, the logger,
 the sample grids, the checkpoints (`train/checkpoint.py`; every rank
 restores), the profile trace. The in-training FID/FSD runs on rank 0 over
 the whole test set, as the JAX hook scores it, writing the real side's
 `.cache` file, and the other ranks receive its scores. A rank runs on its
 own card, named by index (the batch prefetch thread copies there), and
-says how many ranks train and at which global batches.
+says how many ranks and hosts train, at which global batches and on
+which card each rank runs.
 """
 
 from __future__ import annotations
@@ -84,6 +90,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from cpcsv_tpu_torch.config import Config
@@ -98,8 +105,13 @@ from cpcsv_tpu_torch.evaluation.drivers import (
 )
 from cpcsv_tpu_torch.evaluation.ssim import ssim_score
 from cpcsv_tpu_torch.losses.shuffle import create_random_shuffle
-from cpcsv_tpu_torch.parallel.distributed import process_info
-from cpcsv_tpu_torch.parallel.mesh import broadcast_from_rank0, check_training_mesh, mesh_size
+from cpcsv_tpu_torch.parallel.distributed import host_group, host_info, process_info
+from cpcsv_tpu_torch.parallel.mesh import (
+    broadcast_from_rank0,
+    check_training_mesh,
+    host_shards,
+    mesh_size,
+)
 from cpcsv_tpu_torch.train.checkpoint import CheckpointManager
 from cpcsv_tpu_torch.train.state import TrainState, check_replicas, create_train_state
 from cpcsv_tpu_torch.train.steps import captures_chunks, make_scan_steps, make_train_steps
@@ -151,7 +163,7 @@ class GANTrainer:
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
-        check_training_mesh(cfg.MESH_SHAPE)
+        self.layout = check_training_mesh(cfg.MESH_SHAPE)
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
@@ -187,17 +199,58 @@ class GANTrainer:
         self.logger = MetricsLogger(self.log_dir) if self.rank == 0 else _NoLogger()
         self._eval_extractors = None  # the in-training FID/FSD's, built at its first call
         self._np_rng = np.random.default_rng(seed)  # reseeded every epoch
+        self._story_rows = (0, 1)  # this rank's block of the story batches' blocks (`train`)
         self._eval_rngs: dict[str, torch.Generator] = {}  # `_eval_generator`'s
 
     def _augment_story_host(self, st_batch: dict) -> dict:
         """With USE_SEQ_CONSISTENCY, the story batch with `shuffled` stories
         and their `order_labels` added, drawn on the host from the epoch's
-        numpy generator (in a process group, the rank's own stories: see the
-        module's docstring); otherwise the batch as it is."""
+        numpy generator over the whole batch the story loader gave (its
+        host's), then this rank's rows of it (see the module's docstring);
+        otherwise the batch as it is."""
         if not self.cfg.USE_SEQ_CONSISTENCY:
             return st_batch
         shuffled, order_labels = create_random_shuffle(st_batch["images"], rng=self._np_rng)
-        return {**st_batch, "shuffled": shuffled, "order_labels": order_labels}
+        st_batch = {**st_batch, "shuffled": shuffled, "order_labels": order_labels}
+        block, blocks = self._story_rows
+        if blocks == 1:
+            return st_batch
+        n = len(order_labels) // blocks
+        return {k: v[block * n:(block + 1) * n] for k, v in st_batch.items()}
+
+    def _host_story_rows(self, storyloader) -> tuple[int, int]:
+        """(this rank's block, the blocks) of the story loader's batches:
+        with USE_SEQ_CONSISTENCY in a group of several ranks the loader
+        must read the data shards of this rank's host (as
+        `training_loaders` builds it), or the shuffle would not be the
+        host's, and this rank keeps the block of its data shard."""
+        if not self.cfg.USE_SEQ_CONSISTENCY:
+            return 0, 1
+        shards = tuple(getattr(storyloader, "shards", (self.layout.data_index,)))
+        if process_info()[1] > 1 and shards != host_shards(self.cfg.MESH_SHAPE):
+            raise ValueError(
+                f"USE_SEQ_CONSISTENCY: the story loader reads data shards {shards}, not this "
+                f"rank's host's {host_shards(self.cfg.MESH_SHAPE)}: the story shuffle is the "
+                "host's (build the loaders with data.loader.training_loaders)")
+        return shards.index(self.layout.data_index), len(shards)
+
+    def _say_ranks(self, world: int) -> None:
+        """Rank 0 prints the ranks, hosts and global batches of a group of
+        several ranks, and the card of every rank (its UUID), gathered on
+        the host group: every rank calls this."""
+        cfg = self.cfg
+        card = "cpu"
+        if self.device.type == "cuda":
+            props = torch.cuda.get_device_properties(self.device)
+            card = str(getattr(props, "uuid", f"cuda:{self.device.index}"))
+        cards = [None] * world
+        dist.all_gather_object(cards, card, group=host_group())
+        if self.rank == 0:
+            _, hosts, _, per_host = host_info()
+            im_bs, st_bs = global_batches(cfg)
+            print(f"DATA PARALLEL: {world} ranks on {hosts} host(s) of {per_host}, MESH_SHAPE "
+                  f"{cfg.MESH_SHAPE or f'data:{world}'}, global batches IM {im_bs} / ST {st_bs}")
+            print("DATA PARALLEL cards: " + ", ".join(f"rank {r} {c}" for r, c in enumerate(cards)))
 
     # ------------------------------------------------------------------
     def _warm_start_generator(self, state: TrainState) -> None:
@@ -239,9 +292,8 @@ class GANTrainer:
         print(f"LR DECAY EPOCH: {cfg.TRAIN.LR_DECAY_EPOCH}")
         world = process_info()[1]
         if world > 1:
-            im_bs, st_bs = global_batches(cfg)
-            print(f"DATA PARALLEL: {world} ranks, MESH_SHAPE {cfg.MESH_SHAPE or f'data:{world}'}, "
-                  f"global batches IM {im_bs} / ST {st_bs}")
+            self._say_ranks(world)
+        self._story_rows = self._host_story_rows(storyloader)
         if self.scan_steps is not None:
             way = ("replayed as a CUDA graph of the D+G pair" if captures_chunks(self.device)
                    else "run eagerly")
@@ -323,8 +375,8 @@ class GANTrainer:
         `profile_dir` if it is set. Returns (the last story batch, the
         profile directory, None once traced)."""
         def put(pair):  # on the prefetch thread, one batch after another
-            st_host, im_host = pair
-            return st_host, copier(self._augment_story_host(st_host)), copier(im_host)
+            st_host = self._augment_story_host(pair[0])  # this rank's rows
+            return st_host, copier(st_host), copier(pair[1])
 
         last_st_host, prof = None, None
         for i, (st_host, st_staged, im_staged) in enumerate(
@@ -369,8 +421,8 @@ class GANTrainer:
                 yield chunk  # a shorter last chunk
 
         def put_chunk(chunk):  # on the prefetch thread, one chunk after another
-            st_hosts = [self._augment_story_host(st) for st, _ in chunk]
-            return (chunk[-1][0], copier(stack_batches(st_hosts)),
+            st_hosts = [self._augment_story_host(st) for st, _ in chunk]  # this rank's rows
+            return (st_hosts[-1], copier(stack_batches(st_hosts)),
                     copier(stack_batches([im for _, im in chunk])))
 
         i, last_st_host = 0, None

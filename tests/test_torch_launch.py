@@ -73,7 +73,9 @@ CONDITIONS = {
     "the dump": (["--load_ckpt", "1"], {}, "", 4, 1),
     "the CPU": (["--device", "cpu"], {}, "", 4, 1),
     "a named card": (["--device", "cuda:1"], {}, "", 4, 1),
-    "a rank of a group": ([], {"CPCSV_COORDINATOR": "localhost:1"}, "", 4, 1),
+    "a rank of a group": ([], {"CPCSV_COORDINATOR": "localhost:1", "CPCSV_NUM_PROCESSES": "2",
+                               "CPCSV_PROCESS_ID": "0", "LOCAL_RANK": "0",
+                               "LOCAL_WORLD_SIZE": "2"}, "", 4, 1),
     "under torchrun": ([], {"CPCSV_DISTRIBUTED": "1"}, "", 4, 1),
 }
 
@@ -152,7 +154,8 @@ def test_cuda_one_command_trains_as_two_ranks_started_by_hand(tmp_path):
     """`python -m cpcsv_tpu_torch.cli.main_pororo` with no process group in
     its environment on a host of two or more cards, MESH_SHAPE data:2: two
     NCCL ranks on cards 0 and 1, whose checkpoint equals the one of the same
-    command started by hand as two ranks (CPCSV_*, LOCAL_RANK), bit for bit
+    command started by hand as two ranks of one host (CPCSV_*, LOCAL_RANK,
+    LOCAL_WORLD_SIZE, as torchrun starts them), bit for bit
     (cuDNN deterministic in both, through a sitecustomize of chip_smoke.py)."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
@@ -170,7 +173,8 @@ def test_cuda_one_command_trains_as_two_ranks_started_by_hand(tmp_path):
         name = "command" if rank is None else "by_hand"
         extra = {} if rank is None else {
             "CPCSV_COORDINATOR": f"file://{tmp_path / 'rendezvous'}",
-            "CPCSV_NUM_PROCESSES": "2", "CPCSV_PROCESS_ID": str(rank), "LOCAL_RANK": str(rank)}
+            "CPCSV_NUM_PROCESSES": "1", "CPCSV_PROCESS_ID": "0", "LOCAL_RANK": str(rank),
+            "LOCAL_WORLD_SIZE": "2"}
         logs[name, rank] = open(tmp_path / f"{name}{rank}.log", "w")
         runs[name, rank] = subprocess.Popen(argv, cwd=tmp_path / name, env={**env, **extra},
                                             stdout=logs[name, rank], stderr=subprocess.STDOUT)

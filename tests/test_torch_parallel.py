@@ -28,7 +28,9 @@ port):
     for bit the `steps` launch's two ranks on the same global batch;
   * one command of two ranks through the CLIs' launcher
     (`parallel/launch.py`), --device cpu and gloo: the `cli` launch's
-    straight run, bit for bit.
+    straight run, bit for bit; and two host commands of `cli.main_clevr`,
+    two ranks each under data:2,model:2 (the data groups across the hosts):
+    the `cli` launch's clevr run, bit for bit.
 
 Tolerances: the metrics at rtol 1e-3 / atol 1e-4, as
 `tests/test_multiprocess.py` holds the JAX package; the two ranks bit for
@@ -215,6 +217,25 @@ def runs(tmp_path_factory):
             cwd=cli_root / "one_command", stdout=log, stderr=subprocess.STDOUT,
             env={**{k: v for k, v in os.environ.items() if not k.startswith("CPCSV_")},
                  "OMP_NUM_THREADS": "1", "PYTHONPATH": str(worker.REPO)})
+    # the clevr run again as two host commands of two ranks each under FOUR,
+    # its data groups across the hosts, at the same global batches
+    (cli_root / "two_hosts").mkdir()
+    four_yaml = _tiny_yaml(cli_root / "clevr_hosts.yml", "clevr.yml", mesh=FOUR,
+                           **{**train, "IM_BATCH_SIZE": LOCAL, "ST_BATCH_SIZE": LOCAL // 2})
+    host_logs = [root / f"host{h}.log" for h in range(2)]
+    hosts = []
+    for h, host_log in enumerate(host_logs):
+        with open(host_log, "w") as log:
+            hosts.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys; from cpcsv_tpu_torch.cli import main_clevr; "
+                 "from cpcsv_tpu_torch.parallel import launch; "
+                 "launch.run_ranks(main_clevr.main, sys.argv[1:], 2)",
+                 "--cfg", four_yaml, *base, "--max_epoch", "1", "--backend", "gloo"],
+                cwd=cli_root / "two_hosts", stdout=log, stderr=subprocess.STDOUT,
+                env={**{k: v for k, v in os.environ.items() if not k.startswith("CPCSV_")},
+                     "OMP_NUM_THREADS": "1", "PYTHONPATH": str(worker.REPO),
+                     "CPCSV_COORDINATOR": f"file://{root / 'hosts_rendezvous'}",
+                     "CPCSV_NUM_PROCESSES": "2", "CPCSV_PROCESS_ID": str(h)}))
     cli = _launch("cli", cli_job, root, env=lambda rank: {
         "CPCSV_COORDINATOR": f"file://{root / 'cli_rendezvous'}",
         "CPCSV_NUM_PROCESSES": str(WORLD), "CPCSV_PROCESS_ID": str(rank)})
@@ -250,6 +271,13 @@ def runs(tmp_path_factory):
         one_command.kill()
         one_command.wait()
     out["one_command"] = (one_command.returncode, one_command_log)
+    for p in hosts:
+        try:
+            p.wait(timeout=TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    out["two_hosts"] = [(p.returncode, log) for p, log in zip(hosts, host_logs)]
     first.unlink()
     return out
 
@@ -464,6 +492,26 @@ def test_one_command_writes_the_ranks_snapshot(runs):
     for name in ("train_state_last.pth", "netG_epoch_2.pth"):
         assert chip_smoke.same_snapshot(runs["root"] / "cli" / "one_command" / model / name,
                                         runs["root"] / "cli" / "a" / model / name) == [], name
+
+
+def test_two_host_commands_write_the_ranks_snapshot(runs):
+    """Two host commands of `cli.main_clevr` (CPCSV_COORDINATOR a `file://`
+    store, CPCSV_NUM_PROCESSES 2, CPCSV_PROCESS_ID 0 and 1), each starting
+    two gloo ranks through `parallel.launch.run_ranks` with --device cpu,
+    MESH_SHAPE data:2,model:2 at half the batches a rank: ranks 0-1 on host
+    0, 2-3 on host 1, data groups {0, 2} and {1, 3} across the hosts, the
+    same global batches as the two ranks of data:2. After one epoch the run
+    directory holds the checkpoint of the `cli` launch's clevr run, bit for
+    bit; rank 0 says 4 ranks on 2 hosts of 2."""
+    for code, log in runs["two_hosts"]:
+        assert code == 0, log.read_text()[-3000:]
+    said = runs["two_hosts"][0][1].read_text()
+    assert (f"DATA PARALLEL: 4 ranks on 2 host(s) of 2, MESH_SHAPE {FOUR}, global batches IM "
+            f"{2 * B} / ST {B}") in said, said[-3000:]
+    model = Path("output", "torch", "clevr_model", "Model")
+    for name in ("train_state_last.pth", "netG_epoch_0.pth", "netG_epoch_1.pth"):
+        assert chip_smoke.same_snapshot(runs["root"] / "cli" / "two_hosts" / model / name,
+                                        runs["root"] / "cli" / "c" / model / name) == [], name
 
 
 @pytest.mark.parametrize("shuffle,n,batch", [(True, 23, 4), (False, 10, 4), (True, 8, 2)],
